@@ -1,0 +1,174 @@
+"""Shuttling online collector (paper §4.2), for PyTorch.
+
+The reference computes a block's residual bytes abstractly with
+``jax.eval_shape`` over ``jax.vjp``.  The counterpart here runs the
+block's forward on ``meta`` tensors — no FLOPs, no device memory —
+under ``torch.autograd.graph.saved_tensors_hooks`` and sums the bytes of
+the storages autograd saves for the backward:
+
+* only the unit input requires grad, as the reference differentiates
+  with respect to the input alone (params closed over) — residuals that
+  only the weight gradients need are not counted;
+* the unit's parameters are excluded (they are resident anyway);
+* storages are deduplicated by identity (``data_ptr()`` is 0 on meta);
+* offloadable bytes are the saved storages seen through a view of two
+  or more dimensions.
+
+The collection runs lazily, on the live batch geometry, only when a new
+input size appears; identical units are traced once (dedup by signature).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.launch.roofline import plan_unit_flops
+from repro_torch.models.lm import PlanUnit
+
+
+@dataclasses.dataclass
+class UnitRecord:
+    name: str
+    index: int                 # forward timestamp
+    activation_bytes: int      # residuals autograd saves (excluding weights)
+    output_bytes: int          # boundary tensor (kept even when rematted)
+    param_bytes: int
+    # analytic forward FLOPs at the collection geometry (recompute cost)
+    flops: float = 0.0
+    # residual bytes worth a host copy (matrix-shaped saved tensors)
+    offloadable_bytes: int = 0
+
+
+@dataclasses.dataclass
+class CollectionResult:
+    input_size: int            # elements in the mini-batch input tensor
+    records: List[UnitRecord]
+    collect_time_s: float = 0.0
+    traced_units: int = 0      # meta traces actually run
+    dedup_hits: int = 0        # units served from an identical unit's trace
+
+    def activation_vector(self) -> np.ndarray:
+        return np.array([r.activation_bytes for r in self.records],
+                        dtype=np.float64)
+
+    def flops_vector(self) -> np.ndarray:
+        return np.array([r.flops for r in self.records], dtype=np.float64)
+
+    def output_vector(self) -> np.ndarray:
+        return np.array([r.output_bytes for r in self.records],
+                        dtype=np.float64)
+
+    def offloadable_vector(self) -> np.ndarray:
+        return np.array([r.offloadable_bytes for r in self.records],
+                        dtype=np.float64)
+
+    def total_activation_bytes(self) -> int:
+        return int(sum(r.activation_bytes for r in self.records))
+
+
+def _meta_tree(node):
+    """The parameter tree with every tensor replaced by a ``meta`` tensor
+    of the same shape and dtype (nested plain dicts)."""
+    if isinstance(node, torch.Tensor):
+        return torch.empty_like(node, device="meta")
+    return {k: _meta_tree(v) for k, v in node.items()}
+
+
+def _leaves(node):
+    if isinstance(node, torch.Tensor):
+        yield node
+    else:
+        for v in node.values():
+            yield from _leaves(v)
+
+
+def unit_residual_bytes(unit: PlanUnit, x_shape, dtype, *,
+                        weight_grads: bool = False) -> Dict[str, int]:
+    """Residual footprint of one unit at input shape ``x_shape``, from a
+    forward on ``meta`` tensors.  ``weight_grads=True`` lets the
+    parameters require grad too, so the count also holds what the weight
+    gradients need — what a training step really keeps; the planner
+    uses the reference's input-only count."""
+    params = _meta_tree(unit.params)
+    if weight_grads:
+        for t in _leaves(params):
+            t.requires_grad_(True)
+    param_ids = {t.untyped_storage()._cdata for t in _leaves(params)}
+    saved: Dict[int, list] = {}          # storage id -> [bytes, >= 2-d view]
+    alive = []                           # keeps storage ids from reuse
+
+    def pack(t):
+        alive.append(t)
+        st = t.untyped_storage()
+        if st._cdata not in param_ids:
+            entry = saved.setdefault(st._cdata, [st.nbytes(), False])
+            entry[1] = entry[1] or t.dim() >= 2
+        return t
+
+    x = torch.empty(x_shape, dtype=dtype, device="meta", requires_grad=True)
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = unit.apply(params, x)
+    act = sum(nb for nb, _ in saved.values())
+    offl = sum(nb for nb, two_d in saved.values() if two_d)
+    return {"activation_bytes": int(act),
+            "output_bytes": out.numel() * out.element_size(),
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in _leaves(params)),
+            "offloadable_bytes": int(min(offl, act))}
+
+
+def input_size_of(batch) -> int:
+    """Paper §3.1: input size = number of elements in the input tensor."""
+    return int(np.prod(tuple(batch["tokens"].shape)))
+
+
+def _param_sig(node) -> tuple:
+    return tuple((tuple(t.shape), str(t.dtype)) for t in _leaves(node))
+
+
+class ShuttlingCollector:
+    """Collects per-unit activation bytes for the live batch geometry.
+
+    Units are deduplicated by (behavioural signature, parameter shapes,
+    input shape and dtype): a homogeneous 12-block model needs one meta
+    trace per input size, not 12.  ``dedup=False`` traces every unit.
+    """
+
+    def __init__(self, lm, dedup: bool = True):
+        self.lm = lm
+        self.dedup = dedup
+        self._trace_cache: Dict[tuple, dict] = {}
+
+    def collect(self, batch) -> CollectionResult:
+        t0 = time.perf_counter()
+        units = self.lm.plan_units(batch)
+        unit_flops = plan_unit_flops(self.lm, batch)
+        B, S = batch["tokens"].shape
+        x_shape = (int(B), int(S), self.lm.cfg.d_model)
+        dtype = self.lm.dtype
+        records: List[UnitRecord] = []
+        traced = hits = 0
+        for u in units:
+            key = info = None
+            if self.dedup and u.signature is not None:
+                key = (u.signature, _param_sig(u.params), x_shape, str(dtype))
+                info = self._trace_cache.get(key)
+            if info is None:
+                info = unit_residual_bytes(u, x_shape, dtype)
+                if key is not None:
+                    self._trace_cache[key] = info
+                traced += 1
+            else:
+                hits += 1
+            records.append(UnitRecord(
+                u.name, u.index, info["activation_bytes"],
+                info["output_bytes"], info["param_bytes"],
+                float(unit_flops[u.index]),
+                offloadable_bytes=info["offloadable_bytes"]))
+        return CollectionResult(input_size_of(batch), records,
+                                time.perf_counter() - t0,
+                                traced_units=traced, dedup_hits=hits)

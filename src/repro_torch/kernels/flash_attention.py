@@ -1,0 +1,316 @@
+"""Flash attention: hand-written CUDA kernels for Hopper, their plain
+PyTorch versions, and the ``torch.autograd.Function`` that joins them.
+
+Counterpart of the reference's ``kernels/flash_attention.py``:
+
+============================  ==========================  =====================
+wrapper here                  CUDA kernel                 TPU kernel replaced
+============================  ==========================  =====================
+``flash_fwd``                 ``flash_fwd_kernel``        ``_flash_kernel``
+``flash_bwd`` (dq)            ``flash_bwd_dq_kernel``     ``_flash_bwd_dq_kernel``
+``flash_bwd`` (dk, dv)        ``flash_bwd_dkv_kernel``    ``_flash_bwd_dkv_kernel``
+============================  ==========================  =====================
+
+Layout: q (B, H, S, hd); k, v (B, Hkv, S, hd); GQA through the kv head
+``h // (H // Hkv)``.  ``kv_len`` is an optional (B,) int32 tensor of true
+lengths: keys at or past it are masked and fully padded tiles skipped.
+Output rows at or past ``kv_len`` are unspecified; dk and dv are exactly
+zero there.
+
+Routing: for a CUDA tensor a wrapper launches its kernel or raises — it
+never falls back.  For a CPU tensor it runs the plain version beside it.
+For a ``meta`` tensor it returns ``meta`` outputs of the kernel's shapes
+(the collector traces blocks on ``meta`` to count saved residuals).
+
+The kernels are built from ``csrc/flash_attention.cu`` with ``nvcc`` at
+first use into ``build/repro_torch/`` at the repository root and loaded
+with ``ctypes``.  Each wrapper counts its launches in ``LAUNCHES``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.ref import attention_mask
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+
+# launches per kernel, counted by the wrappers right after a launch
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if path is None and default.exists():
+        path = str(default)
+    if path is None:
+        raise RuntimeError(
+            "nvcc not found: the flash-attention kernels are compiled from "
+            f"{_SRC} at first use and need the CUDA toolkit")
+    return path
+
+
+def build_library() -> Path:
+    """Compile the kernels (once per source version) and return the
+    shared library's path.  Raises if ``nvcc`` is missing or fails."""
+    tag = hashlib.sha256(_SRC.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = _BUILD_DIR / f"flash_attention_{tag}.so"
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        tail = [i] * 7 + [ctypes.c_float, i, p]
+        for name, n_ptrs in (("flash_fwd", 6), ("flash_bwd_dq", 8),
+                             ("flash_bwd_dkv", 9)):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [p] * n_ptrs + tail
+        _lib = lib
+    return _lib
+
+
+def _stream_handle(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _alloc(shape, dtype, device) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def _route(t: torch.Tensor) -> str:
+    """'kernel' for CUDA tensors, 'plain' for CPU, 'meta' for meta."""
+    if t.is_cuda:
+        return "kernel"
+    if t.device.type in ("cpu", "meta"):
+        return "plain" if t.device.type == "cpu" else "meta"
+    raise ValueError(f"flash attention runs on cuda (kernel) or cpu "
+                     f"(plain version), not {t.device}")
+
+
+def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _kernel_args(q, k, v, kv_len) -> Tuple[tuple, torch.Tensor]:
+    """Validate the common operands of the three launches; returns the
+    integer arguments and the clamped int32 lengths."""
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"flash kernels take float32 or bfloat16, "
+                         f"not {q.dtype}")
+    B, H, S, hd = q.shape
+    Hkv = k.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if S == 0 or Hkv == 0 or H % Hkv:
+        raise ValueError(f"bad heads/length: H={H} Hkv={Hkv} S={S}")
+    _check("q", q, (B, H, S, hd), q.dtype, q.device)
+    _check("k", k, (B, Hkv, S, hd), q.dtype, q.device)
+    _check("v", v, (B, Hkv, S, hd), q.dtype, q.device)
+    kvl = resolve_kv_len(kv_len, B, S, q.device)
+    _check("kv_len", kvl, (B,), torch.int32, q.device)
+    return (B, H, Hkv, S, hd), kvl
+
+
+def resolve_kv_len(kv_len, B: int, S: int, device) -> torch.Tensor:
+    """Normalise ``kv_len`` to a clamped (B,) int32 tensor (None -> S).
+    A given ``kv_len`` stays on its device (the caller checks it)."""
+    if kv_len is None:
+        return torch.full((B,), S, dtype=torch.int32, device=device)
+    return kv_len.to(dtype=torch.int32).clamp(0, S).contiguous()
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+
+
+# ---------------------------------------------------------------------------
+# plain versions (same function as each kernel, computed densely in fp32)
+# ---------------------------------------------------------------------------
+
+def _dense(q, k, kv_len, causal, window, rows_valid=False):
+    """Scores, mask and kv-head expansion shared by the plain versions."""
+    B, H, S, hd = q.shape
+    group = H // k.shape[1]
+    kq = k.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) * (1.0 / math.sqrt(hd))
+    mask = attention_mask(S, S, kv_len, causal=causal, window=window,
+                          device=q.device)
+    if rows_valid and kv_len is not None:
+        qpos = torch.arange(S, device=q.device)[None, :, None]
+        mask = mask & (qpos < kv_len[:, None, None])
+    return s, mask[:, None], kq, group
+
+
+def flash_fwd_plain(q, k, v, kv_len=None, causal=True, window=0):
+    """Plain version of K1: (o, lse) with the kernel's empty-row
+    convention (o = 0, lse = NEG_INF + log(1e-30))."""
+    s, mask, _, group = _dense(q, k, kv_len, causal, window)
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None]) * mask
+    l = p.sum(-1).clamp_min(1e-30)
+    vq = v.float().repeat_interleave(group, dim=1)
+    o = (p @ vq) / l[..., None]
+    return o.to(q.dtype), m + torch.log(l)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, kv_len=None, causal=True,
+                       window=0):
+    """Plain version of K2: dq from the saved residuals."""
+    s, mask, kq, group = _dense(q, k, kv_len, causal, window)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(),
+                      v.float().repeat_interleave(group, dim=1))
+    ds = p * (dp - delta[..., None]) * (1.0 / math.sqrt(q.shape[-1]))
+    return (ds @ kq).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, kv_len=None, causal=True,
+                        window=0):
+    """Plain version of K3: (dk, dv) per kv head, masked also by
+    ``q < kv_len`` so padded keys get exactly zero."""
+    s, mask, _, group = _dense(q, k, kv_len, causal, window, rows_valid=True)
+    B, H, S, hd = q.shape
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dof = do.float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof,
+                      v.float().repeat_interleave(group, dim=1))
+    ds = p * (dp - delta[..., None]) * (1.0 / math.sqrt(hd))
+    dv = p.transpose(-1, -2) @ dof
+    dk = ds.transpose(-1, -2) @ q.float()
+    Hkv = k.shape[1]
+    dk = dk.reshape(B, Hkv, group, S, hd).sum(2)
+    dv = dv.reshape(B, Hkv, group, S, hd).sum(2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def flash_fwd(q, k, v, kv_len=None, causal: bool = True, window: int = 0):
+    """K1: returns (o in q's dtype, lse (B, H, S) fp32)."""
+    route = _route(q)
+    if route == "plain":
+        return flash_fwd_plain(q, k, v, kv_len, causal, window)
+    B, H, S, hd = q.shape
+    if route == "meta":
+        return (torch.empty_like(q),
+                torch.empty((B, H, S), dtype=torch.float32, device="meta"))
+    dims, kvl = _kernel_args(q, k, v, kv_len)
+    o = _alloc(q.shape, q.dtype, q.device)
+    lse = _alloc((B, H, S), torch.float32, q.device)
+    err = library().flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), *dims, int(causal), int(window),
+        1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _stream_handle(q.device))
+    _raise_on(err, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_bwd(q, k, v, o, lse, do, kv_len=None, causal: bool = True,
+              window: int = 0):
+    """K2 and K3: returns (dq, dk, dv), dk/dv per kv head.  ``delta =
+    rowsum(do * o)`` is a torch reduction outside the kernels, as in the
+    reference."""
+    route = _route(q)
+    delta = (do.float() * o.float()).sum(-1)
+    if route == "plain":
+        dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, kv_len, causal,
+                                window)
+        dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, kv_len,
+                                     causal, window)
+        return dq, dk, dv
+    if route == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dims, kvl = _kernel_args(q, k, v, kv_len)
+    B, H, S, hd = q.shape
+    _check("do", do, q.shape, q.dtype, q.device)
+    _check("lse", lse, (B, H, S), torch.float32, q.device)
+    tail = (*dims, int(causal), int(window), 1.0 / math.sqrt(hd),
+            _DTYPE_CODE[q.dtype], _stream_handle(q.device))
+    lib = library()
+    dq = _alloc(q.shape, q.dtype, q.device)
+    err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           kvl.data_ptr(), dq.data_ptr(), *tail)
+    _raise_on(err, "flash_bwd_dq")
+    LAUNCHES["flash_bwd_dq"] += 1
+    dk = _alloc(k.shape, k.dtype, k.device)
+    dv = _alloc(v.shape, v.dtype, v.device)
+    err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                            kvl.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                            *tail)
+    _raise_on(err, "flash_bwd_dkv")
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with O(S) residuals ``(q, k, v, o, lse, kv_len)``,
+    the counterpart of the reference's ``custom_vjp``.  The backward
+    recomputes the score tiles (K2, K3); ``kv_len`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len=None, causal: bool = True,
+                window: int = 0):
+        o, lse = flash_fwd(q, k, v, kv_len, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse, kv_len)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_len = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), kv_len,
+                               ctx.causal, ctx.window)
+        return dq, dk, dv, None, None, None

@@ -1,0 +1,146 @@
+"""Core layers of the dense family: plain functions on tensors.
+
+Counterpart of the reference's ``models/layers.py``.  Parameters are
+dict-like (``nn.ParameterDict`` or plain dicts of tensors) in the
+reference's layout: dense weights stored ``(d_in, d_out)`` and applied
+as ``x @ w``.  All shapes follow ``(batch, seq, d_model)``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+
+
+# ---------------------------------------------------------------------------
+# initialisation (the reference's distributions, from a torch.Generator)
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype) -> torch.Tensor:
+    return (torch.randn(d_in, d_out, generator=gen)
+            / math.sqrt(d_in)).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype) -> torch.Tensor:
+    return (torch.randn(vocab, d, generator=gen) * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms and rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rmsnorm_apply(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S) integer."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    angles = positions[..., None].float() * freqs          # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def build_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+               is_global: bool) -> torch.Tensor:
+    """(..., Sq, Sk) boolean mask: causal, plus the sliding window on
+    local layers (global layers ignore the window)."""
+    causal = q_pos[..., :, None] >= k_pos[..., None, :]
+    if window <= 0 or is_global:
+        return causal
+    return causal & ((q_pos[..., :, None] - k_pos[..., None, :]) < window)
+
+
+def sdpa_reference(q, k, v, mask) -> torch.Tensor:
+    """Plain attention with GQA.  q: (B, Sq, H, hd); k, v: (B, Sk, Hkv, hd);
+    mask broadcastable to (B, Sq, Sk) boolean; masked scores are set to
+    ``finfo(float32).min``, as in the reference."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    group = H // Hkv
+    q_ = q.reshape(B, Sq, Hkv, group, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q_.float(), k.float())
+    logits = logits / math.sqrt(hd)
+    m = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
+    logits = logits.masked_fill(~m, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", probs.to(v.dtype), v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def attention_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
+                    positions: torch.Tensor, layer_is_global: bool = True,
+                    impl: str = "xla",
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal self attention without a cache (training / prefill).
+
+    ``kv_len``: optional (B,) int32 true lengths of a bucket-padded
+    batch — padded keys are masked out (and skipped tile-wise by the
+    flash kernels).  ``impl="flash"`` runs the hand-written kernels;
+    ``"xla"`` (the reference's name) runs ``sdpa_reference``.
+    """
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
+    k = (x @ params["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+    v = (x @ params["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    W = cfg.sliding_window
+    is_local = not layer_is_global and W > 0
+    if impl == "flash":
+        from repro_torch.kernels import ops as kernel_ops
+        out = kernel_ops.flash_attention(q, k, v, kv_len, causal=True,
+                                         window=W if is_local else 0)
+    elif impl == "xla":
+        mask = build_mask(positions, positions, W, layer_is_global)
+        if kv_len is not None:
+            key_valid = torch.arange(S, device=x.device)[None, :] \
+                < kv_len[:, None]                              # (B, S)
+            mask = mask & key_valid[:, None, :]
+        out = sdpa_reference(q, k, v, mask)
+    else:
+        raise ValueError(f"attn impl must be 'xla' or 'flash', not {impl!r}")
+    return out.reshape(B, S, cfg.num_heads * hd) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_apply(params, x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "swiglu":
+        h = F.silu(x @ params["wg"]) * (x @ params["wi"])
+    elif act == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(x @ params["wi"], approximate="tanh")
+    else:
+        h = F.relu(x @ params["wi"])
+    return h @ params["wo"]
