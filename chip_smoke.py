@@ -8,20 +8,30 @@ Run from the repository root, with no arguments:
 Phases (each raises on failure; the script then exits non-zero):
 
 1. card identity (``nvidia-smi`` name and power limit);
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. hold each kernel (flash forward, dq, dk/dv) against its plain PyTorch
-   version on the card, over the reference suite's cases and the main
-   path's shapes;
-4. one full-width loss through the flash kernels against plain
-   attention;
-5. the main path: ``repro_torch.launch.train.main`` trains full-width
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+   ``nvcc`` per source, all started together;
+3. bert path: hold each flash kernel (forward, dq, dk/dv) against its
+   plain PyTorch version on the card, over the reference suite's cases
+   and the main path's shapes; one full-width loss through the flash
+   kernels against plain attention; then the main path:
+   ``repro_torch.launch.train.main`` trains full-width
    ``bert_base_paper`` under the Mimose planner with ``--attn-impl
-   flash``, with launch counts read around it;
-6. where a warm step's device time goes (``torch.profiler``), and its
-   device memory after the forward and at the backward's peak against
-   the planner's prediction;
-7. kernel timings (CUDA events) beside the plain version, the library
-   call and the bound;
+   flash``, with launch counts read around it; where a warm step's
+   device time goes (``torch.profiler``) and its memory against the
+   planner's prediction; kernel timings (CUDA events) beside the plain
+   version, the library call and the bound;
+4. the SSD chunk-scan kernel against its plain version (the reference's
+   SSD cases, its ragged cases, the mamba2 main path's buckets), the
+   bitwise padded-versus-unpadded check and ``SSDScan``'s gradient
+   against autograd through the plain version;
+5. the DMA copy kernel against the identity;
+6. mamba2 path: trains full-width ``mamba2_1p3b`` in scan mode under the
+   Mimose planner with ``--attn-impl flash`` (every layer's chunk scan
+   through the kernel), with launch counts read around it; one
+   full-width loss through the kernel against ``ssd_chunked``; profile
+   and memory of a warm step; the SSD kernel's timings;
+7. DMA path: ``ops.residual_dma_copy`` stages a residual stream and the
+   logits, with launch counts read around it; the DMA kernel's timings;
 
 then prints the card line, one ``{"kernels": [...]}`` JSON line and, as
 the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -29,12 +39,14 @@ a CUDA device, and when the repository's ``src/`` is not beside it.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -47,20 +59,30 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 
-# main path: full-width bert_base_paper, squad lengths, batch 8
-MAIN_ARGS = dict(arch="bert_base_paper", dataset="squad", batch_size=8,
+# the main paths: full-width bert_base_paper and mamba2_1p3b, squad
+# lengths, batch 8
+BERT_ARGS = dict(arch="bert_base_paper", dataset="squad", batch_size=8,
                  steps=16, quantum=32)
+MAMBA_ARGS = dict(arch="mamba2_1p3b", dataset="squad", batch_size=8,
+                  steps=16, quantum=32)
 # share of the first batch's collected activation bytes the budget
 # leaves on top of the fixed bytes: the rest must be rematerialised
 BUDGET_ACT_SHARE = 0.6
 
+CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = [
-    # name, TPU kernel replaced (file:line of its body)
-    ("flash_fwd", "src/repro/kernels/flash_attention.py:57"),
-    ("flash_bwd_dq", "src/repro/kernels/flash_attention.py:163"),
-    ("flash_bwd_dkv", "src/repro/kernels/flash_attention.py:205"),
+    # name, source, TPU kernel replaced (file:line of its body)
+    ("flash_fwd", CSRC + "flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:57"),
+    ("flash_bwd_dq", CSRC + "flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:163"),
+    ("flash_bwd_dkv", CSRC + "flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:205"),
+    ("ssd_scan", CSRC + "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:34"),
+    ("dma_copy", CSRC + "offload_dma.cu",
+     "src/repro/kernels/offload_dma.py:30"),
 ]
-SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_KERNELS = [k[0] for k in KERNELS[:3]]
 
 # (B, S, H, Hkv, hd, causal, window, dtype, ragged): the reference's
 # FLASH_CASES (tests/test_kernels.py) and RAGGED_FLASH_CASES
@@ -118,7 +140,7 @@ def _valid_rows(x, lens):
                       for b, L in enumerate(lens)])
 
 
-def check_case(fa, case, lens=None, seed=0):
+def check_case(fa, kb, case, lens=None, seed=0):
     """Run K1-K3 and their plain versions on one case; returns the max
     abs error per kernel.  Raises on a tolerance miss."""
     B, S, H, Hkv, hd, causal, window, dtype, ragged = case
@@ -156,12 +178,12 @@ def check_case(fa, case, lens=None, seed=0):
     lib = fa.library()
     dims = (B, H, Hkv, S, hd, int(causal), int(window), 1.0 / math.sqrt(hd),
             fa._DTYPE_CODE[dt], torch.cuda.current_stream().cuda_stream)
-    fa._raise_on(lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    kb.raise_on(lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                   do.data_ptr(), lse.data_ptr(),
                                   delta.data_ptr(), kvl.data_ptr(),
                                   dq.data_ptr(), *dims), "flash_bwd_dq")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fa._raise_on(lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    kb.raise_on(lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    do.data_ptr(), lse.data_ptr(),
                                    delta.data_ptr(), kvl.data_ptr(),
                                    dk.data_ptr(), dv.data_ptr(), *dims),
@@ -193,13 +215,13 @@ def check_case(fa, case, lens=None, seed=0):
     return errs
 
 
-def check_kernels(fa, cases, lens_of=None):
+def check_kernels(fa, kb, cases, lens_of=None):
     """Every case in ``cases``; returns max abs error per kernel over the
     cases flagged as main-path cases in ``lens_of``."""
-    main_errs = {name: 0.0 for name, _ in KERNELS}
+    main_errs = {name: 0.0 for name in FLASH_KERNELS}
     for case in cases:
         lens = (lens_of or {}).get(case)
-        errs = check_case(fa, case, lens)
+        errs = check_case(fa, kb, case, lens)
         log(f"kernel check {case}: "
             + " ".join(f"{n}={e:.3e}" for n, e in errs.items()))
         if lens is not None:
@@ -212,34 +234,54 @@ def check_kernels(fa, cases, lens_of=None):
 # the main path
 # ---------------------------------------------------------------------------
 
-def main_path_batches():
+def main_path_batches(args):
     from repro_torch.data.pipeline import make_batches
     from repro_torch.models.registry import get_config
-    cfg = get_config(MAIN_ARGS["arch"])
-    return list(make_batches(MAIN_ARGS["dataset"],
-                             batch_size=MAIN_ARGS["batch_size"],
+    cfg = get_config(args["arch"])
+    return list(make_batches(args["dataset"], batch_size=args["batch_size"],
                              vocab_size=cfg.vocab_size,
-                             num_batches=MAIN_ARGS["steps"],
-                             quantum=MAIN_ARGS["quantum"], seed=0))
+                             num_batches=args["steps"],
+                             quantum=args["quantum"], seed=0))
 
 
-def derive_budget_mb(first_batch) -> float:
+def lengths_by_bucket(batches):
+    """{S: the first batch's true lengths at that bucket length}."""
+    out = {}
+    for b in batches:
+        out.setdefault(b["tokens"].shape[1], [int(x) for x in b["lengths"]])
+    return out
+
+
+def most_common_bucket(batches):
+    counts = {}
+    for b in batches:
+        counts[b["tokens"].shape[1]] = counts.get(b["tokens"].shape[1], 0) + 1
+    S = max(counts, key=lambda s: (counts[s], s))
+    return S, next(b for b in batches if b["tokens"].shape[1] == S)
+
+
+def derive_budget_mb(args, first_batch) -> float:
     """fixed bytes + BUDGET_ACT_SHARE x the first batch's collected
-    activation bytes (the collector runs on meta tensors)."""
+    activation bytes.  The model is built on ``meta``: the collector and
+    the fixed bytes need shapes only."""
     from repro_torch.core.collector import (ShuttlingCollector,
                                            unit_residual_bytes)
     from repro_torch.core.planner import fixed_train_bytes
     from repro_torch.models.lm import LM
     from repro_torch.models.registry import get_config
-    lm = LM(get_config(MAIN_ARGS["arch"]), attn_impl="flash", device="cpu")
+    lm = LM(get_config(args["arch"]), attn_impl="flash", device="meta")
     fixed = fixed_train_bytes(lm.parameters())
+    n_params = sum(p.numel() for p in lm.parameters())
     B, S = first_batch["tokens"].shape
     tokens = {"tokens": torch.zeros((B, S), dtype=torch.long)}
     act = ShuttlingCollector(lm).collect(tokens).total_activation_bytes()
     budget = fixed + BUDGET_ACT_SHARE * act
-    log(f"budget: fixed {fixed / 2**20:.1f} MiB (16 B/param: params, grads, "
-        f"fp32 m and v) + {BUDGET_ACT_SHARE} x {act / 2**20:.1f} MiB "
-        f"activations of the first batch (B={B}, S={S}, 12 blocks) = "
+    units = lm.num_plan_units()
+    log(f"budget {args['arch']}: fixed {fixed / 2**20:.1f} MiB ("
+        f"{n_params / 1e6:.1f} M params, {fixed / n_params:.0f} B/param: "
+        f"params and grads in their dtypes, fp32 m and v) + "
+        f"{BUDGET_ACT_SHARE} x {act / 2**20:.1f} MiB activations of the "
+        f"first batch (B={B}, S={S}, {units} units) = "
         f"{budget / 2**20:.1f} MiB")
     # what the planner's model leaves out (the measured peak's excess)
     unit = lm.plan_units(tokens)[0]
@@ -247,47 +289,53 @@ def derive_budget_mb(first_batch) -> float:
     x_only = unit_residual_bytes(unit, shape, lm.dtype)["activation_bytes"]
     train = unit_residual_bytes(unit, shape, lm.dtype,
                                 weight_grads=True)["activation_bytes"]
-    log(f"residuals per block at S={S}: {x_only / 2**20:.2f} MiB counted "
-        f"(input gradient only, as the reference) vs {train / 2**20:.2f} MiB "
-        f"held in training (weight gradients too); fp32 logits "
-        f"{B * S * lm.cfg.vocab_size * 4 / 2**20:.2f} MiB per copy, outside "
-        f"every block")
+    log(f"residuals per unit ({unit.name}) at S={S}: {x_only / 2**20:.2f} "
+        f"MiB counted (input gradient only, as the reference) vs "
+        f"{train / 2**20:.2f} MiB held in training (weight gradients too); "
+        f"fp32 logits {B * S * lm.cfg.vocab_size * 4 / 2**20:.2f} MiB per "
+        f"copy, outside every unit")
     return budget / 2**20
 
 
-def check_model(first_batch):
-    """One full-width loss through the flash kernels against the plain
-    attention path on the same weights and batch."""
-    from repro_torch.models.lm import LM
-    from repro_torch.models.registry import get_config
+def _device_batch(batch, quantum):
     from repro_torch.data.pipeline import pad_batch
-    lm = LM(get_config(MAIN_ARGS["arch"]), attn_impl="flash", device="cuda")
-    b = pad_batch(first_batch, MAIN_ARGS["quantum"])
-    batch = {k: torch.as_tensor(np.asarray(v)).cuda() for k, v in b.items()}
-    batch["tokens"] = batch["tokens"].long()
-    batch["labels"] = batch["labels"].long()
+    b = pad_batch(batch, quantum)
+    out = {k: torch.as_tensor(np.asarray(v)).cuda() for k, v in b.items()}
+    out["tokens"] = out["tokens"].long()
+    out["labels"] = out["labels"].long()
+    return out
+
+
+def check_model(lm, batch, quantum, rtol):
+    """One full-width loss through the hand-written kernels against the
+    plain path (``attn_impl="xla"``) on the same weights and batch."""
+    b = _device_batch(batch, quantum)
+    impl = lm.attn_impl
     with torch.no_grad():
-        flash, _ = lm.loss(batch)
+        lm.attn_impl = "flash"
+        kernel, _ = lm.loss(b)
         lm.attn_impl = "xla"
-        plain, _ = lm.loss(batch)
+        plain, _ = lm.loss(b)
+    lm.attn_impl = impl
     torch.cuda.synchronize()
-    flash, plain = float(flash), float(plain)
-    log(f"model check: loss flash {flash:.6f} plain {plain:.6f}")
-    if not (math.isfinite(flash) and abs(flash - plain) <= 1e-4 * abs(plain)):
-        raise AssertionError("full-width loss: flash and plain disagree")
-    del lm
-    torch.cuda.empty_cache()
+    kernel, plain = float(kernel), float(plain)
+    log(f"model check {lm.cfg.name}: loss kernels {kernel:.6f} plain "
+        f"{plain:.6f} (rtol {rtol})")
+    if not (math.isfinite(kernel)
+            and abs(kernel - plain) <= rtol * abs(plain)):
+        raise AssertionError(f"{lm.cfg.name}: full-width loss through the "
+                             f"kernels and the plain path disagree")
 
 
-def run_main_path(budget_mb):
+def run_main_path(args, budget_mb):
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
-    argv = ["--arch", MAIN_ARGS["arch"], "--dataset", MAIN_ARGS["dataset"],
+    argv = ["--arch", args["arch"], "--dataset", args["dataset"],
             "--planner", "mimose", "--attn-impl", "flash",
             "--budget-mb", f"{budget_mb:.3f}",
-            "--steps", str(MAIN_ARGS["steps"]),
-            "--batch-size", str(MAIN_ARGS["batch_size"]),
-            "--quantum", str(MAIN_ARGS["quantum"]), "--device", "cuda"]
+            "--steps", str(args["steps"]),
+            "--batch-size", str(args["batch_size"]),
+            "--quantum", str(args["quantum"]), "--device", "cuda"]
     log("main path: python -m repro_torch.launch.train " + " ".join(argv))
     ops.reset_launches()
     trainer = launch_train.main(argv)
@@ -298,10 +346,16 @@ def run_main_path(budget_mb):
 
 
 def check_main_path(trainer, launches):
-    """What the main path's run must show; raises otherwise."""
+    """What a main path's run must show; raises otherwise."""
     h = trainer.history
-    n_units = trainer.lm.num_plan_units()
+    lm = trainer.lm
+    n_units = lm.num_plan_units()
+    layers = [e - s for s, e in lm.unit_bounds()]
     losses = [s.loss for s in h]
+    # every layer runs its mixer kernel once in the forward; each layer
+    # of a REMAT unit once more in the backward's recompute (equal units)
+    fwd_per_step = [lm.cfg.num_layers + s.remat_units * layers[0]
+                    for s in h]
     log(f"main path launches: {launches}")
     checks = {
         "losses finite": all(math.isfinite(x) for x in losses),
@@ -311,14 +365,26 @@ def check_main_path(trainer, launches):
                               for s in h),
         "plan-cache hit": any(s.cache_hit for s in h),
         "mixed KEEP/REMAT plan": any(0 < s.remat_units < n_units for s in h),
-        "every kernel launched": all(n > 0 for n in launches.values()),
-        # the forward runs every block through K1 once, and each REMAT
-        # block once more in the backward's recompute
-        "K1 = sum(units + n_remat)": launches["flash_fwd"]
-        == sum(n_units + s.remat_units for s in h),
-        "K2 = K3 = units per step": launches["flash_bwd_dq"]
-        == launches["flash_bwd_dkv"] == n_units * len(h),
+        "equal units": len(set(layers)) == 1,
     }
+    if lm.kind == "ssm":
+        checks.update({
+            "ssd_scan = sum(48 + 6 n_remat)":
+                launches["ssd_scan"] == sum(fwd_per_step),
+            "no flash or dma launches": all(
+                launches[k] == 0 for k in FLASH_KERNELS + ["dma_copy"]),
+        })
+    else:
+        checks.update({
+            "every flash kernel launched": all(launches[k] > 0
+                                               for k in FLASH_KERNELS),
+            "K1 = sum(units + n_remat)":
+                launches["flash_fwd"] == sum(fwd_per_step),
+            "K2 = K3 = units per step": launches["flash_bwd_dq"]
+            == launches["flash_bwd_dkv"] == n_units * len(h),
+            "no ssd or dma launches": launches["ssd_scan"] == 0
+            and launches["dma_copy"] == 0,
+        })
     log("main path checks: " + json.dumps(checks))
     if not all(checks.values()):
         raise AssertionError(f"main path checks failed: {checks}")
@@ -326,14 +392,26 @@ def check_main_path(trainer, launches):
     log(f"main path: tokens/s over warm steps {summ['tokens_per_s']:.1f} "
         f"(padded {summ['padded_tokens_per_s']:.1f}), mean warm step "
         f"{summ['mean_step_s'] * 1e3:.2f} ms, plan time "
-        f"{summ['total_plan_s'] * 1e3:.2f} ms total")
+        f"{summ['total_plan_s'] * 1e3:.2f} ms total, first step "
+        f"{h[0].step_time_s * 1e3:.1f} ms")
+    by_bucket = {}
+    for st in h:
+        by_bucket.setdefault(st.bucket, []).append(st)
+    for bucket, sts in sorted(by_bucket.items()):
+        log(f"  bucket {bucket}: {len(sts)} steps, n_remat "
+            f"{sorted({s.remat_units for s in sts})}, measured peak "
+            f"{max(s.max_memory_bytes for s in sts) / 2**20:.1f} MiB vs "
+            f"predicted {max(s.predicted_peak_bytes for s in sts) / 2**20:.1f}"
+            f" MiB")
 
 
-def profile_step(trainer, batch):
+def profile_step(trainer, batch, groups):
     """Where one warm training step's time goes: its host wall time
     (synchronised, profiler off), then the same step under
     ``torch.profiler`` for device time by kernel.  The device's busy
-    share is device kernel time over the unprofiled wall time."""
+    share is device kernel time over the unprofiled wall time.
+    ``groups``: (group name, substrings of kernel names), first match
+    wins; the rest is "other"."""
     from torch.profiler import ProfilerActivity, profile
     opt_state = trainer.optimizer.init(trainer.params)
     for _ in range(2):                      # warm, then the timed step
@@ -342,6 +420,28 @@ def profile_step(trainer, batch):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         opt_state, _ = trainer.step(opt_state, batch)
+    # the same step's phases on CUDA events, profiler off
+    lm, params = trainer.lm, trainer.params
+    tb = trainer._prepare(batch)
+    actions, _ = trainer.planner.plan(tb)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    loss, _ = lm.loss(tb, actions)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    trainer.optimizer.update({n: p.grad for n, p in params.items()},
+                             opt_state, params)
+    ev[3].record()
+    torch.cuda.synchronize()
+    for p in params.values():
+        p.grad = None
+    del opt_state, loss
+    phases = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in
+              enumerate(("forward", "backward", "optimizer"))}
+    log(f"phases {trainer.lm.cfg.name} (CUDA events, profiler off, ms): "
+        + json.dumps({k: round(v, 3) for k, v in phases.items()}))
     rows = []
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", None)
@@ -356,19 +456,19 @@ def profile_step(trainer, batch):
         log("profile: the profiler reported no device time; busy share "
             "not measured")
         return
-    log(f"profile: one warm step (forward, backward, AdamW), S="
-        f"{batch['tokens'].shape[1]}, n_remat={st.remat_units}: wall "
-        f"{wall_ms:.2f} ms (profiler off), device kernels {dev_ms:.2f} ms "
-        f"(profiler on), busy share {dev_ms / wall_ms:.3f}")
-    groups = {"flash kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    log(f"profile {trainer.lm.cfg.name}: one warm step (forward, backward, "
+        f"AdamW), S={batch['tokens'].shape[1]}, n_remat={st.remat_units}: "
+        f"wall {wall_ms:.2f} ms (profiler off), device kernels "
+        f"{dev_ms:.2f} ms (profiler on), busy share {dev_ms / wall_ms:.3f}")
+    sums = {g: 0.0 for g, _ in groups}
+    sums["other"] = 0.0
     for ms, n, name in rows:
         low = name.lower()
-        g = ("flash kernels" if "flash_" in name else
-             "gemm" if any(k in low for k in ("gemm", "cutlass", "xmma"))
-             else "other")
-        groups[g] += ms
+        g = next((g for g, keys in groups if any(k in low for k in keys)),
+                 "other")
+        sums[g] += ms
     log("profile groups (ms): " + json.dumps(
-        {k: round(v, 3) for k, v in groups.items()}))
+        {k: round(v, 3) for k, v in sums.items()}))
     for ms, n, name in rows[:12]:
         log(f"  {ms:9.3f} ms  x{n:<4d} {name[:110]}")
 
@@ -398,13 +498,146 @@ def memory_phase(trainer, batch):
     for p in lm.parameters():
         p.grad = None
     mib = 2 ** 20
-    log(f"memory: S={tb['tokens'].shape[1]} n_remat={plan.n_remat}: "
-        f"resident before the step {base / mib:.1f} MiB; held after the "
-        f"forward {held / mib:.1f} MiB (planner: "
+    log(f"memory {lm.cfg.name}: S={tb['tokens'].shape[1]} n_remat="
+        f"{plan.n_remat}: resident before the step {base / mib:.1f} MiB; "
+        f"held after the forward {held / mib:.1f} MiB (planner: "
         f"{(plan.est_activation_bytes - plan.covered_bytes) / mib:.1f} MiB "
-        f"of block residuals kept); forward peak {fwd_peak / mib:.1f} MiB; "
+        f"of unit residuals kept); forward peak {fwd_peak / mib:.1f} MiB; "
         f"backward peak {bwd_peak / mib:.1f} MiB above resident, of which "
         f"grads {grads / mib:.1f} MiB")
+
+
+# ---------------------------------------------------------------------------
+# the SSD chunk scan and the DMA copy against their plain versions
+# ---------------------------------------------------------------------------
+
+# (B, S, H, P, N, chunk, dtype): the reference's SSD_CASES
+# (tests/test_kernels.py), plus the reduced mamba2's shape; dt has x's
+# dtype, as there.  The main path's buckets are added at run time.
+SSD_CASES = [
+    (1, 64, 2, 16, 8, 16, "float32"),
+    (2, 128, 4, 32, 16, 32, "float32"),
+    (1, 100, 2, 16, 8, 32, "float32"),          # padding path
+    (1, 128, 1, 64, 32, 64, "float32"),
+    (1, 64, 2, 16, 8, 16, "bfloat16"),
+    (2, 96, 32, 16, 16, 16, "float32"),         # reduced mamba2
+]
+# |kernel - plain| <= atol + rtol |plain| on valid rows, the reference's
+# tolerances (tests/test_kernels.py): fp32 sums in another order; one
+# bf16 rounding of y
+SSD_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (2e-2, 2e-1)}
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, dt_dtype=None, seed=0):
+    """The reference test's distributions: x, B, C ~ N(0, 1); dt =
+    softplus(N(0, 1)); A = -exp(0.3 N(0, 1))."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt_ = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x = rnd(B, S, H, P).to(dt_)
+    dt = torch.nn.functional.softplus(rnd(B, S, H)).to(
+        getattr(torch, dt_dtype or dtype))
+    A = -torch.exp(rnd(H) * 0.3)
+    return x, dt, A, rnd(B, S, N).to(dt_), rnd(B, S, N).to(dt_)
+
+
+def _ssd_valid(y, lens):
+    return torch.cat([y[b, :L].reshape(-1) for b, L in enumerate(lens)])
+
+
+def check_ssd(ops, ssd, cases):
+    """K4 through ``ops.ssd_scan`` against its plain version on every
+    case ((case, lens or None, chunks_per_block, dt dtype or None = x's,
+    main path?)); returns the max abs error over the main path's cases."""
+    main_err = 0.0
+    for case, lens, cpb, dt_dtype, main in cases:
+        B, S, H, P, N, chunk, dtype = case
+        x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, dtype, dt_dtype)
+        kvl = (None if lens is None else
+               torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        y = ops.ssd_scan(x, dt, A, Bm, Cm, kvl, chunk=chunk,
+                         chunks_per_block=cpb)
+        y_p = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, kvl)
+        torch.cuda.synchronize()
+        valid = lens or [S] * B
+        err, over = _err(_ssd_valid(y, valid), _ssd_valid(y_p, valid),
+                         *SSD_TOL[dtype])
+        log(f"ssd check {case} lens={lens} chunks_per_block={cpb} "
+            f"dt={dt_dtype or dtype}: max abs err {err:.3e}")
+        if over > 0:
+            raise AssertionError(f"ssd_scan disagrees with plain on {case}")
+        if main:
+            main_err = max(main_err, err)
+    # bitwise: padded with kv_len against the unpadded call
+    # (tests/test_ragged.py::test_ssd_ragged_bitwise_matches_unpadded_kernel)
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 96, 2, 16, 8, "float32", seed=1)
+    L = 32
+    padded = ops.ssd_scan(x, dt, A, Bm, Cm,
+                          torch.full((1,), L, dtype=torch.int32,
+                                     device="cuda"), chunk=16)
+    exact = ops.ssd_scan(x[:, :L], dt[:, :L], A, Bm[:, :L], Cm[:, :L],
+                         chunk=16)
+    torch.cuda.synchronize()
+    if not torch.equal(padded[:, :L], exact):
+        raise AssertionError("ssd_scan padded with kv_len differs bitwise "
+                             "from the unpadded call")
+    if bool(padded[:, L:].any()):
+        raise AssertionError("ssd_scan rows of skipped chunks are not 0")
+    log("ssd check: padded with kv_len == unpadded, bit for bit; skipped "
+        "chunks zero")
+    # SSDScan's gradient against autograd through the plain version
+    x, dt, A, Bm, Cm = _ssd_inputs(2, 96, 4, 16, 8, "float32", seed=2)
+    lens = torch.tensor([50, 96], dtype=torch.int32, device="cuda")
+    w = (torch.arange(96, device="cuda")[None, :] < lens[:, None]).float()
+    dy = torch.randn(x.shape, device="cuda") * w[:, :, None, None]
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    ref_ins = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+    y = ops.ssd_scan(*ins, lens, chunk=16)
+    got = torch.autograd.grad(y, ins, dy)
+    y_ref = ssd.ssd_scan_plain(*ref_ins, lens)
+    want = torch.autograd.grad(y_ref, ref_ins, dy)
+    for name, g, r in zip(("x", "dt", "A", "B", "C"), got, want):
+        err, over = _err(g, r, 1e-3, 1e-3)
+        log(f"ssd gradient d{name}: max abs err {err:.3e}")
+        if over > 0:
+            raise AssertionError(f"SSDScan d{name} disagrees with autograd "
+                                 f"through the plain version")
+    return main_err
+
+
+# (shape, dtype, chunk_elems): tests/test_offload_exec.py's cases
+DMA_CASES = [((128,), "float32", 16), ((33,), "float32", 16),
+             ((7, 5), "bfloat16", 16), ((1,), "int32", 16)]
+
+
+def check_dma(ops, dma, logits_shape):
+    """K5 against the identity and its plain version: the reference's
+    cases, a source that is not 16-byte aligned, and one logits-sized
+    fp32 array at the default chunk; returns the max abs error."""
+    cases = []
+    for shape, dtype, chunk in DMA_CASES:
+        n = math.prod(shape)
+        x = torch.arange(n, device="cuda", dtype=torch.float32).to(
+            getattr(torch, dtype)).reshape(shape)
+        cases.append((f"{shape} {dtype} chunk {chunk}", x, chunk))
+    odd = torch.arange(4097, device="cuda", dtype=torch.float32).to(
+        torch.bfloat16)[1:]                     # data_ptr 2 bytes off
+    cases.append(("(4096,) bfloat16 offset by one element", odd, 100))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    big = torch.randn(logits_shape, generator=gen, device="cuda")
+    cases.append((f"{tuple(logits_shape)} float32 (logits)", big, 1 << 15))
+    for name, x, chunk in cases:
+        y = ops.residual_dma_copy(x, chunk_elems=chunk)
+        y_p = dma.dma_copy_plain(x, chunk)
+        torch.cuda.synchronize()
+        ok = (y.shape == x.shape and y.dtype == x.dtype
+              and torch.equal(y, x) and torch.equal(y, y_p))
+        log(f"dma check {name}: {'identical' if ok else 'DIFFERS'}")
+        if not ok:
+            raise AssertionError(f"dma_copy is not the identity on {name}")
+    return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +657,7 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def time_kernels(fa, S, lens, H=12, hd=64):
+def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
     """Each kernel at the main path's shape (B = len(lens), S, H, hd,
     fp32, causal, these lengths), with its plain version, the library
     call (``scaled_dot_product_attention``, timed here only) and its
@@ -495,8 +728,8 @@ def time_kernels(fa, S, lens, H=12, hd=64):
                           + 2 * tensor),
     }
     out = {}
-    for (name, _), fn in zip(KERNELS, (k1, k2, k3)):
-        fa._raise_on(fn(), name)
+    for name, fn in zip(FLASH_KERNELS, (k1, k2, k3)):
+        kb.raise_on(fn(), name)
         ms = _time_ms(fn, 20)
         plain_ms = _time_ms(plain[name], 5)
         flops, nbytes = work[name]
@@ -514,6 +747,108 @@ def time_kernels(fa, S, lens, H=12, hd=64):
     return out
 
 
+def time_ssd(ssd, kb, cfg, S, lens):
+    """K4 at the mamba2 main path's shape (B = len(lens), S padded to the
+    chunk, H, P, N, Q of the config, bf16 x/B/C, fp32 dt, these
+    lengths), beside its plain version and the plain ``ssd_chunked``
+    forward; no single PyTorch call computes the scan, so no library
+    time.  The bound counts the function's work on the valid positions
+    (``_ssm_flops``' scan term) and each input and output once."""
+    from repro_torch.launch.roofline import ssd_scan_flops_per_position
+    from repro_torch.models.mamba2 import mamba2_dims, mask_dt, ssd_chunked
+    B, Q, P = len(lens), cfg.ssm_chunk, cfg.ssm_head_dim
+    _, H, N, _ = mamba2_dims(cfg)
+    Sp = -(-S // Q) * Q
+    x, dt, A, Bm, Cm = _ssd_inputs(B, Sp, H, P, N, "bfloat16", "float32",
+                                   seed=4)
+    kvl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    y = torch.empty_like(x)
+    lib = ssd.library()
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), kvl.data_ptr(), y.data_ptr(), B, Sp, H, P, N, Q,
+            1, 0, torch.cuda.current_stream().cuda_stream)
+
+    def kernel():
+        return lib.ssd_scan(*args)
+    kb.raise_on(kernel(), "ssd_scan")
+    ms = _time_ms(kernel, 20)
+    plain_ms = _time_ms(lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm, kvl), 3)
+    chunked_ms = _time_ms(lambda: ssd_chunked(x, mask_dt(dt, kvl), A, Bm,
+                                              Cm, Q), 5)
+    # SSDScan's backward: ssd_chunked recomputed under autograd and its
+    # vector-Jacobian product, once per layer per step
+    dy = torch.randn_like(x)
+    ctx = SimpleNamespace(saved_tensors=(x, dt, A, Bm, Cm, kvl), chunk=Q)
+    backward_ms = _time_ms(lambda: ssd.SSDScan.backward(ctx, dy), 5)
+    flops = sum(lens) * ssd_scan_flops_per_position(cfg)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (x, dt, A, Bm, Cm, kvl, y))
+    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+               chunked_ms=chunked_ms, backward_ms=backward_ms,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"timing ssd_scan B={B} S={Sp} H={H} P={P} N={N} Q={Q} bf16 (dt "
+        f"fp32) lens={lens}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"ssd_chunked {chunked_ms:.4f} ms, SSDScan backward (ssd_chunked "
+        f"recompute and its vjp) {backward_ms:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}; {flops / 1e9:.3f} GFLOP at 67 TFLOP/s fp32, "
+        f"{nbytes / 1e6:.2f} MB at 3.35 TB/s), {flops / ms / 1e9:.2f} "
+        f"TFLOP/s achieved")
+    return out
+
+
+def time_dma(dma, kb, shape, chunk_elems=1 << 15):
+    """K5 on a logits-sized fp32 array at the default chunk, beside its
+    plain version and ``Tensor.copy_`` (timed here only); the bound is
+    2 x bytes over the memory rate."""
+    src = torch.randn(shape, device="cuda")
+    dst = torch.empty_like(src)
+    nbytes = src.numel() * src.element_size()
+    lib = dma.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def kernel():
+        return lib.dma_copy(src.data_ptr(), dst.data_ptr(), nbytes,
+                            chunk_elems * src.element_size(), stream)
+    kb.raise_on(kernel(), "dma_copy")
+    ms = _time_ms(kernel, 20)
+    plain_ms = _time_ms(lambda: dma.dma_copy_plain(src, chunk_elems), 5)
+    library_ms = _time_ms(lambda: dst.copy_(src), 20)
+    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"timing dma_copy {tuple(shape)} fp32 chunk {chunk_elems}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, copy_ {library_ms:.4f} ms, "
+        f"bound {bound:.4f} ms (bytes; {2 * nbytes / 1e6:.1f} MB moved), "
+        f"{2 * nbytes / ms / 1e6:.1f} GB/s achieved")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound, bound_by="bytes")
+
+
+def run_dma_path(ops, trainer, batch):
+    """K5's path, its public entry point: ``ops.residual_dma_copy``
+    stages one batch's embedded residual stream and its fp32 logits, the
+    two largest arrays a residual offload would move; launch counts are
+    read around it."""
+    b = _device_batch(batch, trainer.planner.quantum)
+    with torch.no_grad():
+        stream = trainer.lm.embed[b["tokens"]]
+        logits = trainer.lm(b)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    staged = [ops.residual_dma_copy(t) for t in (stream, logits)]
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    ok = (launches["dma_copy"] == 2
+          and all(torch.equal(a, t) for a, t in zip(staged, (stream, logits))))
+    log(f"dma path: staged {tuple(stream.shape)} {stream.dtype} and "
+        f"{tuple(logits.shape)} {logits.dtype}; launches {launches}; "
+        f"{'identical' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("dma path: launches or values wrong")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -521,7 +856,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build as kb
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import offload_dma as dma
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models.registry import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -531,44 +871,94 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    path = fa.build_library()
-    fa.library()
-    log(f"build: {path.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    paths = kb.build(fa._SRC, ssd._SRC, dma._SRC)      # nvcc x 3 at once
+    fa.library(), ssd.library(), dma.library()
+    log(f"build: {[str(p.relative_to(ROOT)) for p in paths]} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches, errs, timings = {}, {}, {}
 
-    batches = main_path_batches()
-    by_bucket = {}
-    for b in batches:
-        by_bucket.setdefault(b["tokens"].shape[1], [int(x) for x in
-                                                    b["lengths"]])
-    main_cases = {(MAIN_ARGS["batch_size"], S, 12, 12, 64, True, 0,
+    # -- bert path: the flash kernels -------------------------------------
+    t0 = time.perf_counter()
+    batches = main_path_batches(BERT_ARGS)
+    by_bucket = lengths_by_bucket(batches)
+    main_cases = {(BERT_ARGS["batch_size"], S, 12, 12, 64, True, 0,
                    "float32", True): lens
                   for S, lens in sorted(by_bucket.items())}
-    errs = check_kernels(fa, REFERENCE_CASES + list(main_cases), main_cases)
-    log(f"kernel checks passed; max abs error at the main path's shapes: "
-        f"{errs}")
-
-    check_model(batches[0])
-    budget_mb = derive_budget_mb(batches[0])
-    trainer, launches = run_main_path(budget_mb)
-
-    counts = {}
-    for b in batches:
-        counts[b["tokens"].shape[1]] = counts.get(b["tokens"].shape[1], 0) + 1
-    S_main = max(counts, key=lambda s: (counts[s], s))
-    main_batch = next(b for b in batches if b["tokens"].shape[1] == S_main)
-    profile_step(trainer, main_batch)
+    errs.update(check_kernels(fa, kb, REFERENCE_CASES + list(main_cases),
+                              main_cases))
+    log(f"flash kernel checks passed; max abs error at the main path's "
+        f"shapes: {errs}")
+    budget_mb = derive_budget_mb(BERT_ARGS, batches[0])
+    trainer, path_launches = run_main_path(BERT_ARGS, budget_mb)
+    launches.update({k: path_launches[k] for k in FLASH_KERNELS})
+    check_model(trainer.lm, batches[0], BERT_ARGS["quantum"], 1e-4)
+    S_main, main_batch = most_common_bucket(batches)
+    profile_step(trainer, main_batch,
+                 [("flash kernels", ("flash_",)),
+                  ("gemm", ("gemm", "cutlass", "xmma"))])
     memory_phase(trainer, main_batch)
-    timings = time_kernels(fa, S_main, by_bucket[S_main])
+    timings.update(time_flash_kernels(fa, kb, S_main, by_bucket[S_main]))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"bert path: {time.perf_counter() - t0:.1f} s")
+
+    # -- the SSD scan and DMA copy against their plain versions -----------
+    t0 = time.perf_counter()
+    mcfg = get_config(MAMBA_ARGS["arch"])
+    m_batches = main_path_batches(MAMBA_ARGS)
+    m_by_bucket = lengths_by_bucket(m_batches)
+    H = mcfg.ssm_expand * mcfg.d_model // mcfg.ssm_head_dim
+    ssd_cases = ([(c, None, 1, None, False) for c in SSD_CASES]
+                 # tests/test_ragged.py's ragged case, 1 and 2 chunks per
+                 # block
+                 + [((2, 96, 2, 16, 8, 16, "float32"), [40, 77], cpb, None,
+                     False) for cpb in (1, 2)]
+                 + [((MAMBA_ARGS["batch_size"], S, H, mcfg.ssm_head_dim,
+                      mcfg.ssm_state, mcfg.ssm_chunk, "bfloat16"), lens, 1,
+                     "float32", True)
+                    for S, lens in sorted(m_by_bucket.items())])
+    errs["ssd_scan"] = check_ssd(ops, ssd, ssd_cases)
+    S_m, m_batch = most_common_bucket(m_batches)
+    logits_shape = (MAMBA_ARGS["batch_size"], S_m, mcfg.vocab_size)
+    errs["dma_copy"] = check_dma(ops, dma, logits_shape)
+    log(f"ssd and dma checks passed in {time.perf_counter() - t0:.1f} s; "
+        f"ssd max abs error at the main path's shapes "
+        f"{errs['ssd_scan']:.3e}")
+
+    # -- mamba2 path: the SSD scan ------------------------------------------
+    t0 = time.perf_counter()
+    budget_mb = derive_budget_mb(MAMBA_ARGS, m_batches[0])
+    trainer, path_launches = run_main_path(MAMBA_ARGS, budget_mb)
+    launches["ssd_scan"] = path_launches["ssd_scan"]
+    # rtol: both paths take every product in fp32 and round the scan's y
+    # to bf16 once per layer; 48 bf16 layers, mean over ~3k tokens
+    check_model(trainer.lm, m_batches[0], MAMBA_ARGS["quantum"], 5e-3)
+    profile_step(trainer, m_batch,
+                 [("ssd_scan kernel", ("ssd_scan",)),
+                  ("gemm", ("gemm", "cutlass", "xmma", "sm90_"))])
+    memory_phase(trainer, m_batch)
+    timings["ssd_scan"] = time_ssd(ssd, kb, mcfg, S_m, m_by_bucket[S_m])
+    log(f"mamba2 path: {time.perf_counter() - t0:.1f} s")
+
+    # -- DMA path -----------------------------------------------------------
+    launches["dma_copy"] = run_dma_path(ops, trainer, m_batch)["dma_copy"]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    timings["dma_copy"] = time_dma(dma, kb, logits_shape)
 
     kernels = []
-    for name, replaces in KERNELS:
+    for name, source, replaces in KERNELS:
         t = timings[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": t["ms"], "kernel_ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": errs[name], "ms": t["ms"],
+               "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if "chunked_ms" in t:
+            row["chunked_ms"] = t["chunked_ms"]
+        kernels.append(row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

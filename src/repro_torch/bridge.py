@@ -5,8 +5,13 @@ The reference keeps parameters as nested dicts and lists of arrays
 (``LM.init``: ``embed``, ``final_norm``, ``blocks[i].{norm1, attn.{wq,
 wk, wv, wo}, norm2, mlp.{wi, wo}}``).  The port's ``LM`` uses the same
 tree and layout, so a path ``blocks/3/attn/wq`` is the state-dict key
-``blocks.3.attn.wq`` and the values copy without a transpose.  Arrays
-are read with ``np.asarray`` only, so this module needs no JAX.
+``blocks.3.attn.wq`` and the values copy without a transpose.  In scan
+mode the reference stacks the layers instead: ``blocks`` is a dict of
+arrays with a leading layer axis; they are unstacked into
+``blocks.<i>.…`` here and stacked back by ``tree_from_state_dict(...,
+stacked=True)``.  bfloat16 crosses as its 16-bit pattern (``torch``
+cannot read numpy's bfloat16).  Arrays are read with ``np.asarray``
+only, so this module needs no JAX.
 """
 from __future__ import annotations
 
@@ -16,36 +21,62 @@ import numpy as np
 import torch
 
 
+def _to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                     # numpy's bfloat16
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _flat(node, prefix: str):
+    """(dotted path, leaf) pairs of a nested dict/list tree."""
+    if isinstance(node, dict):
+        items = node.items()
+    elif isinstance(node, (list, tuple)):
+        items = enumerate(node)
+    else:
+        yield prefix, node
+        return
+    for key, child in items:
+        yield from _flat(child, f"{prefix}.{key}" if prefix else str(key))
+
+
 def state_dict_from_tree(tree) -> Dict[str, torch.Tensor]:
     """Flatten a nested dict/list parameter tree into ``{dotted path:
-    tensor}`` (CPU tensors holding copies of the arrays)."""
+    tensor}`` (CPU tensors holding copies of the arrays); a stacked
+    ``blocks`` dict (scan mode) becomes one entry per layer."""
     flat: Dict[str, torch.Tensor] = {}
-
-    def walk(node, prefix: str) -> None:
-        if isinstance(node, dict):
-            items = node.items()
-        elif isinstance(node, (list, tuple)):
-            items = enumerate(node)
+    for path, leaf in _flat(tree, ""):
+        if path.startswith("blocks.") and isinstance(tree["blocks"], dict):
+            rest = path[len("blocks."):]
+            for i, layer in enumerate(np.asarray(leaf)):
+                flat[f"blocks.{i}.{rest}"] = _to_torch(layer)
         else:
-            flat[prefix] = torch.from_numpy(np.array(node, copy=True))
-            return
-        for key, child in items:
-            walk(child, f"{prefix}.{key}" if prefix else str(key))
-
-    walk(tree, "")
+            flat[path] = _to_torch(leaf)
     return flat
 
 
-def tree_from_state_dict(state: Dict[str, torch.Tensor]) -> dict:
+def tree_from_state_dict(state: Dict[str, torch.Tensor],
+                         stacked: bool = False) -> dict:
     """Inverse of ``state_dict_from_tree``: numeric path segments become
-    list indices, leaves numpy arrays."""
+    list indices, leaves numpy arrays; ``stacked=True`` stacks the
+    ``blocks`` list on a leading layer axis, as the reference's scan
+    mode keeps it."""
     root: dict = {}
     for path, value in state.items():
         node = root
         keys = path.split(".")
         for key in keys[:-1]:
             node = node.setdefault(key, {})
-        node[keys[-1]] = value.detach().cpu().numpy()
+        node[keys[-1]] = _to_numpy(value)
 
     def listify(node):
         if not isinstance(node, dict):
@@ -55,9 +86,18 @@ def tree_from_state_dict(state: Dict[str, torch.Tensor]) -> dict:
             return [out[str(i)] for i in range(len(out))]
         return out
 
-    return listify(root)
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([t[k] for t in layers]) for k in layers[0]}
+        return np.stack(layers)
+
+    tree = listify(root)
+    if stacked:
+        tree["blocks"] = stack(tree["blocks"])
+    return tree
 
 
 def load_tree(lm: torch.nn.Module, tree) -> None:
-    """Copy a reference parameter tree into ``lm``'s parameters."""
+    """Copy a reference parameter tree (unrolled or stacked) into
+    ``lm``'s parameters."""
     lm.load_state_dict(state_dict_from_tree(tree), strict=True)

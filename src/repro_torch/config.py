@@ -2,8 +2,9 @@
 
 A plain frozen dataclass, so it hashes, prints and overrides with
 ``dataclasses.replace``.  The field set is the reference's, so a
-configuration reads the same in both packages; the port only runs the
-dense family for now (``models/lm.py`` rejects the rest).
+configuration reads the same in both packages; the port runs the dense
+and ssm families, unrolled or in scan mode, for now (``models/lm.py``
+rejects the rest).
 """
 from __future__ import annotations
 

@@ -71,10 +71,13 @@ class CollectionResult:
 
 
 def _meta_tree(node):
-    """The parameter tree with every tensor replaced by a ``meta`` tensor
-    of the same shape and dtype (nested plain dicts)."""
+    """The parameter tree (dicts, and lists for a scan-mode chunk's
+    layers) with every tensor replaced by a ``meta`` tensor of the same
+    shape and dtype."""
     if isinstance(node, torch.Tensor):
         return torch.empty_like(node, device="meta")
+    if isinstance(node, (list, tuple)):
+        return [_meta_tree(v) for v in node]
     return {k: _meta_tree(v) for k, v in node.items()}
 
 
@@ -82,7 +85,8 @@ def _leaves(node):
     if isinstance(node, torch.Tensor):
         yield node
     else:
-        for v in node.values():
+        for v in (node if isinstance(node, (list, tuple))
+                  else node.values()):
             yield from _leaves(v)
 
 
@@ -135,7 +139,7 @@ class ShuttlingCollector:
 
     Units are deduplicated by (behavioural signature, parameter shapes,
     input shape and dtype): a homogeneous 12-block model needs one meta
-    trace per input size, not 12.  ``dedup=False`` traces every unit.
+    trace per input size, not 12, and 8 equal scan-mode chunks one.  ``dedup=False`` traces every unit.
     """
 
     def __init__(self, lm, dedup: bool = True):

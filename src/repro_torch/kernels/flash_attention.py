@@ -24,34 +24,26 @@ For a ``meta`` tensor it returns ``meta`` outputs of the kernel's shapes
 
 The kernels are built from ``csrc/flash_attention.cu`` with ``nvcc`` at
 first use into ``build/repro_torch/`` at the repository root and loaded
-with ``ctypes``.  Each wrapper counts its launches in ``LAUNCHES``.
+with ``ctypes`` (``kernels/build.py``).  Each wrapper counts its launches
+in ``LAUNCHES``.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import build
+from repro_torch.kernels.build import LAUNCHES
 from repro_torch.kernels.ref import attention_mask
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+_SRC = build.CSRC / "flash_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
-
-# launches per kernel, counted by the wrappers right after a launch
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -60,50 +52,16 @@ _lib: Optional[ctypes.CDLL] = None
 # build and load
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
-    if path is None and default.exists():
-        path = str(default)
-    if path is None:
-        raise RuntimeError(
-            "nvcc not found: the flash-attention kernels are compiled from "
-            f"{_SRC} at first use and need the CUDA toolkit")
-    return path
-
-
-def build_library() -> Path:
-    """Compile the kernels (once per source version) and return the
-    shared library's path.  Raises if ``nvcc`` is missing or fails."""
-    tag = hashlib.sha256(_SRC.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"flash_attention_{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
-
-
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i] * 7 + [ctypes.c_float, i, p]
-        for name, n_ptrs in (("flash_fwd", 6), ("flash_bwd_dq", 8),
-                             ("flash_bwd_dkv", 9)):
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [p] * n_ptrs + tail
-        _lib = lib
+        _lib = build.load(_SRC, {name: [p] * n_ptrs + tail
+                                 for name, n_ptrs in (("flash_fwd", 6),
+                                                      ("flash_bwd_dq", 8),
+                                                      ("flash_bwd_dkv", 9))})
     return _lib
 
 
@@ -113,28 +71,6 @@ def _stream_handle(device) -> int:
 
 def _alloc(shape, dtype, device) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=device)
-
-
-def _route(t: torch.Tensor) -> str:
-    """'kernel' for CUDA tensors, 'plain' for CPU, 'meta' for meta."""
-    if t.is_cuda:
-        return "kernel"
-    if t.device.type in ("cpu", "meta"):
-        return "plain" if t.device.type == "cpu" else "meta"
-    raise ValueError(f"flash attention runs on cuda (kernel) or cpu "
-                     f"(plain version), not {t.device}")
-
-
-def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _kernel_args(q, k, v, kv_len) -> Tuple[tuple, torch.Tensor]:
@@ -149,11 +85,11 @@ def _kernel_args(q, k, v, kv_len) -> Tuple[tuple, torch.Tensor]:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if S == 0 or Hkv == 0 or H % Hkv:
         raise ValueError(f"bad heads/length: H={H} Hkv={Hkv} S={S}")
-    _check("q", q, (B, H, S, hd), q.dtype, q.device)
-    _check("k", k, (B, Hkv, S, hd), q.dtype, q.device)
-    _check("v", v, (B, Hkv, S, hd), q.dtype, q.device)
+    build.check("q", q, (B, H, S, hd), q.dtype, q.device)
+    build.check("k", k, (B, Hkv, S, hd), q.dtype, q.device)
+    build.check("v", v, (B, Hkv, S, hd), q.dtype, q.device)
     kvl = resolve_kv_len(kv_len, B, S, q.device)
-    _check("kv_len", kvl, (B,), torch.int32, q.device)
+    build.check("kv_len", kvl, (B,), torch.int32, q.device)
     return (B, H, Hkv, S, hd), kvl
 
 
@@ -163,11 +99,6 @@ def resolve_kv_len(kv_len, B: int, S: int, device) -> torch.Tensor:
     if kv_len is None:
         return torch.full((B,), S, dtype=torch.int32, device=device)
     return kv_len.to(dtype=torch.int32).clamp(0, S).contiguous()
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +168,7 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, kv_len=None, causal=True,
 
 def flash_fwd(q, k, v, kv_len=None, causal: bool = True, window: int = 0):
     """K1: returns (o in q's dtype, lse (B, H, S) fp32)."""
-    route = _route(q)
+    route = build.route(q, "flash attention")
     if route == "plain":
         return flash_fwd_plain(q, k, v, kv_len, causal, window)
     B, H, S, hd = q.shape
@@ -251,7 +182,7 @@ def flash_fwd(q, k, v, kv_len=None, causal: bool = True, window: int = 0):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(),
         o.data_ptr(), lse.data_ptr(), *dims, int(causal), int(window),
         1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _stream_handle(q.device))
-    _raise_on(err, "flash_fwd")
+    build.raise_on(err, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return o, lse
 
@@ -261,7 +192,7 @@ def flash_bwd(q, k, v, o, lse, do, kv_len=None, causal: bool = True,
     """K2 and K3: returns (dq, dk, dv), dk/dv per kv head.  ``delta =
     rowsum(do * o)`` is a torch reduction outside the kernels, as in the
     reference."""
-    route = _route(q)
+    route = build.route(q, "flash attention")
     delta = (do.float() * o.float()).sum(-1)
     if route == "plain":
         dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, kv_len, causal,
@@ -273,8 +204,8 @@ def flash_bwd(q, k, v, o, lse, do, kv_len=None, causal: bool = True,
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dims, kvl = _kernel_args(q, k, v, kv_len)
     B, H, S, hd = q.shape
-    _check("do", do, q.shape, q.dtype, q.device)
-    _check("lse", lse, (B, H, S), torch.float32, q.device)
+    build.check("do", do, q.shape, q.dtype, q.device)
+    build.check("lse", lse, (B, H, S), torch.float32, q.device)
     tail = (*dims, int(causal), int(window), 1.0 / math.sqrt(hd),
             _DTYPE_CODE[q.dtype], _stream_handle(q.device))
     lib = library()
@@ -282,7 +213,7 @@ def flash_bwd(q, k, v, o, lse, do, kv_len=None, causal: bool = True,
     err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                            kvl.data_ptr(), dq.data_ptr(), *tail)
-    _raise_on(err, "flash_bwd_dq")
+    build.raise_on(err, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
     dk = _alloc(k.shape, k.dtype, k.device)
     dv = _alloc(v.shape, v.dtype, v.device)
@@ -290,7 +221,7 @@ def flash_bwd(q, k, v, o, lse, do, kv_len=None, causal: bool = True,
                             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                             kvl.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                             *tail)
-    _raise_on(err, "flash_bwd_dkv")
+    build.raise_on(err, "flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1
     return dq, dk, dv
 

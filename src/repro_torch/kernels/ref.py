@@ -1,6 +1,6 @@
-"""Plain PyTorch oracle for the flash-attention kernels (the reference's
-``kernels/ref.py`` contract): the simplest possible formulation — no
-tiling, no online softmax.
+"""Plain PyTorch oracles for the kernels (the reference's ``kernels/ref.py``
+contract): the simplest possible formulations — no tiling, no online
+softmax, no chunking.
 """
 from __future__ import annotations
 
@@ -51,3 +51,36 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
     out = torch.einsum("bhqk,bhkd->bhqd", probs, vq)
     out = torch.where(mask.any(-1, keepdim=True), out, torch.zeros_like(out))
     return out.to(q.dtype)
+
+
+def ssd_reference(x, dt, A, B, C, initial_state=None, kv_len=None):
+    """Naive O(S) sequential SSD recurrence (the definition).
+
+    x: (Bt, S, H, P); dt: (Bt, S, H); A: (H,); B, C: (Bt, S, N).
+    Returns (y (Bt, S, H, P) in x's dtype, final_state (Bt, H, P, N) fp32).
+
+      state_t = exp(dt_t * A) * state_{t-1} + dt_t * B_t x_t
+      y_t     = C_t . state_t
+
+    ``kv_len``: optional (Bt,) true lengths — dt is zeroed past a
+    sequence's length, so padding never enters the state.
+    """
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    if kv_len is not None:
+        valid = (torch.arange(S, device=x.device)[None, :, None]
+                 < kv_len.to(x.device)[:, None, None])
+        dt = torch.where(valid, dt, torch.zeros((), dtype=dt.dtype,
+                                                device=dt.device))
+    state = (torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    dtf, xf, Bf, Cf = dt.float(), x.float(), B.float(), C.float()
+    Af = A.float()
+    ys = []
+    for t in range(S):
+        dA = torch.exp(dtf[:, t] * Af)                         # (Bt, H)
+        upd = torch.einsum("bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], Bf[:, t])
+        state = state * dA[:, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
+    y = torch.stack(ys, dim=1)
+    return y.to(x.dtype), state

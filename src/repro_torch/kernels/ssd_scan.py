@@ -1,0 +1,140 @@
+"""Mamba2 SSD chunk scan: a hand-written CUDA kernel for Hopper, its plain
+PyTorch version, and the ``torch.autograd.Function`` around it.
+
+Counterpart of the reference's ``kernels/ssd_scan.py``:
+
+==============  ===================  ===================
+wrapper here    CUDA kernel          TPU kernel replaced
+==============  ===================  ===================
+``ssd_scan``    ``ssd_scan_kernel``  ``_ssd_kernel``
+==============  ===================  ===================
+
+Layout (the model's): x (B, S, H, P); dt (B, S, H); A (H,) fp32; Bm, Cm
+(B, S, N); ``kv_len`` an optional (B,) int32 tensor of true lengths.  The
+scan starts from a zero state; dt is zeroed at positions at or past
+``kv_len``, so padding never enters the state, and chunks wholly past it
+are skipped (their rows of y are zero).  Other rows at or past
+``kv_len`` are unspecified.  S must be a multiple of ``chunk``
+(``ops.ssd_scan`` pads).
+
+Routing, as for flash attention: a CUDA tensor launches the kernel or
+raises; a CPU tensor takes the plain version (``ref.ssd_reference``, the
+sequential recurrence); a ``meta`` tensor gets a ``meta`` output.
+
+The reference has no backward kernel for the scan: it differentiates the
+jnp ``ssd_chunked`` with XLA.  So ``SSDScan`` saves its inputs and its
+backward recomputes ``y`` through the port's ``ssd_chunked`` (dt masked
+the same way) under autograd and returns that vector-Jacobian product.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.build import LAUNCHES
+from repro_torch.kernels.ref import ssd_reference
+from repro_torch.models.mamba2 import mask_dt, ssd_chunked
+
+_SRC = build.CSRC / "ssd_scan.cu"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# head dim P, state size N and chunk length Q the kernel takes: the
+# reference's SSD test cases, the reduced and the full mamba2 configs
+HEAD_DIMS = (16, 32, 64)
+STATE_SIZES = (8, 16, 32, 128)
+CHUNKS = (16, 32, 64)
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _lib = build.load(_SRC, {"ssd_scan": [p] * 7 + [i] * 8 + [p]})
+    return _lib
+
+
+def _stream_handle(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _alloc(shape, dtype, device) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def ssd_scan_plain(x, dt, A, Bm, Cm, kv_len=None):
+    """Plain version of the kernel: y of the sequential recurrence."""
+    return ssd_reference(x, dt, A, Bm, Cm, kv_len=kv_len)[0]
+
+
+def _kernel_args(x, dt, A, Bm, Cm, kv_len, chunk):
+    """Validate the operands; returns (B, S, H, P, N) and the clamped
+    int32 lengths."""
+    if x.dtype not in _DTYPE_CODE or dt.dtype not in _DTYPE_CODE:
+        raise ValueError(f"the SSD kernel takes float32 or bfloat16 x and "
+                         f"dt, not {x.dtype} and {dt.dtype}")
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    if P not in HEAD_DIMS or N not in STATE_SIZES or chunk not in CHUNKS:
+        raise ValueError(f"SSD kernel shape (P={P}, N={N}, Q={chunk}) not "
+                         f"in P {HEAD_DIMS}, N {STATE_SIZES}, Q {CHUNKS}")
+    if S == 0 or S % chunk:
+        raise ValueError(f"S={S} is not a positive multiple of the chunk "
+                         f"{chunk} (ops.ssd_scan pads)")
+    build.check("x", x, (B, S, H, P), x.dtype, x.device)
+    build.check("dt", dt, (B, S, H), dt.dtype, x.device)
+    build.check("A", A, (H,), torch.float32, x.device)
+    build.check("Bm", Bm, (B, S, N), x.dtype, x.device)
+    build.check("Cm", Cm, (B, S, N), x.dtype, x.device)
+    kvl = (torch.full((B,), S, dtype=torch.int32, device=x.device)
+           if kv_len is None
+           else kv_len.to(dtype=torch.int32).clamp(0, S).contiguous())
+    build.check("kv_len", kvl, (B,), torch.int32, x.device)
+    return (B, S, H, P, N), kvl
+
+
+def ssd_scan_fwd(x, dt, A, Bm, Cm, kv_len=None, chunk: int = 64):
+    """The kernel (CUDA), its plain version (CPU) or a ``meta`` y."""
+    route = build.route(x, "the SSD scan")
+    if route == "plain":
+        return ssd_scan_plain(x, dt, A, Bm, Cm, kv_len)
+    if route == "meta":
+        return torch.empty_like(x)
+    (B, S, H, P, N), kvl = _kernel_args(x, dt, A, Bm, Cm, kv_len, chunk)
+    y = _alloc(x.shape, x.dtype, x.device)
+    err = library().ssd_scan(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), kvl.data_ptr(), y.data_ptr(), B, S, H, P, N, chunk,
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[dt.dtype], _stream_handle(x.device))
+    build.raise_on(err, "ssd_scan")
+    LAUNCHES["ssd_scan"] += 1
+    return y
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with residuals ``(x, dt, A, Bm, Cm, kv_len)``.  The
+    backward is the vector-Jacobian product of ``ssd_chunked`` on the same
+    inputs (the reference differentiates that jnp formulation with XLA);
+    ``kv_len`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, kv_len=None, chunk: int = 64):
+        y = ssd_scan_fwd(x, dt, A, Bm, Cm, kv_len, chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, kv_len)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, Bm, Cm, kv_len = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        with torch.enable_grad():
+            xi, dti, Ai, Bi, Ci = inputs
+            y, _ = ssd_chunked(xi, mask_dt(dti, kv_len), Ai, Bi, Ci,
+                               ctx.chunk)
+            grads = torch.autograd.grad(y, inputs, dy)
+        return (*grads, None, None)

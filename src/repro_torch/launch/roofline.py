@@ -1,5 +1,5 @@
 """Per-plan-unit analytic cost model (copied from the reference's
-``launch/roofline.py``, dense subset).
+``launch/roofline.py``, dense and ssm kinds).
 
 Forward FLOPs of one schedulable unit at a given batch geometry.
 Rematerialising a unit re-runs exactly this forward, so these numbers
@@ -34,15 +34,43 @@ def _mlp_flops(cfg, B: int, S: int) -> float:
     return 2.0 * B * S * cfg.d_model * cfg.d_ff * mult
 
 
+def _ssm_flops(cfg, B: int, S: int) -> float:
+    d = cfg.d_model
+    d_inner = cfg.ssm_expand * d
+    H = d_inner // cfg.ssm_head_dim
+    N = cfg.ssm_state
+    P = cfg.ssm_head_dim
+    Q = cfg.ssm_chunk
+    conv_dim = d_inner + 2 * N
+    proj_out = 2 * d_inner + 2 * N + H
+    proj = 2.0 * B * S * d * proj_out + 2.0 * B * S * d_inner * d
+    conv = 2.0 * B * S * cfg.conv_kernel * conv_dim
+    # chunked SSD: intra-chunk (Q,Q) matmuls + inter-chunk state terms
+    scan = B * S * ssd_scan_flops_per_position(cfg)
+    return proj + conv + scan
+
+
+def ssd_scan_flops_per_position(cfg) -> float:
+    """The chunked SSD scan's FLOPs per position, all heads: C B^T once
+    (2QN) and per head the intra-chunk product (2QP) and the two state
+    terms (4PN)."""
+    H = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    Q, N, P = cfg.ssm_chunk, cfg.ssm_state, cfg.ssm_head_dim
+    return 2.0 * Q * N + H * (2.0 * Q * P + 4.0 * P * N)
+
+
 def unit_fwd_flops(cfg, kind: str, *, batch: int, seq: int, layers: int = 1,
                    is_global: bool = True) -> float:
-    """Analytic forward FLOPs of one plan unit (``layers`` dense blocks
-    at geometry (batch, seq))."""
-    if kind != "dense":
-        raise NotImplementedError(f"unit kind {kind!r} is not ported")
+    """Analytic forward FLOPs of one plan unit (``layers`` blocks of
+    ``kind`` at geometry (batch, seq))."""
     B, S = int(batch), int(seq)
-    per = (_attention_flops(cfg, B, S, is_global=is_global)
-           + _mlp_flops(cfg, B, S))
+    if kind == "ssm":
+        per = _ssm_flops(cfg, B, S) + _mlp_flops(cfg, B, S)
+    elif kind == "dense":
+        per = (_attention_flops(cfg, B, S, is_global=is_global)
+               + _mlp_flops(cfg, B, S))
+    else:
+        raise NotImplementedError(f"unit kind {kind!r} is not ported")
     return float(layers) * per
 
 

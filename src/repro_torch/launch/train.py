@@ -2,10 +2,14 @@
 path.
 
 Runs on CUDA unless ``--device cpu`` is given (and raises when no GPU is
-present).  On the H100, with the hand-written flash kernels:
+present).  On the H100, with the hand-written kernels (flash attention
+for ``bert_base_paper``, the SSD chunk scan for ``mamba2_1p3b``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch bert_base_paper \\
         --dataset squad --planner mimose --attn-impl flash --budget-mb 3000 \\
+        --steps 16 --batch-size 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_1p3b \\
+        --dataset squad --planner mimose --attn-impl flash --budget-mb 30000 \\
         --steps 16 --batch-size 8
 
 CPU demo at reduced scale:
@@ -32,8 +36,9 @@ def main(argv=None) -> Trainer:
     ap.add_argument("--dataset", default="swag", choices=list(DISTRIBUTIONS))
     ap.add_argument("--planner", default="mimose", choices=["mimose", "none"])
     ap.add_argument("--attn-impl", default="xla", choices=["xla", "flash"],
-                    help="flash = the hand-written CUDA kernels (on CPU "
-                         "tensors their plain versions)")
+                    help="flash = the hand-written CUDA kernels of every "
+                         "mixer: flash attention, the SSD chunk scan (on "
+                         "CPU tensors their plain versions)")
     ap.add_argument("--budget-mb", type=float, default=0.0,
                     help="device memory budget; 0 = unlimited")
     ap.add_argument("--steps", type=int, default=100)
@@ -48,8 +53,12 @@ def main(argv=None) -> Trainer:
 
     cfg = get_config(args.arch)
     if args.reduced:
-        cfg = cfg.reduced(num_layers=4, d_model=256, d_ff=512,
-                          vocab_size=1024, dtype="float32")
+        # an attention-free config keeps d_ff = 0 (no MLPs), and scan
+        # mode keeps two chunks
+        cfg = cfg.reduced(num_layers=4, d_model=256,
+                          d_ff=512 if cfg.d_ff else 0, vocab_size=1024,
+                          dtype="float32", remat_mode=cfg.remat_mode,
+                          scan_chunks=2)
     lm = LM(cfg, attn_impl=args.attn_impl, device=args.device)
     n_params = sum(p.numel() for p in lm.parameters())
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M "

@@ -33,6 +33,27 @@ def embed_init(gen: torch.Generator, vocab: int, d: int,
     return (torch.randn(vocab, d, generator=gen) * 0.02).to(dtype)
 
 
+def rmsnorm_init(d: int, dtype) -> dict:
+    return {"scale": torch.ones(d, dtype=dtype)}
+
+
+def attention_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    return {"wq": dense_init(gen, d, cfg.num_heads * hd, dtype),
+            "wk": dense_init(gen, d, cfg.num_kv_heads * hd, dtype),
+            "wv": dense_init(gen, d, cfg.num_kv_heads * hd, dtype),
+            "wo": dense_init(gen, cfg.num_heads * hd, d, dtype)}
+
+
+def mlp_init(gen: torch.Generator, d: int, ff: int, act: str,
+             dtype) -> dict:
+    p = {"wi": dense_init(gen, d, ff, dtype)}
+    if act == "swiglu":
+        p["wg"] = dense_init(gen, d, ff, dtype)
+    p["wo"] = dense_init(gen, ff, d, dtype)
+    return p
+
+
 # ---------------------------------------------------------------------------
 # norms and rotary embeddings
 # ---------------------------------------------------------------------------

@@ -1,11 +1,15 @@
 """The language-model shell: embedding -> N plannable blocks -> final
 norm -> tied lm head.
 
-Counterpart of the reference's ``models/lm.py`` for the dense family in
-unrolled mode.  The Mimose planner sees the model as an ordered list of
-plan units (one per block) and decides which to rematerialise; REMAT is
-``torch.utils.checkpoint`` (non-reentrant), so a rematerialised block's
-forward runs again in the backward pass.
+Counterpart of the reference's ``models/lm.py`` for the dense and ssm
+(Mamba2) families, in unrolled or scan mode.  The Mimose planner sees
+the model as an ordered list of plan units and decides which to
+rematerialise: one unit per block in unrolled mode, one per chunk of
+consecutive layers in scan mode (``scan_chunks`` chunks, the reference's
+``_chunk_bounds``).  REMAT is ``torch.utils.checkpoint`` (non-reentrant)
+around each layer of the unit — the reference's scan mode checkpoints the
+scan *body*, so a REMAT chunk keeps every layer input of the chunk, not
+one — and a rematerialised layer's forward runs again in the backward.
 
     lm = LM(cfg, attn_impl="flash", device="cuda")
     loss, metrics = lm.loss(batch, actions)
@@ -13,12 +17,17 @@ forward runs again in the backward pass.
 
 Parameters keep the reference's tree and layout (``embed``,
 ``final_norm.scale``, ``blocks.<i>.{norm1, attn.{wq,wk,wv,wo}, norm2,
-mlp.{wi,wo}}``, dense weights ``(d_in, d_out)``), so ``repro_torch.bridge``
-converts the reference's parameters with a plain copy.
+mlp.{wi,wo}}`` or ``blocks.<i>.{norm1, ssm.{in_proj, conv_w, ...}}``,
+dense weights ``(d_in, d_out)``), one entry per layer in both modes, so
+``repro_torch.bridge`` converts the reference's parameters with a plain
+copy (unstacking the scan mode's layer axis).  ``attn_impl="flash"``
+selects the hand-written kernels of every mixer: flash attention, or
+the SSD chunk scan.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -28,9 +37,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.actions import Action, as_actions
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+FAMILIES = ("dense", "ssm")      # the block kind is the family
 
 
 def resolve_device(device) -> torch.device:
@@ -43,17 +54,67 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def block_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: tensors become parameters and
+    dicts sub-trees, so the state-dict keys are the reference's tree paths
+    (``blocks.3.ssm.norm.scale``) and leaves keep their own dtypes."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, ParamTree(value))
+            else:
+                self.register_parameter(key, nn.Parameter(value))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def items(self):
+        yield from self._parameters.items()
+        yield from self._modules.items()
+
+    def values(self):
+        for _, value in self.items():
+            yield value
+
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
+               dtype) -> dict:
+    d = cfg.d_model
+    if kind == "ssm":
+        p = {"norm1": L.rmsnorm_init(d, dtype),
+             "ssm": M.mamba2_init(gen, cfg, dtype)}
+        if cfg.d_ff:
+            p["norm2"] = L.rmsnorm_init(d, dtype)
+            p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dtype)
+        return p
+    mlp = L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dtype)
+    return {"norm1": L.rmsnorm_init(d, dtype),
+            "attn": L.attention_init(gen, cfg, dtype),
+            "norm2": L.rmsnorm_init(d, dtype),
+            "mlp": mlp}
+
+
+def block_apply(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
                 positions: torch.Tensor, layer_is_global: bool = True,
                 impl: str = "xla",
                 seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One dense block: pre-norm attention and MLP, both residual."""
+    """One block: pre-norm mixer (attention, or the Mamba2 mixer for
+    ``kind="ssm"``) and MLP, both residual; an ssm block without
+    ``d_ff`` has no MLP."""
     eps = cfg.norm_eps
-    x = x + L.attention_apply(params["attn"], cfg,
-                              L.rmsnorm_apply(params["norm1"], x, eps),
-                              positions=positions,
-                              layer_is_global=layer_is_global, impl=impl,
-                              kv_len=seq_lens)
+    h = L.rmsnorm_apply(params["norm1"], x, eps)
+    if kind == "ssm":
+        x = x + M.mamba2_apply(params["ssm"], cfg, h, seq_lens=seq_lens,
+                               impl=impl)
+        if not cfg.d_ff:
+            return x
+    else:
+        x = x + L.attention_apply(params["attn"], cfg, h,
+                                  positions=positions,
+                                  layer_is_global=layer_is_global,
+                                  impl=impl, kv_len=seq_lens)
     return x + L.mlp_apply(params["mlp"],
                            L.rmsnorm_apply(params["norm2"], x, eps),
                            cfg.mlp_act)
@@ -61,10 +122,10 @@ def block_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
 
 @dataclasses.dataclass
 class PlanUnit:
-    """One schedulable unit: a block."""
+    """One schedulable unit: a block (unrolled) or a layer chunk (scan)."""
     name: str
     index: int                     # forward timestamp order
-    params: Any                    # the block's parameter tree
+    params: Any                    # the block's tree, or a list of them
     apply: Callable[[Any, torch.Tensor], torch.Tensor]   # fn(params, x) -> x
     # behavioural statics baked into ``apply``: two units with equal
     # signature and equal param/input shapes save identical residuals,
@@ -74,19 +135,19 @@ class PlanUnit:
 
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
-        "family": cfg.family != "dense",
+        "family": cfg.family not in FAMILIES,
         "qk_norm": cfg.qk_norm,
         "mrope": cfg.mrope,
         "encoder_layers": cfg.encoder_layers > 0,
         "vision_tokens": cfg.vision_tokens > 0,
-        "remat_mode": cfg.remat_mode != "unrolled",
+        "remat_mode": cfg.remat_mode not in ("unrolled", "scan"),
         "tie_embeddings": not cfg.tie_embeddings,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense, unrolled, tied-embedding "
-            f"models only; unsupported settings: {bad}")
+            f"{cfg.name}: the port runs dense and ssm tied-embedding "
+            f"models, unrolled or in scan mode; unsupported settings: {bad}")
 
 
 class LM(nn.Module):
@@ -99,38 +160,21 @@ class LM(nn.Module):
                              f"not {attn_impl!r}")
         self.cfg = cfg
         self.attn_impl = attn_impl
-        self.kind = "dense"
+        self.kind = cfg.family
         dt = _DTYPES[cfg.dtype]
         device = resolve_device(device)
         # the reference's init distributions, drawn on the CPU from one
-        # seeded generator so every device gets the same weights
+        # seeded generator so every device gets the same weights; on
+        # ``meta`` only the shapes are made (for the collector)
         gen = torch.Generator().manual_seed(seed)
-        d, hd = cfg.d_model, cfg.resolved_head_dim()
-
-        def ones(n):
-            return nn.ParameterDict({"scale": torch.ones(n, dtype=dt)})
-
-        def dense(a, b):
-            return L.dense_init(gen, a, b, dt)
-
-        self.embed = nn.Parameter(L.embed_init(gen, cfg.vocab_size, d, dt))
-        self.final_norm = ones(d)
-        blocks = []
-        for _ in range(cfg.num_layers):
-            mlp = {"wi": dense(d, cfg.d_ff)}
-            if cfg.mlp_act == "swiglu":
-                mlp["wg"] = dense(d, cfg.d_ff)
-            mlp["wo"] = dense(cfg.d_ff, d)
-            blocks.append(nn.ModuleDict({
-                "norm1": ones(d),
-                "attn": nn.ParameterDict({
-                    "wq": dense(d, cfg.num_heads * hd),
-                    "wk": dense(d, cfg.num_kv_heads * hd),
-                    "wv": dense(d, cfg.num_kv_heads * hd),
-                    "wo": dense(cfg.num_heads * hd, d)}),
-                "norm2": ones(d),
-                "mlp": nn.ParameterDict(mlp)}))
-        self.blocks = nn.ModuleList(blocks)
+        with torch.device("meta" if device.type == "meta" else "cpu"):
+            embed = L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
+            final_norm = L.rmsnorm_init(cfg.d_model, dt)
+            blocks = [block_init(gen, cfg, self.kind, dt)
+                      for _ in range(cfg.num_layers)]
+        self.embed = nn.Parameter(embed)
+        self.final_norm = ParamTree(final_norm)
+        self.blocks = nn.ModuleList(ParamTree(b) for b in blocks)
         self.to(device)
 
     @property
@@ -149,14 +193,45 @@ class LM(nn.Module):
             return False              # uniform sliding window
         return (i + 1) % g == 0
 
+    def _chunk_bounds(self) -> List[Tuple[int, int]]:
+        """Scan mode's layer chunks (the reference's ``_chunk_bounds``)."""
+        L_ = self.cfg.num_layers
+        if self.cfg.sliding_window and self.cfg.global_interval:
+            # type-homogeneous chunks: runs of local layers and global
+            # singletons, so each chunk has one local/global flag
+            bounds, s = [], 0
+            for i in range(L_):
+                if self._is_global(i):
+                    if i > s:
+                        bounds.append((s, i))
+                    bounds.append((i, i + 1))
+                    s = i + 1
+            if s < L_:
+                bounds.append((s, L_))
+            return bounds
+        K = max(1, min(self.cfg.scan_chunks, L_))
+        step = math.ceil(L_ / K)
+        return [(s, min(s + step, L_)) for s in range(0, L_, step)]
+
+    def _chunk_flag(self, s: int, e: int) -> bool:
+        """The local/global flag of a chunk (True for a mixed one)."""
+        flags = {self._is_global(i) for i in range(s, e)}
+        return flags.pop() if len(flags) == 1 else True
+
+    def unit_bounds(self) -> List[Tuple[int, int]]:
+        """The layers [s, e) of each plan unit, in forward order."""
+        if self.cfg.remat_mode == "scan":
+            return self._chunk_bounds()
+        return [(i, i + 1) for i in range(self.cfg.num_layers)]
+
     # -- forward -----------------------------------------------------------
     def forward(self, batch: Dict[str, torch.Tensor],
                 actions=None) -> torch.Tensor:
         """Logits (B, S, V) in fp32.  ``actions``: per-unit plan (bools or
-        ``Action``); REMAT units are checkpointed.  An OFFLOAD unit runs
-        as REMAT (the reference's ``offload_exec=False``).  ``lengths``
-        ((B,) true lengths of a bucket-padded batch) are threaded into
-        every block's attention."""
+        ``Action``); every layer of a REMAT unit is checkpointed.  An
+        OFFLOAD unit runs as REMAT (the reference's
+        ``offload_exec=False``).  ``lengths`` ((B,) true lengths of a
+        bucket-padded batch) are threaded into every block's mixer."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -167,22 +242,32 @@ class LM(nn.Module):
         seq_lens = batch.get("lengths")
         if seq_lens is not None:
             seq_lens = seq_lens.to(device=x.device, dtype=torch.int32)
+        x = self.blocks_forward(x, actions, positions, seq_lens)
+        x = L.rmsnorm_apply(self.final_norm, x, cfg.norm_eps)
+        return (x @ self.embed.t()).float()
+
+    def blocks_forward(self, x: torch.Tensor, actions, positions,
+                       seq_lens=None) -> torch.Tensor:
+        """Every block under the plan ``actions`` (one per unit); each
+        layer of a REMAT (or OFFLOAD) unit is checkpointed on its own."""
         n = self.num_plan_units()
         acts = (as_actions(actions) if actions is not None
                 else (Action.KEEP,) * n)
         if len(acts) != n:
             raise ValueError(f"plan has {len(acts)} actions for {n} units")
-        for i, blk in enumerate(self.blocks):
-            def one(xx, _blk=blk, _g=self._is_global(i)):
-                return block_apply(_blk, cfg, xx, positions=positions,
-                                   layer_is_global=_g, impl=self.attn_impl,
-                                   seq_lens=seq_lens)
-            if acts[i] in (Action.REMAT, Action.OFFLOAD):
-                x = checkpoint(one, x, use_reentrant=False)
-            else:
-                x = one(x)
-        x = L.rmsnorm_apply(self.final_norm, x, cfg.norm_eps)
-        return (x @ self.embed.t()).float()
+        for act, (s, e) in zip(acts, self.unit_bounds()):
+            for i in range(s, e):
+                def one(xx, _blk=self.blocks[i], _g=self._is_global(i)):
+                    return block_apply(_blk, self.cfg, xx, self.kind,
+                                       positions=positions,
+                                       layer_is_global=_g,
+                                       impl=self.attn_impl,
+                                       seq_lens=seq_lens)
+                if act in (Action.REMAT, Action.OFFLOAD):
+                    x = checkpoint(one, x, use_reentrant=False)
+                else:
+                    x = one(x)
+        return x
 
     def loss(self, batch: Dict[str, torch.Tensor],
              actions=None) -> Tuple[torch.Tensor, dict]:
@@ -201,28 +286,39 @@ class LM(nn.Module):
 
     # -- plan units ----------------------------------------------------------
     def num_plan_units(self) -> int:
-        return self.cfg.num_layers
+        return len(self.unit_bounds())
 
     def plan_unit_meta(self, batch) -> List[Dict[str, Any]]:
         """One dict per plan unit: the static facts the roofline cost
         model needs to price its forward (= its recompute cost)."""
         B, S = batch["tokens"].shape
-        return [{"kind": self.kind, "layers": 1, "batch": int(B),
-                 "seq": int(S), "is_global": self._is_global(i)}
-                for i in range(self.cfg.num_layers)]
+        return [{"kind": self.kind, "layers": e - s, "batch": int(B),
+                 "seq": int(S), "is_global": self._chunk_flag(s, e)}
+                for s, e in self.unit_bounds()]
 
     def plan_units(self, batch) -> List[PlanUnit]:
         """Ordered plannable units.  Each ``apply(params, x)`` builds its
         positions from ``x`` (no lengths, as in the reference), so the
-        collector can run it on ``meta`` tensors."""
+        collector can run it on ``meta`` tensors.  A scan-mode unit's
+        params are the list of its layers' trees."""
         cfg = self.cfg
+        scan = cfg.remat_mode == "scan"
         units = []
-        for i, blk in enumerate(self.blocks):
-            def blk_fn(p, xx, _g=self._is_global(i)):
+        for u, (s, e) in enumerate(self.unit_bounds()):
+            flag = self._chunk_flag(s, e)
+
+            def unit_fn(p, xx, _g=flag):
                 B, S = xx.shape[:2]
                 pos = torch.arange(S, device=xx.device).expand(B, S)
-                return block_apply(p, cfg, xx, positions=pos,
-                                   layer_is_global=_g, impl=self.attn_impl)
-            units.append(PlanUnit(f"block{i}", i, blk, blk_fn,
-                                  signature=("block", self._is_global(i))))
+                for lp in (p if scan else [p]):
+                    xx = block_apply(lp, cfg, xx, self.kind, positions=pos,
+                                     layer_is_global=_g, impl=self.attn_impl)
+                return xx
+            if scan:
+                units.append(PlanUnit(f"chunk{u}[{s}:{e}]", u,
+                                      list(self.blocks[s:e]), unit_fn,
+                                      signature=("chunk", flag, e - s)))
+            else:
+                units.append(PlanUnit(f"block{s}", u, self.blocks[s],
+                                      unit_fn, signature=("block", flag)))
         return units

@@ -8,7 +8,7 @@ import importlib
 
 from repro_torch.config import ModelConfig
 
-ARCH_IDS = ["bert_base_paper"]
+ARCH_IDS = ["bert_base_paper", "mamba2_1p3b"]
 
 
 def canonical(arch: str) -> str:

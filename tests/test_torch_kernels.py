@@ -1,4 +1,5 @@
-"""The port's flash attention against the reference's oracle.
+"""The port's kernels (flash attention, the SSD chunk scan, the DMA copy)
+against the reference's oracles.
 
 The same numpy inputs go through ``repro.kernels.ref.flash_attention_reference``
 (and ``jax.grad`` of it) and through the port's plain versions and its
@@ -13,16 +14,22 @@ Tolerances (the reference suite's own): fp32 forward rtol 2e-4 / atol
 rounding of the output).
 """
 import math
+import sys
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.offload_dma import dma_copy as jax_dma_copy
 from repro.kernels.ref import flash_attention_reference as jax_reference
+from repro.kernels.ref import ssd_reference as jax_ssd_reference
+from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import offload_dma as dma
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import flash_attention_reference
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels.ref import flash_attention_reference, ssd_reference
 
 import jax
 
@@ -273,3 +280,313 @@ def test_cuda_wrapper_rejects_bad_operands(fake_cuda):
                      v, lens, True, 0)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_fwd(q, k.double(), v, lens, True, 0)
+
+
+# ---------------------------------------------------------------------------
+# the SSD chunk scan (K4): plain version, SSDScan, routing
+# ---------------------------------------------------------------------------
+#
+# The reference's Pallas SSD kernel cannot run on this jax either, so the
+# port is held against ``repro.kernels.ref.ssd_reference`` (the
+# sequential recurrence) and ``repro.models.mamba2.ssd_chunked``.
+# Tolerances are the reference suite's (tests/test_kernels.py): fp32
+# 1e-3 (sums in another order), bf16 rtol 2e-2 / atol 2e-1 (one bf16
+# rounding of y).
+
+# tests/test_kernels.py SSD_CASES: (B, S, H, P, N, chunk, dtype)
+SSD_CASES = [
+    (1, 64, 2, 16, 8, 16, "float32"),
+    (2, 128, 4, 32, 16, 32, "float32"),
+    (1, 100, 2, 16, 8, 32, "float32"),          # padding path
+    (1, 128, 1, 64, 32, 64, "float32"),
+    (1, 64, 2, 16, 8, 16, "bfloat16"),
+]
+
+
+def _ssd_inputs(B, S, H, P, N, dtype="float32", seed=0):
+    """(x, dt, A, Bm, Cm) as (jax, torch) lists with the same values: the
+    reference test's distributions, drawn with numpy; dt has x's dtype
+    and A is fp32, as there."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H) * 0.3)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, N)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    arrs = (x, dt, A, Bm, Cm)
+    return ([jnp.asarray(a).astype(jnp.float32 if i == 2 else jdt)
+             for i, a in enumerate(arrs)],
+            [torch.from_numpy(a).to(torch.float32 if i == 2 else tdt)
+             for i, a in enumerate(arrs)])
+
+
+def _ssd_tol(dtype):
+    return (dict(rtol=2e-2, atol=2e-1) if dtype == "bfloat16"
+            else dict(rtol=1e-3, atol=1e-3))
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_plain_matches_reference(case):
+    B, S, H, P, N, chunk, dtype = case
+    jin, tin = _ssd_inputs(B, S, H, P, N, dtype)
+    want, _ = jax_ssd_reference(*jin)
+    want = np.asarray(want, np.float32)
+    for got in (ssd.ssd_scan_plain(*tin), ops.ssd_scan(*tin, chunk=chunk),
+                ssd_reference(*tin)[0]):
+        assert got.dtype == tin[0].dtype and got.shape == tin[0].shape
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   **_ssd_tol(dtype))
+
+
+@pytest.mark.parametrize("chunks_per_block", [1, 2])
+def test_ssd_ragged_matches_reference_at_true_lengths(chunks_per_block):
+    """tests/test_ragged.py::test_ssd_ragged_matches_reference_at_true_lengths:
+    with lengths, each sequence's valid rows equal the reference run on
+    the unpadded sequence."""
+    B, S, H, P, N, chunk = 2, 96, 2, 16, 8, 16
+    jin, tin = _ssd_inputs(B, S, H, P, N)
+    lens = [40, 77]
+    y = ops.ssd_scan(*tin, torch.tensor(lens, dtype=torch.int32),
+                     chunk=chunk, chunks_per_block=chunks_per_block)
+    for b, L in enumerate(lens):
+        yr, _ = jax_ssd_reference(jin[0][b:b + 1, :L], jin[1][b:b + 1, :L],
+                                  jin[2], jin[3][b:b + 1, :L],
+                                  jin[4][b:b + 1, :L])
+        np.testing.assert_allclose(y[b:b + 1, :L].numpy(), np.asarray(yr),
+                                   rtol=1e-3, atol=1e-3)
+
+
+def test_ssd_ragged_bitwise_matches_unpadded():
+    """tests/test_ragged.py::test_ssd_ragged_bitwise_matches_unpadded_kernel,
+    on the plain route: a padded batch with lengths gives the unpadded
+    result bit for bit on the valid rows."""
+    _, (x, dt, A, Bm, Cm) = _ssd_inputs(1, 96, 2, 16, 8)
+    L = 32
+    padded = ops.ssd_scan(x, dt, A, Bm, Cm, torch.full((1,), L,
+                                                       dtype=torch.int32),
+                          chunk=16)
+    exact = ops.ssd_scan(x[:, :L], dt[:, :L], A, Bm[:, :L], Cm[:, :L],
+                         chunk=16)
+    assert torch.equal(padded[:, :L], exact)
+
+
+def test_ssd_scan_grads_match_jax_grad_of_chunked():
+    """``SSDScan``'s gradients (plain forward, ``ssd_chunked`` backward)
+    against ``jax.grad`` of the reference's ``ssd_chunked`` with dt
+    masked past the lengths, the reference's training formulation.  Both
+    differentiate the same fp32 algorithm: rtol 1e-4, atol 1e-5."""
+    B, S, H, P, N, chunk = 2, 100, 2, 16, 8, 32
+    jin, tin = _ssd_inputs(B, S, H, P, N, seed=3)
+    lens = np.array([61, 100], np.int32)
+    dy = np.random.default_rng(4).standard_normal((B, S, H, P)).astype(
+        np.float32)
+    valid = np.arange(S)[None, :, None] < lens[:, None, None]
+
+    def f_ref(x, dt, A, Bm, Cm):
+        y, _ = jax_ssd_chunked(x, jnp.where(valid, dt, 0.0), A, Bm, Cm, chunk)
+        return (y * dy).sum()
+    want = jax.grad(f_ref, argnums=(0, 1, 2, 3, 4))(*jin)
+    ins = [t.requires_grad_() for t in tin]
+    y = ops.ssd_scan(*ins, torch.from_numpy(lens), chunk=chunk)
+    (y * torch.from_numpy(dy)).sum().backward()
+    for name, t, w in zip(("x", "dt", "A", "B", "C"), ins, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5, err_msg=f"d{name}")
+
+
+def test_ssd_residuals_are_linear_in_seq():
+    """``SSDScan`` saves its inputs only — O(S) — and on ``meta`` tensors
+    returns an output of the kernel's shape without computing."""
+    def resid_bytes(S):
+        H, P, N = 4, 16, 8
+        x = torch.empty((1, S, H, P), device="meta", requires_grad=True)
+        dt = torch.empty((1, S, H), device="meta", requires_grad=True)
+        A = torch.empty((H,), device="meta")
+        Bm = torch.empty((1, S, N), device="meta")
+        Cm = torch.empty((1, S, N), device="meta")
+        saved = {}
+
+        def pack(t):
+            saved[t.untyped_storage()._cdata] = (t, t.untyped_storage().nbytes())
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            y = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=16)
+        assert y.device.type == "meta" and y.shape == x.shape
+        shapes = sorted(tuple(t.shape) for t, _ in saved.values())
+        assert shapes == sorted([(1, S, H, P), (1, S, H), (H,), (1, S, N),
+                                 (1, S, N)])
+        return sum(nb for _, nb in saved.values())
+    r128, r256 = resid_bytes(128), resid_bytes(256)
+    assert r256 <= 2.05 * r128
+
+
+# ---------------------------------------------------------------------------
+# the DMA copy (K5)
+# ---------------------------------------------------------------------------
+
+# tests/test_offload_exec.py::test_dma_copy_identity_including_padding_tail
+DMA_CASES = [((128,), "float32"), ((33,), "float32"), ((7, 5), "bfloat16"),
+             ((1,), "int32")]
+
+
+@pytest.mark.parametrize("case", DMA_CASES)
+def test_dma_copy_plain_matches_reference(case):
+    """The plain version against the reference's kernel in interpret
+    mode, at 16 elements per chunk (a zero-padded tail in all but the
+    first case): identical values, shape and dtype."""
+    shape, dtype = case
+    n = int(np.prod(shape))
+    xj = jnp.arange(n, dtype=jnp.float32).astype(dtype).reshape(shape)
+    want = np.asarray(jax_dma_copy(xj, chunk_elems=16, interpret=True),
+                      np.float32)
+    tdt = getattr(torch, dtype)
+    x = torch.arange(n, dtype=torch.float32).to(tdt).reshape(shape)
+    for got in (dma.dma_copy_plain(x, 16), dma.dma_copy(x, 16),
+                ops.residual_dma_copy(x, chunk_elems=16)):
+        assert got.shape == x.shape and got.dtype == x.dtype
+        np.testing.assert_array_equal(got.float().numpy(), want)
+        assert torch.equal(got, x)
+
+
+def test_residual_dma_copy_wrapper():
+    """tests/test_offload_exec.py::test_residual_dma_copy_wrapper."""
+    x = torch.linspace(0.0, 1.0, 1000).reshape(10, 100)
+    y = ops.residual_dma_copy(x)
+    assert y.shape == x.shape and y.dtype == x.dtype
+    assert torch.equal(y, x) and y.data_ptr() != x.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# K4 and K5 on a CUDA tensor launch the kernel or raise
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def fake_cuda_lib(monkeypatch):
+    """Install a fake library (launches return ``err``) in ``module``."""
+    def install(module, err):
+        lib = _FakeLib(err)
+        monkeypatch.setattr(module, "library", lambda: lib)
+        monkeypatch.setattr(module, "_stream_handle", lambda device: 0)
+        monkeypatch.setattr(
+            module, "_alloc",
+            lambda shape, dtype, device: torch.full(
+                shape, 7, dtype=dtype).as_subclass(_FakeCuda))
+        return lib
+    return install
+
+
+def _fake_ssd_inputs():
+    _, tin = _ssd_inputs(2, 64, 2, 16, 8)
+    lens = torch.tensor([40, 64], dtype=torch.int32)
+    return [t.as_subclass(_FakeCuda) for t in tin + [lens]]
+
+
+def test_ssd_cuda_tensor_launches_kernel_not_plain(fake_cuda_lib):
+    lib = fake_cuda_lib(ssd, 0)
+    x, dt, A, Bm, Cm, lens = _fake_ssd_inputs()
+    before = dict(ops.LAUNCHES)
+    y = ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, lens, 16)
+    assert [c[0] for c in lib.calls] == ["ssd_scan"]
+    assert lib.calls[0][1][7:15] == (2, 64, 2, 16, 8, 16, 0, 0)
+    assert ops.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+    assert (y.as_subclass(torch.Tensor) == 7).all()   # the kernel's buffer
+
+
+def test_ssd_cuda_tensor_failed_launch_raises(fake_cuda_lib):
+    fake_cuda_lib(ssd, 2)                           # cudaErrorMemoryAllocation
+    x, dt, A, Bm, Cm, lens = _fake_ssd_inputs()
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="ssd_scan launch failed"):
+        ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, lens, 16)
+    assert ops.LAUNCHES == before
+
+
+def test_ssd_cuda_wrapper_rejects_bad_operands(fake_cuda_lib):
+    lib = fake_cuda_lib(ssd, 0)
+    x, dt, A, Bm, Cm, lens = _fake_ssd_inputs()
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan_fwd(x.transpose(2, 3).contiguous().transpose(2, 3),
+                         dt, A, Bm, Cm, lens, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd.ssd_scan_fwd(x, dt, A, Bm.double(), Cm, lens, 16)
+    with pytest.raises(ValueError, match="shape"):
+        ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, lens, 48)     # Q not taken
+    x40, dt40, B40, C40 = (t[:, :40].contiguous() for t in (x, dt, Bm, Cm))
+    with pytest.raises(ValueError, match="multiple"):
+        ssd.ssd_scan_fwd(x40, dt40, A, B40, C40, lens, 16)
+    assert lib.calls == []
+
+
+def test_dma_cuda_tensor_launches_kernel_not_plain(fake_cuda_lib):
+    lib = fake_cuda_lib(dma, 0)
+    x = torch.arange(35, dtype=torch.bfloat16).reshape(7, 5).as_subclass(
+        _FakeCuda)
+    before = dict(ops.LAUNCHES)
+    y = dma.dma_copy(x, 16)
+    assert [c[0] for c in lib.calls] == ["dma_copy"]
+    assert lib.calls[0][1][2:4] == (70, 32)          # bytes, chunk bytes
+    assert ops.LAUNCHES["dma_copy"] == before["dma_copy"] + 1
+    assert y.shape == x.shape and (y.as_subclass(torch.Tensor) == 7).all()
+
+
+def test_dma_cuda_tensor_failed_launch_raises(fake_cuda_lib):
+    fake_cuda_lib(dma, 1)
+    x = torch.ones(64).as_subclass(_FakeCuda)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match="dma_copy launch failed"):
+        dma.dma_copy(x, 16)
+    assert ops.LAUNCHES == before
+
+
+def test_dma_cuda_wrapper_rejects_bad_operands(fake_cuda_lib):
+    lib = fake_cuda_lib(dma, 0)
+    x = torch.ones(8, 8).as_subclass(_FakeCuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        dma.dma_copy(x.t(), 16)
+    with pytest.raises(ValueError, match="chunk_elems"):
+        dma.dma_copy(x, 0)
+    assert lib.calls == []
+
+
+# ---------------------------------------------------------------------------
+# compiling the kernel sources (kernels/build.py)
+# ---------------------------------------------------------------------------
+
+def test_build_compiles_each_source_once_and_raises_on_failure(
+        tmp_path, monkeypatch):
+    """``build.build`` runs one compiler per source not built yet, keys the
+    library by the source's hash, reuses it afterwards, and raises with
+    the compiler's output when a compile fails.  A stand-in compiler
+    (a Python script taking nvcc's ``-o out src``) replaces ``nvcc``."""
+    from repro_torch.kernels import build
+    fake = tmp_path / "fake_nvcc.py"
+    log = tmp_path / "calls.txt"
+    fake.write_text(
+        "import sys\n"
+        "out, src = sys.argv[sys.argv.index('-o') + 1], sys.argv[-1]\n"
+        f"open({str(log)!r}, 'a').write(src + '\\n')\n"
+        "if 'bad' in src:\n"
+        "    print('error: bad source', file=sys.stderr)\n"
+        "    sys.exit(2)\n"
+        "open(out, 'w').write('lib')\n")
+    fake.chmod(0o755)
+    wrapper = tmp_path / "nvcc"
+    wrapper.write_text(f"#!/bin/sh\nexec {sys.executable} {fake} \"$@\"\n")
+    wrapper.chmod(0o755)
+    monkeypatch.setattr(build, "nvcc", lambda: str(wrapper))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    srcs = []
+    for name in ("a.cu", "b.cu"):
+        srcs.append(tmp_path / name)
+        srcs[-1].write_text(f"// {name}\n")
+    paths = build.build(*srcs)
+    assert [p.read_text() for p in paths] == ["lib", "lib"]
+    assert paths[0] != paths[1] and paths == build.build(*srcs)
+    assert sorted(log.read_text().split()) == sorted(str(s) for s in srcs)
+    bad = tmp_path / "bad.cu"
+    bad.write_text("// bad\n")
+    with pytest.raises(RuntimeError, match="(?s)nvcc failed.*bad source"):
+        build.build(srcs[0], bad)
+    assert not build.library_path(bad).exists()
