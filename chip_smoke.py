@@ -20,16 +20,23 @@ Phases (each raises on failure; the script then exits non-zero):
    device time goes (``torch.profiler``) and its memory against the
    planner's prediction; kernel timings (CUDA events) beside the plain
    version, the library call and the bound;
-4. the SSD chunk-scan kernel against its plain version (the reference's
-   SSD cases, its ragged cases, the mamba2 main path's buckets), the
-   bitwise padded-versus-unpadded check and ``SSDScan``'s gradient
-   against autograd through the plain version;
-5. the DMA copy kernel against the identity;
+4. the SSD chunk-scan kernels against their plain version through
+   ``ops.ssd_scan`` (the reference's SSD cases and its ragged cases on
+   the fp32 FMA kernel, the mamba2 main path's buckets on the
+   tensor-core kernel, each case's kernel read from the launch counts),
+   the tensor-core kernel against the FMA kernel on one bucket's bf16
+   inputs (what its hi/lo split keeps, in bf16 ulps), the bitwise
+   padded-versus-unpadded check on each kernel and
+   ``SSDScan``'s gradient against autograd through the plain version;
+5. the DMA copy kernel against the identity, including a byte count
+   that is not a multiple of 16 into a destination off 16-byte
+   alignment;
 6. mamba2 path: trains full-width ``mamba2_1p3b`` in scan mode under the
    Mimose planner with ``--attn-impl flash`` (every layer's chunk scan
-   through the kernel), with launch counts read around it; one
-   full-width loss through the kernel against ``ssd_chunked``; profile
-   and memory of a warm step; the SSD kernel's timings;
+   through the tensor-core kernel, none through the FMA kernel), with
+   launch counts read around it; one full-width loss through the kernel
+   against ``ssd_chunked``; profile and memory of a warm step; the SSD
+   kernels' timings (tensor-core and FMA kernel in turns);
 7. DMA path: ``ops.residual_dma_copy`` stages a residual stream and the
    logits, with launch counts read around it; the DMA kernel's timings;
 
@@ -54,10 +61,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA's data sheet): HBM 3.35 TB/s;
-# fp32 outside the tensor cores 67 TFLOP/s.  The kernels compute fp32 on
-# the CUDA cores (no TF32), so their operation bound uses the fp32 rate.
+# fp32 outside the tensor cores 67 TFLOP/s; bf16 tensor cores 989
+# TFLOP/s.  The flash kernels compute fp32 on the CUDA cores (no TF32),
+# so their operation bound uses the fp32 rate; the SSD scan's bf16
+# inputs can go through the tensor cores, so its bound uses the bf16 rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 
 # the main paths: full-width bert_base_paper and mamba2_1p3b, squad
 # lengths, batch 8
@@ -369,10 +379,11 @@ def check_main_path(trainer, launches):
     }
     if lm.kind == "ssm":
         checks.update({
-            "ssd_scan = sum(48 + 6 n_remat)":
+            "ssd_scan (tensor cores) = sum(48 + 6 n_remat)":
                 launches["ssd_scan"] == sum(fwd_per_step),
-            "no flash or dma launches": all(
-                launches[k] == 0 for k in FLASH_KERNELS + ["dma_copy"]),
+            "no FMA ssd, flash or dma launches": all(
+                launches[k] == 0
+                for k in FLASH_KERNELS + ["ssd_scan_fma", "dma_copy"]),
         })
     else:
         checks.update({
@@ -382,8 +393,9 @@ def check_main_path(trainer, launches):
                 launches["flash_fwd"] == sum(fwd_per_step),
             "K2 = K3 = units per step": launches["flash_bwd_dq"]
             == launches["flash_bwd_dkv"] == n_units * len(h),
-            "no ssd or dma launches": launches["ssd_scan"] == 0
-            and launches["dma_copy"] == 0,
+            "no ssd or dma launches": all(
+                launches[k] == 0
+                for k in ("ssd_scan", "ssd_scan_fma", "dma_copy")),
         })
     log("main path checks: " + json.dumps(checks))
     if not all(checks.values()):
@@ -547,46 +559,121 @@ def _ssd_valid(y, lens):
     return torch.cat([y[b, :L].reshape(-1) for b, L in enumerate(lens)])
 
 
+def _launched(ops, before):
+    """The kernels launched since ``before`` (a copy of ``ops.LAUNCHES``)."""
+    return sorted(k for k in ops.LAUNCHES if ops.LAUNCHES[k] != before[k])
+
+
+# The hi/lo split, on the card: the tensor-core kernel against the FMA
+# kernel (fp32 throughout) on the same bf16 inputs of a main-path bucket,
+# each y rounded once to bf16.  With ~16 mantissa bits kept, a few
+# outputs differ by one bf16 ulp (more only where |y| is near 0); with
+# the lo halves dropped (one bf16 rounding of w, the carried state and
+# the decayed x) many differ, by many ulps.  At one main-width head
+# group (L = 390 of 448), against the fp32 recurrence, the CPU
+# emulation of the kernel's arithmetic (tests/test_torch_kernels.py::
+# test_chip_smoke_split_check_tells_split_from_no_split) gives 0.12 %
+# differing and 0.010 % by more than one ulp with the split; 34 % and
+# 5.5 % without.
+SPLIT_MAX_SHARE = {"differ": 1e-2, "over_one_ulp": 1e-3}
+
+
+def bf16_ulp_gap(a, b):
+    """|a - b| in bf16 units in the last place, for tensors of bf16
+    values (their order as integers; +0 and -0 are one value)."""
+    def ordered(t):
+        i = t.to(torch.bfloat16).view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def split_shares(y, y_ref):
+    """The shares of outputs of ``y`` that differ from ``y_ref`` and that
+    differ by more than one bf16 ulp, and the largest gap in ulps."""
+    gap = bf16_ulp_gap(y, y_ref)
+    return {"differ": float((gap > 0).float().mean()),
+            "over_one_ulp": float((gap > 1).float().mean()),
+            "max_ulp": int(gap.max())}
+
+
+def _ssd_split_check(ssd, case, lens):
+    B, S, H, P, N, chunk, dtype = case
+    Sp = -(-S // chunk) * chunk              # the kernels take whole chunks
+    x, dt, A, Bm, Cm = _ssd_inputs(B, Sp, H, P, N, dtype, "float32", seed=6)
+    kvl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    y_tc = ssd.ssd_scan_tc(x, dt, A, Bm, Cm, kvl, chunk)
+    y_fma = ssd.ssd_scan_fma(x, dt, A, Bm, Cm, kvl, chunk)
+    share = split_shares(_ssd_valid(y_tc, lens), _ssd_valid(y_fma, lens))
+    log(f"ssd check hi/lo split {case} lens={lens}: ssd_scan against "
+        f"ssd_scan_fma, outputs differing {share['differ']:.3e}, by more "
+        f"than one bf16 ulp {share['over_one_ulp']:.3e} (at most "
+        f"{SPLIT_MAX_SHARE}), largest gap {share['max_ulp']} ulp")
+    if any(share[k] > limit for k, limit in SPLIT_MAX_SHARE.items()):
+        raise AssertionError("the tensor-core kernel departs from the FMA "
+                             "kernel more than its hi/lo split allows")
+
+
+def _ssd_bitwise(ops, B, S, H, P, N, chunk, dtype, L, kernel):
+    """Padded with kv_len against the unpadded call, on ``kernel``
+    (tests/test_ragged.py::test_ssd_ragged_bitwise_matches_unpadded_kernel)."""
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, dtype, seed=1)
+    before = dict(ops.LAUNCHES)
+    padded = ops.ssd_scan(x, dt, A, Bm, Cm,
+                          torch.full((B,), L, dtype=torch.int32,
+                                     device="cuda"), chunk=chunk)
+    exact = ops.ssd_scan(x[:, :L], dt[:, :L], A, Bm[:, :L], Cm[:, :L],
+                         chunk=chunk)
+    torch.cuda.synchronize()
+    ran = _launched(ops, before)
+    if ran != [kernel]:
+        raise AssertionError(f"bitwise check meant for {kernel} ran {ran}")
+    if not torch.equal(padded[:, :L], exact):
+        raise AssertionError(f"{kernel} padded with kv_len differs bitwise "
+                             f"from the unpadded call")
+    first_skipped = -(-L // chunk) * chunk
+    if bool(padded[:, first_skipped:].any()):
+        raise AssertionError(f"{kernel} rows of skipped chunks are not 0")
+    log(f"ssd check {kernel} (B={B} S={S} H={H} P={P} N={N} Q={chunk} "
+        f"{dtype}, L={L}): padded with kv_len == unpadded, bit for bit; "
+        f"skipped chunks zero")
+
+
 def check_ssd(ops, ssd, cases):
     """K4 through ``ops.ssd_scan`` against its plain version on every
     case ((case, lens or None, chunks_per_block, dt dtype or None = x's,
-    main path?)); returns the max abs error over the main path's cases."""
-    main_err = 0.0
+    main path?)); each case must run the kernel ``ssd.uses_tensor_cores``
+    names, the main path's the tensor-core kernel; then the hi/lo split
+    on the last main case.  Returns the max abs error over the main
+    path's cases."""
+    main_err, split_case = 0.0, None
     for case, lens, cpb, dt_dtype, main in cases:
         B, S, H, P, N, chunk, dtype = case
         x, dt, A, Bm, Cm = _ssd_inputs(B, S, H, P, N, dtype, dt_dtype)
         kvl = (None if lens is None else
                torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        before = dict(ops.LAUNCHES)
         y = ops.ssd_scan(x, dt, A, Bm, Cm, kvl, chunk=chunk,
                          chunks_per_block=cpb)
+        ran = _launched(ops, before)
         y_p = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, kvl)
         torch.cuda.synchronize()
         valid = lens or [S] * B
         err, over = _err(_ssd_valid(y, valid), _ssd_valid(y_p, valid),
                          *SSD_TOL[dtype])
         log(f"ssd check {case} lens={lens} chunks_per_block={cpb} "
-            f"dt={dt_dtype or dtype}: max abs err {err:.3e}")
+            f"dt={dt_dtype or dtype}: {ran}, max abs err {err:.3e}")
+        want = ("ssd_scan" if ssd.uses_tensor_cores(x, Bm, chunk)
+                else "ssd_scan_fma")
+        if ran != [want] or (main and want != "ssd_scan"):
+            raise AssertionError(f"{case} ran {ran}, expected {want}")
         if over > 0:
-            raise AssertionError(f"ssd_scan disagrees with plain on {case}")
+            raise AssertionError(f"{ran[0]} disagrees with plain on {case}")
         if main:
             main_err = max(main_err, err)
-    # bitwise: padded with kv_len against the unpadded call
-    # (tests/test_ragged.py::test_ssd_ragged_bitwise_matches_unpadded_kernel)
-    x, dt, A, Bm, Cm = _ssd_inputs(1, 96, 2, 16, 8, "float32", seed=1)
-    L = 32
-    padded = ops.ssd_scan(x, dt, A, Bm, Cm,
-                          torch.full((1,), L, dtype=torch.int32,
-                                     device="cuda"), chunk=16)
-    exact = ops.ssd_scan(x[:, :L], dt[:, :L], A, Bm[:, :L], Cm[:, :L],
-                         chunk=16)
-    torch.cuda.synchronize()
-    if not torch.equal(padded[:, :L], exact):
-        raise AssertionError("ssd_scan padded with kv_len differs bitwise "
-                             "from the unpadded call")
-    if bool(padded[:, L:].any()):
-        raise AssertionError("ssd_scan rows of skipped chunks are not 0")
-    log("ssd check: padded with kv_len == unpadded, bit for bit; skipped "
-        "chunks zero")
+            split_case = (case, lens)
+    _ssd_split_check(ssd, *split_case)
+    _ssd_bitwise(ops, 1, 96, 2, 16, 8, 16, "float32", 32, "ssd_scan_fma")
+    _ssd_bitwise(ops, 2, 448, 8, 64, 128, 64, "bfloat16", 300, "ssd_scan")
     # SSDScan's gradient against autograd through the plain version
     x, dt, A, Bm, Cm = _ssd_inputs(2, 96, 4, 16, 8, "float32", seed=2)
     lens = torch.tensor([50, 96], dtype=torch.int32, device="cuda")
@@ -612,6 +699,34 @@ DMA_CASES = [((128,), "float32", 16), ((33,), "float32", 16),
              ((7, 5), "bfloat16", 16), ((1,), "int32", 16)]
 
 
+def _check_dma_raw(dma):
+    """The C entry point on byte counts that are not a multiple of 16,
+    into destinations off 16-byte alignment: src and dst 5 bytes off
+    (bulk middles, byte-wise ends) and dst alone 3 bytes off (byte by
+    byte).  The bytes around the destination must stay untouched."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, src_off, dst_off, chunk in ((100_003, 5, 5, 4096),
+                                       (100_003, 0, 3, 4096),
+                                       (1_000_001, 13, 13, 65536)):
+        src = torch.randint(0, 256, (n + 32,), generator=gen,
+                            device="cuda", dtype=torch.int32).to(torch.uint8)
+        dst = torch.zeros(n + 32, device="cuda", dtype=torch.uint8)
+        dma.build.raise_on(dma.library().dma_copy(
+            src.data_ptr() + src_off, dst.data_ptr() + dst_off, n, chunk,
+            stream), "dma_copy")
+        torch.cuda.synchronize()
+        ok = (torch.equal(dst[dst_off:dst_off + n], src[src_off:src_off + n])
+              and not bool(dst[:dst_off].any())
+              and not bool(dst[dst_off + n:].any()))
+        log(f"dma check {n} bytes, src +{src_off}, dst +{dst_off} bytes off "
+            f"16-byte alignment, chunk {chunk} bytes: "
+            f"{'identical' if ok else 'DIFFERS'}")
+        if not ok:
+            raise AssertionError(f"dma_copy wrong on {n} bytes, src "
+                                 f"+{src_off}, dst +{dst_off}")
+
+
 def check_dma(ops, dma, logits_shape):
     """K5 against the identity and its plain version: the reference's
     cases, a source that is not 16-byte aligned, and one logits-sized
@@ -628,6 +743,7 @@ def check_dma(ops, dma, logits_shape):
     gen = torch.Generator(device="cuda").manual_seed(3)
     big = torch.randn(logits_shape, generator=gen, device="cuda")
     cases.append((f"{tuple(logits_shape)} float32 (logits)", big, 1 << 15))
+    _check_dma_raw(dma)
     for name, x, chunk in cases:
         y = ops.residual_dma_copy(x, chunk_elems=chunk)
         y_p = dma.dma_copy_plain(x, chunk)
@@ -750,10 +866,14 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
 def time_ssd(ssd, kb, cfg, S, lens):
     """K4 at the mamba2 main path's shape (B = len(lens), S padded to the
     chunk, H, P, N, Q of the config, bf16 x/B/C, fp32 dt, these
-    lengths), beside its plain version and the plain ``ssd_chunked``
-    forward; no single PyTorch call computes the scan, so no library
-    time.  The bound counts the function's work on the valid positions
-    (``_ssm_flops``' scan term) and each input and output once."""
+    lengths): the tensor-core kernel and the FMA kernel in turns (tc,
+    fma, fma, tc; each time the mean of its two), beside the plain
+    version and the plain ``ssd_chunked`` forward; no single PyTorch call
+    computes the scan, so no library time.  The bound counts the
+    function's work on the valid positions (``_ssm_flops``' scan term) at
+    the bf16 tensor-core rate, and its inputs over the chunks it runs and
+    its output in full, each once; the bound at the fp32 CUDA-core rate
+    of earlier runs is logged beside it."""
     from repro_torch.launch.roofline import ssd_scan_flops_per_position
     from repro_torch.models.mamba2 import mamba2_dims, mask_dt, ssd_chunked
     B, Q, P = len(lens), cfg.ssm_chunk, cfg.ssm_head_dim
@@ -767,11 +887,14 @@ def time_ssd(ssd, kb, cfg, S, lens):
     args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), kvl.data_ptr(), y.data_ptr(), B, Sp, H, P, N, Q,
             1, 0, torch.cuda.current_stream().cuda_stream)
-
-    def kernel():
-        return lib.ssd_scan(*args)
-    kb.raise_on(kernel(), "ssd_scan")
-    ms = _time_ms(kernel, 20)
+    kernels = {"ssd_scan": lambda: lib.ssd_scan(*args),
+               "ssd_scan_fma": lambda: lib.ssd_scan_fma(*args)}
+    for name, fn in kernels.items():
+        kb.raise_on(fn(), name)
+    turns = {name: [] for name in kernels}
+    for name in ("ssd_scan", "ssd_scan_fma", "ssd_scan_fma", "ssd_scan"):
+        turns[name].append(_time_ms(kernels[name], 20))
+    ms, fma_ms = (sum(turns[n]) / 2 for n in ("ssd_scan", "ssd_scan_fma"))
     plain_ms = _time_ms(lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm, kvl), 3)
     chunked_ms = _time_ms(lambda: ssd_chunked(x, mask_dt(dt, kvl), A, Bm,
                                               Cm, Q), 5)
@@ -781,28 +904,42 @@ def time_ssd(ssd, kb, cfg, S, lens):
     ctx = SimpleNamespace(saved_tensors=(x, dt, A, Bm, Cm, kvl), chunk=Q)
     backward_ms = _time_ms(lambda: ssd.SSDScan.backward(ctx, dy), 5)
     flops = sum(lens) * ssd_scan_flops_per_position(cfg)
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (x, dt, A, Bm, Cm, kvl, y))
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    out = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+    # x, dt, B and C over the chunks the kernel runs (ceil(len / Q) Q
+    # rows of each sequence; skipped chunks are never read), A and the
+    # lengths once, y in full (skipped rows are written as zeros)
+    rows = sum(-(-L // Q) * Q for L in lens)
+    nbytes = (rows * (H * P * x.element_size() + H * dt.element_size()
+                      + 2 * N * Bm.element_size())
+              + A.numel() * A.element_size() + kvl.numel() * kvl.element_size()
+              + y.numel() * y.element_size())
+    t_ops, t_bytes = (flops / BF16_TC_FLOPS * 1e3,
+                      nbytes / HBM_BYTES_PER_S * 1e3)
+    fp32_bound_ms = max(flops / FP32_FLOPS * 1e3, t_bytes)
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=None, fma_ms=fma_ms,
                chunked_ms=chunked_ms, backward_ms=backward_ms,
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes")
     log(f"timing ssd_scan B={B} S={Sp} H={H} P={P} N={N} Q={Q} bf16 (dt "
-        f"fp32) lens={lens}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"fp32) lens={lens}: tensor-core kernel {ms:.4f} ms "
+        f"({turns['ssd_scan'][0]:.4f}, {turns['ssd_scan'][1]:.4f}), FMA "
+        f"kernel {fma_ms:.4f} ms ({turns['ssd_scan_fma'][0]:.4f}, "
+        f"{turns['ssd_scan_fma'][1]:.4f}), plain {plain_ms:.4f} ms, "
         f"ssd_chunked {chunked_ms:.4f} ms, SSDScan backward (ssd_chunked "
         f"recompute and its vjp) {backward_ms:.4f} ms, bound "
-        f"{out['bound_ms']:.4f} ms "
-        f"({out['bound_by']}; {flops / 1e9:.3f} GFLOP at 67 TFLOP/s fp32, "
-        f"{nbytes / 1e6:.2f} MB at 3.35 TB/s), {flops / ms / 1e9:.2f} "
-        f"TFLOP/s achieved")
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}; {flops / 1e9:.3f} "
+        f"GFLOP at 989 TFLOP/s bf16 = {t_ops:.4f} ms, {nbytes / 1e6:.2f} "
+        f"MB ({rows} of {B * Sp} rows run) at 3.35 TB/s = {t_bytes:.4f} "
+        f"ms; at the 67 TFLOP/s fp32 rate "
+        f"of earlier runs {fp32_bound_ms:.4f} ms), {flops / ms / 1e9:.2f} "
+        f"TFLOP/s achieved (FMA kernel {flops / fma_ms / 1e9:.2f})")
     return out
 
 
 def time_dma(dma, kb, shape, chunk_elems=1 << 15):
     """K5 on a logits-sized fp32 array at the default chunk, beside its
-    plain version and ``Tensor.copy_`` (timed here only); the bound is
-    2 x bytes over the memory rate."""
+    plain version and ``Tensor.copy_`` (timed here only), kernel and
+    ``copy_`` in turns (kernel, copy_, copy_, kernel; each the mean of
+    its two); the bound is 2 x bytes over the memory rate."""
     src = torch.randn(shape, device="cuda")
     dst = torch.empty_like(src)
     nbytes = src.numel() * src.element_size()
@@ -813,13 +950,18 @@ def time_dma(dma, kb, shape, chunk_elems=1 << 15):
         return lib.dma_copy(src.data_ptr(), dst.data_ptr(), nbytes,
                             chunk_elems * src.element_size(), stream)
     kb.raise_on(kernel(), "dma_copy")
-    ms = _time_ms(kernel, 20)
+    fns = {"kernel": kernel, "copy_": lambda: dst.copy_(src)}
+    turns = {k: [] for k in fns}
+    for k in ("kernel", "copy_", "copy_", "kernel"):
+        turns[k].append(_time_ms(fns[k], 20))
+    ms, library_ms = (sum(turns[k]) / 2 for k in ("kernel", "copy_"))
     plain_ms = _time_ms(lambda: dma.dma_copy_plain(src, chunk_elems), 5)
-    library_ms = _time_ms(lambda: dst.copy_(src), 20)
     bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
     log(f"timing dma_copy {tuple(shape)} fp32 chunk {chunk_elems}: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, copy_ {library_ms:.4f} ms, "
-        f"bound {bound:.4f} ms (bytes; {2 * nbytes / 1e6:.1f} MB moved), "
+        f"{ms:.4f} ms ({turns['kernel'][0]:.4f}, {turns['kernel'][1]:.4f}), "
+        f"copy_ {library_ms:.4f} ms ({turns['copy_'][0]:.4f}, "
+        f"{turns['copy_'][1]:.4f}), plain {plain_ms:.4f} ms, bound "
+        f"{bound:.4f} ms (bytes; {2 * nbytes / 1e6:.1f} MB moved), "
         f"{2 * nbytes / ms / 1e6:.1f} GB/s achieved")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound, bound_by="bytes")
@@ -956,8 +1098,9 @@ def main() -> int:
                "max_abs_err": errs[name], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
-        if "chunked_ms" in t:
-            row["chunked_ms"] = t["chunked_ms"]
+        for extra in ("fma_ms", "chunked_ms"):
+            if extra in t:
+                row[extra] = t[extra]
         kernels.append(row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())

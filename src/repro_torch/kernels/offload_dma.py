@@ -10,8 +10,9 @@ wrapper here    CUDA kernel          TPU kernel replaced
 ==============  ===================  ====================
 
 The array is walked in ``chunk_elems`` chunks; each chunk streams through
-a two-slot shared-memory ring, the fetch of one tile in flight while the
-previous one drains (``csrc/offload_dma.cu``).  The result equals the
+an eight-slot shared-memory ring fed and drained by TMA bulk copies, the
+fetches of the next tiles in flight while one drains
+(``csrc/offload_dma.cu``).  The result equals the
 input: the schedule, not the data, is the product.  Any dtype copies
 (the kernel moves bytes).
 

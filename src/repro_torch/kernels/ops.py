@@ -1,6 +1,6 @@
 """Public wrappers around the kernels in the model's layout (counterpart
-of the reference's ``kernels/ops.py``), and the launch counts of all
-five kernels."""
+of the reference's ``kernels/ops.py``), and the launch counts of every
+kernel."""
 from __future__ import annotations
 
 import torch
@@ -43,8 +43,8 @@ def ssd_scan(x, dt, A, Bm, Cm, kv_len=None, *, chunk: int = 64,
     y (B, S, H, P), from a zero state.
 
     Pads S to a ``chunk * chunks_per_block`` multiple and slices back, as
-    the reference does (the kernel walks every chunk of a (b, h) in one
-    loop, so ``chunks_per_block`` only sets the padding span here).
+    the reference does (each kernel walks all of a sequence's chunks in
+    one loop, so ``chunks_per_block`` only sets the padding span here).
     ``kv_len``: optional (B,) int32 true lengths — contributions past a
     sequence's length never enter the state, and chunks wholly inside
     the padding never run.

@@ -1,13 +1,14 @@
-"""Mamba2 SSD chunk scan: a hand-written CUDA kernel for Hopper, its plain
-PyTorch version, and the ``torch.autograd.Function`` around it.
+"""Mamba2 SSD chunk scan: two hand-written CUDA kernels for Hopper, their
+plain PyTorch version, and the ``torch.autograd.Function`` around them.
 
 Counterpart of the reference's ``kernels/ssd_scan.py``:
 
-==============  ===================  ===================
-wrapper here    CUDA kernel          TPU kernel replaced
-==============  ===================  ===================
-``ssd_scan``    ``ssd_scan_kernel``  ``_ssd_kernel``
-==============  ===================  ===================
+================  =======================  ===================
+entry point       CUDA kernel              TPU kernel replaced
+================  =======================  ===================
+``ssd_scan``      ``ssd_scan_tc_kernel``   ``_ssd_kernel``
+``ssd_scan_fma``  ``ssd_scan_fma_kernel``  ``_ssd_kernel``
+================  =======================  ===================
 
 Layout (the model's): x (B, S, H, P); dt (B, S, H); A (H,) fp32; Bm, Cm
 (B, S, N); ``kv_len`` an optional (B,) int32 tensor of true lengths.  The
@@ -17,9 +18,16 @@ are skipped (their rows of y are zero).  Other rows at or past
 ``kv_len`` are unspecified.  S must be a multiple of ``chunk``
 (``ops.ssd_scan`` pads).
 
-Routing, as for flash attention: a CUDA tensor launches the kernel or
+Routing, as for flash attention: a CUDA tensor launches a kernel or
 raises; a CPU tensor takes the plain version (``ref.ssd_reference``, the
 sequential recurrence); a ``meta`` tensor gets a ``meta`` output.
+
+Which kernel (``uses_tensor_cores``): the tensor-core kernel takes bf16
+x, B and C with P = 64, chunk 64, N = 128 (the full mamba2 config's)
+and H a multiple of ``TC_HEAD_GROUP``; every other case goes to the
+fp32 FMA kernel.  Each kernel has its own launch count, and
+each entry point raises on a case it does not take: neither hands a call
+to the other.
 
 The reference has no backward kernel for the scan: it differentiates the
 jnp ``ssd_chunked`` with XLA.  So ``SSDScan`` saves its inputs and its
@@ -40,11 +48,14 @@ from repro_torch.models.mamba2 import mask_dt, ssd_chunked
 
 _SRC = build.CSRC / "ssd_scan.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# head dim P, state size N and chunk length Q the kernel takes: the
+# head dim P, state size N and chunk length Q the FMA kernel takes: the
 # reference's SSD test cases, the reduced and the full mamba2 configs
 HEAD_DIMS = (16, 32, 64)
 STATE_SIZES = (8, 16, 32, 128)
 CHUNKS = (16, 32, 64)
+# what the tensor-core kernel takes (csrc/ssd_scan.cu): bf16 x, B, C;
+# P = 64; Q = 64; N = 128; H a multiple of the heads one CTA owns
+TC_HEAD_DIM, TC_CHUNK, TC_STATE, TC_HEAD_GROUP = 64, 64, 128, 4
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -54,7 +65,8 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        _lib = build.load(_SRC, {"ssd_scan": [p] * 7 + [i] * 8 + [p]})
+        sig = [p] * 7 + [i] * 8 + [p]
+        _lib = build.load(_SRC, {"ssd_scan": sig, "ssd_scan_fma": sig})
     return _lib
 
 
@@ -71,17 +83,27 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, kv_len=None):
     return ssd_reference(x, dt, A, Bm, Cm, kv_len=kv_len)[0]
 
 
+def uses_tensor_cores(x, Bm, chunk: int) -> bool:
+    """The dispatch rule: the tensor-core kernel for bf16 x, B, C at P =
+    64, chunk 64, N = 128, H a multiple of ``TC_HEAD_GROUP``; the FMA
+    kernel otherwise."""
+    H, P = x.shape[2], x.shape[3]
+    return (x.dtype == torch.bfloat16 and Bm.dtype == torch.bfloat16
+            and P == TC_HEAD_DIM and chunk == TC_CHUNK
+            and Bm.shape[-1] == TC_STATE and H % TC_HEAD_GROUP == 0)
+
+
 def _kernel_args(x, dt, A, Bm, Cm, kv_len, chunk):
-    """Validate the operands; returns (B, S, H, P, N) and the clamped
-    int32 lengths."""
+    """Validate the operands for either kernel; returns (B, S, H, P, N)
+    and the clamped int32 lengths."""
+    if not x.is_cuda:
+        raise ValueError(f"the SSD kernels run on cuda tensors, not "
+                         f"{x.device} (ssd_scan_fwd routes the others)")
     if x.dtype not in _DTYPE_CODE or dt.dtype not in _DTYPE_CODE:
-        raise ValueError(f"the SSD kernel takes float32 or bfloat16 x and "
+        raise ValueError(f"the SSD kernels take float32 or bfloat16 x and "
                          f"dt, not {x.dtype} and {dt.dtype}")
     B, S, H, P = x.shape
     N = Bm.shape[-1]
-    if P not in HEAD_DIMS or N not in STATE_SIZES or chunk not in CHUNKS:
-        raise ValueError(f"SSD kernel shape (P={P}, N={N}, Q={chunk}) not "
-                         f"in P {HEAD_DIMS}, N {STATE_SIZES}, Q {CHUNKS}")
     if S == 0 or S % chunk:
         raise ValueError(f"S={S} is not a positive multiple of the chunk "
                          f"{chunk} (ops.ssd_scan pads)")
@@ -97,22 +119,58 @@ def _kernel_args(x, dt, A, Bm, Cm, kv_len, chunk):
     return (B, S, H, P, N), kvl
 
 
+def _launch(name, x, dt, A, Bm, Cm, kvl, dims, chunk):
+    B, S, H, P, N = dims
+    y = _alloc(x.shape, x.dtype, x.device)
+    err = getattr(library(), name)(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), kvl.data_ptr(), y.data_ptr(), B, S, H, P, N, chunk,
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[dt.dtype], _stream_handle(x.device))
+    build.raise_on(err, name)
+    LAUNCHES[name] += 1
+    return y
+
+
+def ssd_scan_tc(x, dt, A, Bm, Cm, kv_len=None, chunk: int = 64):
+    """The tensor-core kernel on CUDA tensors; raises on a case it does
+    not take (see ``uses_tensor_cores``) or on operands whose address is
+    not 16-byte aligned (``cp.async`` of 16-byte rows)."""
+    dims, kvl = _kernel_args(x, dt, A, Bm, Cm, kv_len, chunk)
+    if not uses_tensor_cores(x, Bm, chunk):
+        B, S, H, P, N = dims
+        raise ValueError(
+            f"the tensor-core SSD kernel takes bf16 x/B/C, P={TC_HEAD_DIM}, "
+            f"Q={TC_CHUNK}, N={TC_STATE}, H a multiple of "
+            f"{TC_HEAD_GROUP}; not {x.dtype} P={P} Q={chunk} N={N} H={H}")
+    for name, t in (("x", x), ("dt", dt), ("Bm", Bm), ("Cm", Cm)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    return _launch("ssd_scan", x, dt, A, Bm, Cm, kvl, dims, chunk)
+
+
+def ssd_scan_fma(x, dt, A, Bm, Cm, kv_len=None, chunk: int = 64):
+    """The fp32 FMA kernel on CUDA tensors; raises on a shape it does not
+    take."""
+    P, N = x.shape[-1], Bm.shape[-1]
+    if P not in HEAD_DIMS or N not in STATE_SIZES or chunk not in CHUNKS:
+        raise ValueError(f"SSD kernel shape (P={P}, N={N}, Q={chunk}) not "
+                         f"in P {HEAD_DIMS}, N {STATE_SIZES}, Q {CHUNKS}")
+    dims, kvl = _kernel_args(x, dt, A, Bm, Cm, kv_len, chunk)
+    return _launch("ssd_scan_fma", x, dt, A, Bm, Cm, kvl, dims, chunk)
+
+
 def ssd_scan_fwd(x, dt, A, Bm, Cm, kv_len=None, chunk: int = 64):
-    """The kernel (CUDA), its plain version (CPU) or a ``meta`` y."""
+    """A kernel (CUDA), the plain version (CPU) or a ``meta`` y: the
+    tensor-core kernel for what ``uses_tensor_cores`` says, the FMA
+    kernel for the rest."""
     route = build.route(x, "the SSD scan")
     if route == "plain":
         return ssd_scan_plain(x, dt, A, Bm, Cm, kv_len)
     if route == "meta":
         return torch.empty_like(x)
-    (B, S, H, P, N), kvl = _kernel_args(x, dt, A, Bm, Cm, kv_len, chunk)
-    y = _alloc(x.shape, x.dtype, x.device)
-    err = library().ssd_scan(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), kvl.data_ptr(), y.data_ptr(), B, S, H, P, N, chunk,
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[dt.dtype], _stream_handle(x.device))
-    build.raise_on(err, "ssd_scan")
-    LAUNCHES["ssd_scan"] += 1
-    return y
+    if uses_tensor_cores(x, Bm, chunk):
+        return ssd_scan_tc(x, dt, A, Bm, Cm, kv_len, chunk)
+    return ssd_scan_fma(x, dt, A, Bm, Cm, kv_len, chunk)
 
 
 class SSDScan(torch.autograd.Function):

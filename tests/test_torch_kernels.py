@@ -13,13 +13,16 @@ Tolerances (the reference suite's own): fp32 forward rtol 2e-4 / atol
 (the backward recombines exp(s - lse) terms); bf16 3e-2 (one bf16
 rounding of the output).
 """
+import importlib.util
 import math
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.offload_dma import dma_copy as jax_dma_copy
 from repro.kernels.ref import flash_attention_reference as jax_reference
@@ -30,6 +33,7 @@ from repro_torch.kernels import offload_dma as dma
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ref import flash_attention_reference, ssd_reference
+from repro_torch.models import mamba2 as TM
 
 import jax
 
@@ -423,6 +427,155 @@ def test_ssd_residuals_are_linear_in_seq():
 
 
 # ---------------------------------------------------------------------------
+# K4's tensor-core arithmetic, emulated in plain PyTorch
+# ---------------------------------------------------------------------------
+#
+# ``csrc/ssd_scan.cu``'s tensor-core kernel takes bf16 x, B, C, multiplies
+# bf16 operands with fp32 accumulation, computes C B^T once per (b,
+# chunk) for its whole head group, and splits each fp32 operand (the
+# weights w, the carried state, the decayed x) into bf16 hi + lo, issuing
+# two products.  ``_tc_emulated`` repeats that arithmetic chunk by chunk
+# in the kernel's order; it is held against the reference at
+# ``chip_smoke.py``'s SSD_TOL: fp32 (rtol 1e-3, atol 1e-3) for the
+# unrounded y on the same bf16-valued inputs (what the hi/lo split
+# loses), bf16 (rtol 2e-2, atol 2e-1) once y is rounded to bf16 (what
+# the kernel stores).
+SSD_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
+           "bfloat16": dict(rtol=2e-2, atol=2e-1)}
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _tc_emulated(x, dt, A, Bm, Cm, kv_len, chunk, split=True):
+    """y (fp32) of the tensor-core kernel's arithmetic; ``split=False``
+    drops the lo halves (one bf16 rounding of each fp32 operand)."""
+    def hi_lo(t):
+        hi = _bf16(t)
+        return (hi, _bf16(t - hi)) if split else (hi, torch.zeros_like(t))
+    Bt, S, H, P = x.shape
+    pad = (-S) % chunk
+    x, Bm, Cm = (F.pad(_bf16(t), (0, 0) * (t.dim() - 2) + (0, pad))
+                 for t in (x, Bm, Cm))
+    lens = [S] * Bt if kv_len is None else [int(v) for v in kv_len]
+    dt = F.pad(TM.mask_dt(dt.float(), torch.tensor(lens)), (0, 0, 0, pad))
+    Q = chunk
+    y = torch.zeros(x.shape)
+    tril = torch.ones(Q, Q, dtype=torch.bool).tril()
+    for b, L in enumerate(lens):
+        state = torch.zeros(H, P, Bm.shape[-1])
+        for c in range(-(-L // Q)):                 # chunks past L skipped
+            sl = slice(c * Q, (c + 1) * Q)
+            Cc, Bc, xc, d = Cm[b, sl], Bm[b, sl], x[b, sl], dt[b, sl]
+            cb = Cc @ Bc.T                          # once for all heads
+            la = torch.cumsum(d * A, 0)             # (Q, H)
+            Lm = torch.exp(torch.where(tril[:, :, None],
+                                       la[:, None] - la[None], -math.inf))
+            w_hi, w_lo = hi_lo(cb[:, :, None] * Lm * d[None])
+            s_hi, s_lo = hi_lo(state)
+            y_off = (torch.einsum("in,hpn->ihp", Cc, s_hi)
+                     + torch.einsum("in,hpn->ihp", Cc, s_lo))
+            y[b, sl] = (y_off * torch.exp(la)[..., None]
+                        + torch.einsum("ijh,jhp->ihp", w_hi, xc)
+                        + torch.einsum("ijh,jhp->ihp", w_lo, xc))
+            xd_hi, xd_lo = hi_lo(xc * (torch.exp(la[-1] - la) * d)[..., None])
+            state = (state * torch.exp(la[-1])[:, None, None]
+                     + torch.einsum("jhp,jn->hpn", xd_hi, Bc)
+                     + torch.einsum("jhp,jn->hpn", xd_lo, Bc))
+    return y[:, :S]
+
+
+# the reference's SSD cases, and one head group of the main path's
+# width with a ragged length: (B, S, H, P, N, chunk, lens)
+TC_CASES = list(dict.fromkeys(c[:6] + (None,) for c in SSD_CASES)) + [
+    (1, 448, 4, 64, 128, 64, [390])]
+
+
+def _tc_case_inputs(case):
+    B, S, H, P, N, chunk, lens = case
+    (jx, jdt, jA, jB, jC), (x, dt, A, Bm, Cm) = _ssd_inputs(B, S, H, P, N)
+    # the kernel's operands are bf16: both sides see the same rounded x, B, C
+    jx, jB, jC = (jnp.asarray(_bf16(t).numpy()) for t in (x, Bm, Cm))
+    x, Bm, Cm = (_bf16(t) for t in (x, Bm, Cm))
+    kvl = None if lens is None else np.asarray(lens, np.int32)
+    return (jx, jdt, jA, jB, jC), (x, dt, A, Bm, Cm), kvl
+
+
+def _valid(y, S, lens):
+    y = np.asarray(y, np.float32)
+    return np.concatenate([y[b, :L].reshape(-1)
+                           for b, L in enumerate(lens or [S] * y.shape[0])])
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_tensor_core_arithmetic_matches_reference(case):
+    B, S, H, P, N, chunk, lens = case
+    (jx, jdt, jA, jB, jC), tin, kvl = _tc_case_inputs(case)
+    valid = (np.arange(S)[None, :, None]
+             < (np.full(B, S) if kvl is None else kvl)[:, None, None])
+    want_chunked, _ = jax_ssd_chunked(jx, jnp.where(valid, jdt, 0.0), jA, jB,
+                                      jC, chunk)
+    want_seq, _ = jax_ssd_reference(
+        jx, jdt, jA, jB, jC, kv_len=None if kvl is None else jnp.asarray(kvl))
+    got = _tc_emulated(*tin, None if kvl is None else torch.from_numpy(kvl),
+                       chunk)
+    for want in (want_chunked, want_seq):
+        np.testing.assert_allclose(_valid(got, S, lens), _valid(want, S, lens),
+                                   **SSD_TOL["float32"])
+        np.testing.assert_allclose(
+            _valid(got.to(torch.bfloat16).float(), S, lens),
+            _valid(want, S, lens), **SSD_TOL["bfloat16"])
+
+
+def test_tensor_core_hi_lo_split_is_what_keeps_the_state():
+    """At the main width, dropping the lo halves (one bf16 rounding of
+    w, the carried state and the decayed x) leaves the fp32 tolerance;
+    the hi/lo split stays well inside it."""
+    case = TC_CASES[-1]
+    S, chunk, lens = case[1], case[5], case[6]
+    (jx, jdt, jA, jB, jC), tin, kvl = _tc_case_inputs(case)
+    want, _ = jax_ssd_reference(jx, jdt, jA, jB, jC, kv_len=jnp.asarray(kvl))
+    want = _valid(want, S, lens)
+    lens_t = torch.from_numpy(kvl)
+    err = {split: np.abs(_valid(_tc_emulated(*tin, lens_t, chunk, split),
+                                S, lens) - want).max()
+           for split in (True, False)}
+    assert err[True] < 1e-3 < err[False], err
+    assert err[False] > 30 * err[True], err
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_chip_smoke_split_check_tells_split_from_no_split(split):
+    """``chip_smoke.py`` holds the tensor-core kernel's bf16 y against the
+    FMA kernel's (fp32 throughout) by the share of outputs that differ
+    and differ by more than one bf16 ulp.  On the emulated arithmetic at
+    a main-width head group, against the fp32 recurrence rounded to bf16,
+    the split passes those limits and the arithmetic without the lo
+    halves fails them."""
+    smoke = _chip_smoke()
+    case = TC_CASES[-1]
+    S, chunk, lens = case[1], case[5], case[6]
+    (jx, jdt, jA, jB, jC), tin, kvl = _tc_case_inputs(case)
+    want, _ = jax_ssd_reference(jx, jdt, jA, jB, jC, kv_len=jnp.asarray(kvl))
+    got = _tc_emulated(*tin, torch.from_numpy(kvl), chunk, split)
+    share = smoke.split_shares(
+        torch.from_numpy(_valid(got, S, lens)).to(torch.bfloat16),
+        torch.from_numpy(_valid(want, S, lens)).to(torch.bfloat16))
+    passes = all(share[k] <= limit
+                 for k, limit in smoke.SPLIT_MAX_SHARE.items())
+    assert passes == split, share
+
+
+# ---------------------------------------------------------------------------
 # the DMA copy (K5)
 # ---------------------------------------------------------------------------
 
@@ -488,9 +641,9 @@ def test_ssd_cuda_tensor_launches_kernel_not_plain(fake_cuda_lib):
     x, dt, A, Bm, Cm, lens = _fake_ssd_inputs()
     before = dict(ops.LAUNCHES)
     y = ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, lens, 16)
-    assert [c[0] for c in lib.calls] == ["ssd_scan"]
+    assert [c[0] for c in lib.calls] == ["ssd_scan_fma"]   # fp32, P = 16
     assert lib.calls[0][1][7:15] == (2, 64, 2, 16, 8, 16, 0, 0)
-    assert ops.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+    assert ops.LAUNCHES["ssd_scan_fma"] == before["ssd_scan_fma"] + 1
     assert (y.as_subclass(torch.Tensor) == 7).all()   # the kernel's buffer
 
 
@@ -498,9 +651,94 @@ def test_ssd_cuda_tensor_failed_launch_raises(fake_cuda_lib):
     fake_cuda_lib(ssd, 2)                           # cudaErrorMemoryAllocation
     x, dt, A, Bm, Cm, lens = _fake_ssd_inputs()
     before = dict(ops.LAUNCHES)
-    with pytest.raises(RuntimeError, match="ssd_scan launch failed"):
+    with pytest.raises(RuntimeError, match="ssd_scan_fma launch failed"):
         ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, lens, 16)
     assert ops.LAUNCHES == before
+
+
+def _fake_ssd_case(B, S, H, P, N, dtype, dt_dtype="float32"):
+    _, (x, dt, A, Bm, Cm) = _ssd_inputs(B, S, H, P, N)
+    tdt = getattr(torch, dtype)
+    ins = [x.to(tdt), dt.to(getattr(torch, dt_dtype)), A, Bm.to(tdt),
+           Cm.to(tdt), torch.tensor([S // 2 + 3] + [S] * (B - 1),
+                                    dtype=torch.int32)]
+    return [t.as_subclass(_FakeCuda) for t in ins]
+
+
+# (B, S, H, P, N, chunk, x dtype, dt dtype) -> the kernel the rule picks
+SSD_ROUTES = [
+    ((2, 128, 8, 64, 128, 64, "bfloat16", "float32"), "ssd_scan"),
+    ((1, 64, 4, 64, 128, 64, "bfloat16", "bfloat16"), "ssd_scan"),
+    ((1, 64, 4, 64, 32, 64, "bfloat16", "float32"), "ssd_scan_fma"),
+    ((2, 128, 8, 64, 128, 64, "float32", "float32"), "ssd_scan_fma"),
+    ((2, 64, 4, 16, 16, 16, "bfloat16", "float32"), "ssd_scan_fma"),
+    ((1, 128, 6, 64, 128, 64, "bfloat16", "float32"), "ssd_scan_fma"),
+    ((1, 128, 4, 64, 128, 32, "bfloat16", "float32"), "ssd_scan_fma"),
+]
+
+
+@pytest.mark.parametrize("case,kernel", SSD_ROUTES)
+def test_ssd_dispatch_rule_picks_one_kernel_and_its_count(fake_cuda_lib,
+                                                          case, kernel):
+    """bf16 x/B/C at P = 64, Q = 64, N = 128, H a multiple of 4 reach
+    the tensor-core entry point ``ssd_scan`` and its count; every other
+    case the FMA entry point ``ssd_scan_fma`` and its count."""
+    lib = fake_cuda_lib(ssd, 0)
+    B, S, H, P, N, chunk, dtype, dt_dtype = case
+    x, dt, A, Bm, Cm, lens = _fake_ssd_case(B, S, H, P, N, dtype, dt_dtype)
+    assert ssd.uses_tensor_cores(x, Bm, chunk) == (kernel == "ssd_scan")
+    before = dict(ops.LAUNCHES)
+    y = ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, lens, chunk)
+    assert [c[0] for c in lib.calls] == [kernel]
+    codes = {"float32": 0, "bfloat16": 1}
+    assert lib.calls[0][1][7:15] == (B, S, H, P, N, chunk, codes[dtype],
+                                     codes[dt_dtype])
+    assert {k: v - before[k] for k, v in ops.LAUNCHES.items()
+            if v != before[k]} == {kernel: 1}
+    assert y.dtype == x.dtype and (y.as_subclass(torch.Tensor) == 7).all()
+
+
+@pytest.mark.parametrize("case,kernel", [SSD_ROUTES[0], SSD_ROUTES[2]])
+def test_ssd_failed_launch_raises_and_never_tries_the_other(fake_cuda_lib,
+                                                            case, kernel):
+    lib = fake_cuda_lib(ssd, 1)                     # cudaErrorInvalidValue
+    B, S, H, P, N, chunk, dtype, dt_dtype = case
+    x, dt, A, Bm, Cm, lens = _fake_ssd_case(B, S, H, P, N, dtype, dt_dtype)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(RuntimeError, match=f"{kernel} launch failed"):
+        ssd.ssd_scan_fwd(x, dt, A, Bm, Cm, lens, chunk)
+    assert [c[0] for c in lib.calls] == [kernel]
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", [c for c, k in SSD_ROUTES
+                                  if k == "ssd_scan_fma"])
+def test_ssd_tensor_core_entry_rejects_what_it_does_not_take(fake_cuda_lib,
+                                                             case):
+    lib = fake_cuda_lib(ssd, 0)
+    B, S, H, P, N, chunk, dtype, dt_dtype = case
+    x, dt, A, Bm, Cm, lens = _fake_ssd_case(B, S, H, P, N, dtype, dt_dtype)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="tensor-core SSD kernel takes"):
+        ssd.ssd_scan_tc(x, dt, A, Bm, Cm, lens, chunk)
+    assert lib.calls == [] and ops.LAUNCHES == before
+
+
+def test_ssd_tensor_core_entry_rejects_misaligned_and_cpu(fake_cuda_lib):
+    """A view off 16-byte alignment is refused, also through the
+    dispatching wrapper (no other kernel takes the call); a CPU tensor
+    never reaches the kernel."""
+    lib = fake_cuda_lib(ssd, 0)
+    x, dt, A, Bm, Cm, lens = _fake_ssd_case(1, 128, 4, 64, 128, "bfloat16")
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype).as_subclass(_FakeCuda)
+    x_off = flat[1:].view(x.shape)                  # 2 bytes off alignment
+    for fn in (ssd.ssd_scan_tc, ssd.ssd_scan_fwd):
+        with pytest.raises(ValueError, match="x is not 16-byte aligned"):
+            fn(x_off, dt, A, Bm, Cm, lens, 64)
+    assert lib.calls == []
+    cpu = [t.as_subclass(torch.Tensor) for t in (x, dt, A, Bm, Cm, lens)]
+    with pytest.raises(ValueError, match="cuda"):
+        ssd.ssd_scan_tc(*cpu, 64)
 
 
 def test_ssd_cuda_wrapper_rejects_bad_operands(fake_cuda_lib):
@@ -538,6 +776,24 @@ def test_dma_cuda_tensor_failed_launch_raises(fake_cuda_lib):
     with pytest.raises(RuntimeError, match="dma_copy launch failed"):
         dma.dma_copy(x, 16)
     assert ops.LAUNCHES == before
+
+
+def test_dma_cuda_counts_one_launch_per_call(fake_cuda_lib):
+    """Every call is one launch of the whole array (the kernel walks the
+    chunks itself), counted once; an empty array launches nothing."""
+    lib = fake_cuda_lib(dma, 0)
+    before = ops.LAUNCHES["dma_copy"]
+    for n, chunk in ((1000, 16), (1 << 16, 1 << 15), (5, 1 << 15)):
+        dma.dma_copy(torch.ones(n).as_subclass(_FakeCuda), chunk)
+    assert [c[1][2:4] for c in lib.calls] == [(4000, 64), (1 << 18, 1 << 17),
+                                              (20, 20)]
+    assert ops.LAUNCHES["dma_copy"] == before + 3
+    y = dma.dma_copy(torch.ones(0).as_subclass(_FakeCuda), 16)
+    assert y.shape == (0,) and len(lib.calls) == 3
+    assert ops.LAUNCHES["dma_copy"] == before + 3
+    with pytest.raises(ValueError, match="chunk_elems"):
+        dma.dma_copy(torch.ones(8).as_subclass(_FakeCuda), -4)
+    assert len(lib.calls) == 3
 
 
 def test_dma_cuda_wrapper_rejects_bad_operands(fake_cuda_lib):
