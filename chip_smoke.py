@@ -10,16 +10,20 @@ Phases (each raises on failure; the script then exits non-zero):
 1. card identity (``nvidia-smi`` name and power limit);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` per source, all started together;
-3. bert path: hold each flash kernel (forward, dq, dk/dv) against its
-   plain PyTorch version on the card, over the reference suite's cases
-   and the main path's shapes; one full-width loss through the flash
-   kernels against plain attention; then the main path:
+3. bert path: hold each flash kernel (the forward and dk/dv kernels on
+   the tensor cores, dq, and the fp32 FMA forward and dk/dv kernels they
+   replaced) against its plain PyTorch version on the card, and the
+   tensor-core kernels against the FMA ones, over the reference suite's
+   cases and the main path's shapes; the bitwise padded-versus-unpadded
+   check on the forward, dq and dk/dv kernels; one full-width loss
+   through the flash kernels against plain attention; then the main path:
    ``repro_torch.launch.train.main`` trains full-width
    ``bert_base_paper`` under the Mimose planner with ``--attn-impl
-   flash``, with launch counts read around it; where a warm step's
-   device time goes (``torch.profiler``) and its memory against the
-   planner's prediction; kernel timings (CUDA events) beside the plain
-   version, the library call and the bound;
+   flash``, with launch counts read around it (no FMA flash launch);
+   where a warm step's device time goes (``torch.profiler``) and its
+   memory against the planner's prediction; kernel timings (CUDA events; each tensor-core
+   kernel and its FMA predecessor in turns) beside the plain version,
+   the library call and the bound;
 4. the SSD chunk-scan kernels against their plain version through
    ``ops.ssd_scan`` (the reference's SSD cases and its ragged cases on
    the fp32 FMA kernel, the mamba2 main path's buckets on the
@@ -62,9 +66,10 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA's data sheet): HBM 3.35 TB/s;
 # fp32 outside the tensor cores 67 TFLOP/s; bf16 tensor cores 989
-# TFLOP/s.  The flash kernels compute fp32 on the CUDA cores (no TF32),
-# so their operation bound uses the fp32 rate; the SSD scan's bf16
-# inputs can go through the tensor cores, so its bound uses the bf16 rate.
+# TFLOP/s.  The flash forward and dk/dv kernels and the SSD scan run on
+# the bf16 tensor cores, so their operation bounds use the bf16 rate;
+# the dq kernel computes fp32 on the CUDA cores, so its bound uses the
+# fp32 rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
@@ -93,6 +98,8 @@ KERNELS = [
      "src/repro/kernels/offload_dma.py:30"),
 ]
 FLASH_KERNELS = [k[0] for k in KERNELS[:3]]
+# the fp32 FMA kernels the tensor-core forward and dk/dv kernels replaced
+FMA_OF = {"flash_fwd": "flash_fwd_fma", "flash_bwd_dkv": "flash_bwd_dkv_fma"}
 
 # (B, S, H, Hkv, hd, causal, window, dtype, ragged): the reference's
 # FLASH_CASES (tests/test_kernels.py) and RAGGED_FLASH_CASES
@@ -150,9 +157,23 @@ def _valid_rows(x, lens):
                       for b, L in enumerate(lens)])
 
 
-def check_case(fa, kb, case, lens=None, seed=0):
-    """Run K1-K3 and their plain versions on one case; returns the max
-    abs error per kernel.  Raises on a tolerance miss."""
+def _one_launch(ops, name, fn):
+    """``fn()``, which must launch the kernel ``name`` once and nothing
+    else."""
+    before = dict(ops.LAUNCHES)
+    out = fn()
+    ran = _launched(ops, before)
+    if ran != [name] or ops.LAUNCHES[name] != before[name] + 1:
+        raise AssertionError(f"meant to launch {name} once, ran {ran}")
+    return out
+
+
+def check_case(fa, ops, case, lens=None, seed=0):
+    """Run K1-K3 (K1 and K3 on the tensor cores and on the FMA kernels)
+    and their plain versions on one case; returns the max abs error
+    against the plain version per kernel.  Raises on a tolerance miss,
+    against the plain version or between a tensor-core kernel and its
+    FMA predecessor."""
     B, S, H, Hkv, hd, causal, window, dtype, ragged = case
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -172,52 +193,54 @@ def check_case(fa, kb, case, lens=None, seed=0):
     tol = TOL[dtype]
     errs = {}
 
-    o, lse = fa.flash_fwd(q, k, v, kvl, causal, window)
+    def held(name, got, want, what, rows=True):
+        """Max abs error of ``got`` against ``want`` at ``what``'s TOL."""
+        pick = (lambda x: _valid_rows(x, lens)) if rows else (lambda x: x)
+        e = _err(pick(got), pick(want), *tol[what])
+        if e[1] > 0:
+            raise AssertionError(f"{name} disagrees on {case}: {e}")
+        return e[0]
+
+    fwd = {name: _one_launch(ops, name, lambda n=name: getattr(fa, n)(
+        q, k, v, kvl, causal, window)) for name in ("flash_fwd",
+                                                    "flash_fwd_fma")}
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, kvl, causal, window)
     torch.cuda.synchronize()
-    e_o = _err(_valid_rows(o, lens), _valid_rows(o_p, lens), *tol["fwd"])
-    e_l = _err(_valid_rows(lse[..., None], lens),
-               _valid_rows(lse_p[..., None], lens), 2e-5, 2e-5)
-    errs["flash_fwd"] = max(e_o[0], e_l[0])
-    if max(e_o[1], e_l[1]) > 0:
-        raise AssertionError(f"flash_fwd disagrees with plain on {case}: "
-                             f"o {e_o}, lse {e_l}")
+    for name, (o, lse) in fwd.items():
+        e_l = _err(_valid_rows(lse[..., None], lens),
+                   _valid_rows(lse_p[..., None], lens), 2e-5, 2e-5)
+        if e_l[1] > 0:
+            raise AssertionError(f"{name} lse disagrees on {case}: {e_l}")
+        errs[name] = max(held(name, o, o_p, "fwd"), e_l[0])
+    held("flash_fwd against flash_fwd_fma", fwd["flash_fwd"][0],
+         fwd["flash_fwd_fma"][0], "fwd")
+    o, lse = fwd["flash_fwd"]
 
     delta = (do.float() * o.float()).sum(-1)
-    dq = torch.empty_like(q)
-    lib = fa.library()
-    dims = (B, H, Hkv, S, hd, int(causal), int(window), 1.0 / math.sqrt(hd),
-            fa._DTYPE_CODE[dt], torch.cuda.current_stream().cuda_stream)
-    kb.raise_on(lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  do.data_ptr(), lse.data_ptr(),
-                                  delta.data_ptr(), kvl.data_ptr(),
-                                  dq.data_ptr(), *dims), "flash_bwd_dq")
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    kb.raise_on(lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   do.data_ptr(), lse.data_ptr(),
-                                   delta.data_ptr(), kvl.data_ptr(),
-                                   dk.data_ptr(), dv.data_ptr(), *dims),
-                 "flash_bwd_dkv")
+    bwd_args = (q, k, v, do, lse, delta, kvl, causal, window)
+    dq = _one_launch(ops, "flash_bwd_dq", lambda: fa.flash_bwd_dq(*bwd_args))
+    dkv = {name: _one_launch(ops, name, lambda n=name: getattr(fa, n)(
+        *bwd_args)) for name in ("flash_bwd_dkv", "flash_bwd_dkv_fma")}
     torch.cuda.synchronize()
-    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, kvl, causal, window)
-    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, kvl, causal,
-                                        window)
+    dq_p = fa.flash_bwd_dq_plain(*bwd_args)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(*bwd_args)
     torch.cuda.synchronize()
-    e_q = _err(_valid_rows(dq, lens), _valid_rows(dq_p, lens), *tol["bwd"])
-    e_k = _err(dk, dk_p, *tol["bwd"])
-    e_v = _err(dv, dv_p, *tol["bwd"])
-    errs["flash_bwd_dq"] = e_q[0]
-    errs["flash_bwd_dkv"] = max(e_k[0], e_v[0])
-    if e_q[1] > 0 or e_k[1] > 0 or e_v[1] > 0:
-        raise AssertionError(f"backward disagrees with plain on {case}: "
-                             f"dq {e_q}, dk {e_k}, dv {e_v}")
-    for b, L in enumerate(lens):
-        if bool(dk[b, :, L:].any()) or bool(dv[b, :, L:].any()):
-            raise AssertionError(f"dk/dv not exactly 0 past length {L}: "
-                                 f"{case}")
+    errs["flash_bwd_dq"] = held("flash_bwd_dq", dq, dq_p, "bwd")
+    for name, (dk, dv) in dkv.items():
+        errs[name] = max(held(name + " dk", dk, dk_p, "bwd", rows=False),
+                         held(name + " dv", dv, dv_p, "bwd", rows=False))
+        for b, L in enumerate(lens):
+            if bool(dk[b, :, L:].any()) or bool(dv[b, :, L:].any()):
+                raise AssertionError(f"{name}: dk/dv not exactly 0 past "
+                                     f"length {L}: {case}")
+    for i, part in enumerate(("dk", "dv")):
+        held(f"flash_bwd_dkv {part} against flash_bwd_dkv_fma",
+             dkv["flash_bwd_dkv"][i], dkv["flash_bwd_dkv_fma"][i], "bwd",
+             rows=False)
     # the public wrapper (backward through the same kernels) agrees too
     dq2, dk2, dv2 = fa.flash_bwd(q, k, v, o, lse, do, kvl, causal, window)
     torch.cuda.synchronize()
+    dk, dv = dkv["flash_bwd_dkv"]
     if not (torch.equal(dq2, dq) and torch.equal(dk2, dk)
             and torch.equal(dv2, dv)):
         raise AssertionError(f"flash_bwd wrapper differs from the direct "
@@ -225,13 +248,44 @@ def check_case(fa, kb, case, lens=None, seed=0):
     return errs
 
 
-def check_kernels(fa, kb, cases, lens_of=None):
+def check_flash_bitwise(fa, B, S, H, hd, L, seed=2):
+    """Padded with ``kv_len = L`` against the unpadded call at length L,
+    on the valid rows, bit for bit, for the forward (o, lse), dq and
+    dk/dv kernels (tests/test_ragged.py::
+    test_flash_ragged_bitwise_matches_unpadded_kernel, there for the
+    forward): masking changes nothing but trip counts."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((B, H, S, hd), generator=gen, device="cuda")
+                   for _ in range(4))
+    kvl = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, ins, lens in (("padded", (q, k, v, do), kvl),
+                            ("exact", [t[:, :, :L].contiguous()
+                                       for t in (q, k, v, do)], None)):
+        q_, k_, v_, do_ = ins
+        o, lse = fa.flash_fwd(q_, k_, v_, lens, True, 0)
+        delta = (do_ * o).sum(-1)
+        args = (q_, k_, v_, do_, lse, delta, lens, True, 0)
+        out[name] = (o, lse, fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    for part, a, b in zip(("o", "lse", "dq", "dk", "dv"), out["padded"],
+                          out["exact"]):
+        if not torch.equal(a[:, :, :L], b):
+            raise AssertionError(f"flash {part}: padded with kv_len={L} "
+                                 f"differs bitwise from the unpadded call "
+                                 f"(B={B} S={S} H={H} hd={hd})")
+    log(f"flash bitwise check (B={B} S={S} H={H} hd={hd} fp32 causal, "
+        f"L={L}): padded with kv_len == unpadded for o, lse, dq, dk, dv, "
+        f"bit for bit")
+
+
+def check_kernels(fa, ops, cases, lens_of=None):
     """Every case in ``cases``; returns max abs error per kernel over the
     cases flagged as main-path cases in ``lens_of``."""
-    main_errs = {name: 0.0 for name in FLASH_KERNELS}
+    main_errs = {name: 0.0 for name in FLASH_KERNELS + list(FMA_OF.values())}
     for case in cases:
         lens = (lens_of or {}).get(case)
-        errs = check_case(fa, kb, case, lens)
+        errs = check_case(fa, ops, case, lens)
         log(f"kernel check {case}: "
             + " ".join(f"{n}={e:.3e}" for n, e in errs.items()))
         if lens is not None:
@@ -383,16 +437,19 @@ def check_main_path(trainer, launches):
                 launches["ssd_scan"] == sum(fwd_per_step),
             "no FMA ssd, flash or dma launches": all(
                 launches[k] == 0
-                for k in FLASH_KERNELS + ["ssd_scan_fma", "dma_copy"]),
+                for k in FLASH_KERNELS + list(FMA_OF.values())
+                + ["ssd_scan_fma", "dma_copy"]),
         })
     else:
         checks.update({
             "every flash kernel launched": all(launches[k] > 0
                                                for k in FLASH_KERNELS),
-            "K1 = sum(units + n_remat)":
+            "K1 (tensor cores) = sum(units + n_remat)":
                 launches["flash_fwd"] == sum(fwd_per_step),
-            "K2 = K3 = units per step": launches["flash_bwd_dq"]
+            "K2 = K3 (tensor cores) = units per step": launches["flash_bwd_dq"]
             == launches["flash_bwd_dkv"] == n_units * len(h),
+            "no FMA flash launches": all(launches[k] == 0
+                                         for k in FMA_OF.values()),
             "no ssd or dma launches": all(
                 launches[k] == 0
                 for k in ("ssd_scan", "ssd_scan_fma", "dma_copy")),
@@ -760,6 +817,32 @@ def check_dma(ops, dma, logits_shape):
 # timings
 # ---------------------------------------------------------------------------
 
+def log_flash_resources(kb, lib):
+    """Registers and local (spilled) memory per thread of the fp32 HD-64
+    flash kernels (the main path's instances) in the built library, as
+    ``cuobjdump -res-usage`` reads them (their shared memory is dynamic,
+    so it shows as 0 there); logged, checked nowhere."""
+    exe = Path(kb.nvcc()).with_name("cuobjdump")
+    try:
+        out = subprocess.run([str(exe), "-res-usage", str(lib)],
+                             capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        log(f"resources: cuobjdump did not run ({e})")
+        return
+    found = 0
+    for name, usage in zip(out, out[1:]):
+        for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                       "flash_fwd_fma_kernel", "flash_bwd_dkv_fma_kernel",
+                       "flash_bwd_dq_kernel"):
+            if f"{kernel}IfLi64E" in name:
+                found += 1
+                log(f"resources {kernel}<float, 64>: {usage.strip()}")
+    if not found:
+        log(f"resources: no fp32 HD-64 flash kernel in cuobjdump's output "
+            f"({len(out)} lines)")
+
+
 def _time_ms(fn, reps):
     for _ in range(3):
         fn()
@@ -777,7 +860,8 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
     """Each kernel at the main path's shape (B = len(lens), S, H, hd,
     fp32, causal, these lengths), with its plain version, the library
     call (``scaled_dot_product_attention``, timed here only) and its
-    bound."""
+    bound; the tensor-core forward and dk/dv kernels in turns with their
+    FMA predecessors (tc, fma, fma, tc; each time the mean of its two)."""
     import torch.nn.functional as F
     B = len(lens)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -791,20 +875,20 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
     dims = (B, H, H, S, hd, 1, 0, 1.0 / math.sqrt(hd), 0, stream)
     o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-
-    def k1():
-        return lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      kvl.data_ptr(), o2.data_ptr(), lse2.data_ptr(), *dims)
-
-    def k2():
-        return lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                         kvl.data_ptr(), dq.data_ptr(), *dims)
-
-    def k3():
-        return lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                          kvl.data_ptr(), dk.data_ptr(), dv.data_ptr(), *dims)
+    fwd_ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(),
+                o2.data_ptr(), lse2.data_ptr())
+    bwd_ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), kvl.data_ptr())
+    launch = {
+        "flash_fwd": lambda: lib.flash_fwd(*fwd_ptrs, *dims),
+        "flash_fwd_fma": lambda: lib.flash_fwd_fma(*fwd_ptrs, *dims),
+        "flash_bwd_dq": lambda: lib.flash_bwd_dq(*bwd_ptrs, dq.data_ptr(),
+                                                 *dims),
+        "flash_bwd_dkv": lambda: lib.flash_bwd_dkv(
+            *bwd_ptrs, dk.data_ptr(), dv.data_ptr(), *dims),
+        "flash_bwd_dkv_fma": lambda: lib.flash_bwd_dkv_fma(
+            *bwd_ptrs, dk.data_ptr(), dv.data_ptr(), *dims),
+    }
 
     # the library yardstick: the same masked attention, forward, and its
     # backward (one autograd call computing dq, dk and dv together)
@@ -832,34 +916,58 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
 
     # work this run's data needs: visible (q, k) pairs under the causal
     # mask and the lengths; FLOPs per pair per head: 4 hd (q.k, p.v)
-    # forward, 6 hd for dq (q.k, do.v, ds.k), 8 hd for dk/dv
+    # forward, 6 hd for dq (q.k, do.v, ds.k), 8 hd for dk/dv; at the
+    # bf16 tensor-core rate for the kernels that run there.  Bytes: the
+    # inputs (q, k, v, do, lse, delta) over the 64-row tiles that hold
+    # valid rows (min(ceil(L / 64) 64, S) rows of each sequence; no
+    # tile past kv_len is needed), the lengths once, the outputs (o, lse,
+    # dq, dk, dv) in full (rows past the valid tiles are written as
+    # zeros), each once
     pairs = H * sum(L * (L + 1) // 2 for L in lens)
-    tensor = B * H * S * hd * 4
-    rows = B * H * S * 4
+    run = sum(min(-(-L // 64) * 64, S) for L in lens)
+    tensor_in, rows_in = run * H * hd * 4, run * H * 4
+    tensor_out, rows_out = B * S * H * hd * 4, B * S * H * 4
     work = {
-        "flash_fwd": (4 * hd * pairs, 3 * tensor + 4 * B + tensor + rows),
-        "flash_bwd_dq": (6 * hd * pairs, 4 * tensor + 2 * rows + 4 * B
-                         + tensor),
-        "flash_bwd_dkv": (8 * hd * pairs, 4 * tensor + 2 * rows + 4 * B
-                          + 2 * tensor),
+        "flash_fwd": (4 * hd * pairs, 3 * tensor_in + 4 * B + tensor_out
+                      + rows_out, BF16_TC_FLOPS),
+        "flash_bwd_dq": (6 * hd * pairs, 4 * tensor_in + 2 * rows_in + 4 * B
+                         + tensor_out, FP32_FLOPS),
+        "flash_bwd_dkv": (8 * hd * pairs, 4 * tensor_in + 2 * rows_in + 4 * B
+                          + 2 * tensor_out, BF16_TC_FLOPS),
     }
-    out = {}
-    for name, fn in zip(FLASH_KERNELS, (k1, k2, k3)):
+    for name, fn in launch.items():
         kb.raise_on(fn(), name)
-        ms = _time_ms(fn, 20)
+    out = {}
+    for name in FLASH_KERNELS:
+        turns = {}
+        order = ((name, FMA_OF[name], FMA_OF[name], name) if name in FMA_OF
+                 else (name,))
+        for n in order:
+            turns.setdefault(n, []).append(_time_ms(launch[n], 20))
+        ms = sum(turns[name]) / len(turns[name])
         plain_ms = _time_ms(plain[name], 5)
-        flops, nbytes = work[name]
-        t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        flops, nbytes, rate = work[name]
+        t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms[name],
                          bound_ms=max(t_ops, t_bytes),
                          bound_by="operations" if t_ops >= t_bytes
                          else "bytes", flops=flops, bytes=nbytes)
+        fma = ""
+        if name in FMA_OF:
+            f = turns[FMA_OF[name]]
+            out[name]["fma_ms"] = sum(f) / len(f)
+            fma = (f" (turns {turns[name][0]:.4f}, {turns[name][1]:.4f}); "
+                   f"FMA kernel {FMA_OF[name]} {out[name]['fma_ms']:.4f} ms "
+                   f"(turns {f[0]:.4f}, {f[1]:.4f}), bound at the 67 TFLOP/s "
+                   f"fp32 rate {max(flops / FP32_FLOPS * 1e3, t_bytes):.4f} "
+                   f"ms")
         log(f"timing {name} B={B} S={S} H={H} hd={hd} fp32 lens={lens}: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"kernel {ms:.4f} ms{fma}, plain {plain_ms:.4f} ms, library "
             f"{lib_ms[name]:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-            f"({out[name]['bound_by']}; {flops / 1e9:.3f} GFLOP at 67 TFLOP/s "
-            f"fp32, {nbytes / 1e6:.2f} MB at 3.35 TB/s), "
-            f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
+            f"({out[name]['bound_by']}; {flops / 1e9:.3f} GFLOP at "
+            f"{rate / 1e12:.0f} TFLOP/s = {t_ops:.4f} ms, {nbytes / 1e6:.2f} "
+            f"MB at 3.35 TB/s = {t_bytes:.4f} ms), {flops / ms / 1e9:.2f} "
+            f"TFLOP/s achieved")
     return out
 
 
@@ -1017,6 +1125,7 @@ def main() -> int:
     fa.library(), ssd.library(), dma.library()
     log(f"build: {[str(p.relative_to(ROOT)) for p in paths]} in "
         f"{time.perf_counter() - t0:.1f} s")
+    log_flash_resources(kb, paths[0])
     launches, errs, timings = {}, {}, {}
 
     # -- bert path: the flash kernels -------------------------------------
@@ -1026,10 +1135,12 @@ def main() -> int:
     main_cases = {(BERT_ARGS["batch_size"], S, 12, 12, 64, True, 0,
                    "float32", True): lens
                   for S, lens in sorted(by_bucket.items())}
-    errs.update(check_kernels(fa, kb, REFERENCE_CASES + list(main_cases),
+    errs.update(check_kernels(fa, ops, REFERENCE_CASES + list(main_cases),
                               main_cases))
     log(f"flash kernel checks passed; max abs error at the main path's "
         f"shapes: {errs}")
+    check_flash_bitwise(fa, 2, 128, 2, 32, 64)        # tests/test_ragged.py's
+    check_flash_bitwise(fa, 2, 416, 12, 64, 338)      # the main width
     budget_mb = derive_budget_mb(BERT_ARGS, batches[0])
     trainer, path_launches = run_main_path(BERT_ARGS, budget_mb)
     launches.update({k: path_launches[k] for k in FLASH_KERNELS})

@@ -29,8 +29,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0, "ssd_scan": 0,
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_fma": 0,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "flash_bwd_dkv_fma": 0, "ssd_scan": 0,
                             "ssd_scan_fma": 0, "dma_copy": 0}
 
 

@@ -2,14 +2,17 @@
 //
 // Replaces the three Pallas TPU kernels of the JAX reference
 // (src/repro/kernels/flash_attention.py):
-//   flash_fwd_kernel     <- _flash_kernel          (launched by flash_attention_fwd)
-//   flash_bwd_dq_kernel  <- _flash_bwd_dq_kernel   (launched by flash_attention_bwd)
-//   flash_bwd_dkv_kernel <- _flash_bwd_dkv_kernel  (launched by flash_attention_bwd)
+//   flash_fwd_tc_kernel      <- _flash_kernel          (C entry flash_fwd)
+//   flash_bwd_dq_kernel      <- _flash_bwd_dq_kernel   (C entry flash_bwd_dq)
+//   flash_bwd_dkv_tc_kernel  <- _flash_bwd_dkv_kernel  (C entry flash_bwd_dkv)
+// and keeps the first fp32 FMA versions of the forward and dk/dv kernels
+// (flash_fwd_fma_kernel, flash_bwd_dkv_fma_kernel; C entries
+// flash_fwd_fma, flash_bwd_dkv_fma) as a second fp32 witness.
 //
 // Layout: q, o, do (B, H, S, HD); k, v, dk, dv (B, Hkv, S, HD); lse, delta
 // (B, H, S) fp32; kv_len (B,) int32.  All row-major and contiguous.  GQA:
 // query head h reads kv head h / (H / Hkv).  Inputs are fp32 or bf16;
-// every product and sum is accumulated in fp32.
+// every sum is accumulated in fp32.
 //
 // Masks, as in the reference: key k is visible to query q when
 // k < kv_len[b], and (causal) q >= k, and (window > 0) q - k < window.
@@ -19,21 +22,60 @@
 // loop runs from the causal lower bound to ceil(kv_len / BQ), with a
 // k-tile wholly past kv_len skipped (dk = dv = 0 there).  Output rows at
 // or past kv_len are otherwise unspecified; dk and dv are exactly 0 there.
+// No atomics: every sum has a fixed order that depends on neither S nor
+// kv_len, so a padded call with kv_len gives the unpadded call's valid
+// rows bit for bit.
 //
 // What bounds them: at the training path's shapes (B=8, H=12, HD=64,
-// S ~ 400, fp32) each kernel does 4-8 * HD FLOPs per visible (q, k) pair
-// on O(S * HD) bytes per head, far above the card's ops-per-byte line, so
-// the bound is arithmetic.  These first versions compute in fp32 on the
-// CUDA cores (no TF32: the model is fp32 and must match the reference to
-// fp32 tolerance), so their ceiling is the fp32 FMA rate, not the tensor
-// cores.  Design: one CTA of 256 threads per (b, h, 64-row tile); the
-// other side's 64-row tiles stream through shared memory; each thread
-// owns a 4 x 4 block of the 64 x 64 score tile and a 4 x HD/16 block of
-// the output, so every shared-memory operand is reused 4 times from
-// registers.  Rows are padded by one float so column walks hit distinct
-// banks.  The (64 x 64) score tile never leaves shared memory, so the
-// residuals the backward needs stay O(S): q, k, v, o and lse.
-// wgmma / TMA versions are later work.
+// S ~ 400, causal, squad lengths) the forward must move 39 MB (inputs
+// over the 64-row tiles that hold valid rows, outputs in full) and does
+// 4 HD FLOPs per visible (q, k) pair, the dk/dv kernel 58 MB and 8 HD;
+// at the bf16 tensor-core rate the bytes bound them (12 us and 17 us;
+// chip_smoke.py's time_flash_kernels counts both).
+//
+// The tensor-core kernels (forward, dk/dv).  One CTA of 4 warps per
+// (b, h, 64-row tile); each warp owns 16 rows of it and every product is
+// mma.sync.m16n8k16 with bf16 operands and fp32 accumulators.
+// - Precision.  The bert path is fp32 and must match the reference to
+//   fp32 tolerance, which one bf16 (8 bits) or TF32 (11 bits) rounding
+//   cannot.  So for fp32 inputs every operand -- q, k, v, do and the
+//   score tiles p, ds -- is split into bf16 hi + lo = hi + bf16(x - hi)
+//   and each product is issued as hi.hi + hi.lo + lo.hi: about 16
+//   mantissa bits survive (tests/test_torch_flash_tc.py emulates this
+//   arithmetic against the JAX reference).  bf16 inputs are exact and
+//   take one product; their p and ds are rounded to bf16 once.
+// - Score tiles stay in registers.  The fp32 accumulator of two adjacent
+//   m16n8 score tiles has the layout of one m16k16 A operand, so p (the
+//   forward) and p^T, ds^T (dk/dv) feed the next product straight from
+//   the registers they were computed in.
+// - The streamed tiles (k, v in the forward; q, do, lse, delta in dk/dv)
+//   are staged by 16-byte cp.async; the copy of tile i+1 overlaps the
+//   math on tile i.  Once a tile has landed, the CTA's threads split it
+//   together into bf16 hi (and lo) operand tiles in shared memory, rows
+//   padded by 16 bytes, from which every warp reads its fragments with
+//   ldmatrix (.trans where the operand is stored k-major: v, and q, do
+//   in the second products), free of bank conflicts.  Each operand is
+//   split once per CTA, not once per warp.  The forward keeps q's
+//   fragments in registers; dk/dv splits its k and v tile once.
+// - Masks are applied only on tiles that are not wholly visible (the
+//   causal diagonal, the kv_len edge, the window's edge).  On the causal
+//   diagonal a warp skips the 16-key (forward) or 16-query (dk/dv) steps
+//   wholly masked for its 16 rows.
+// - Both launch their longest CTAs first under causal masking: the
+//   grid's slowest axis walks the forward's q-tiles from the last and
+//   the dk/dv kernel's key tiles from the first, so the short tail of
+//   diagonal-only tiles runs last.
+// - Costs they keep: three products per pair of operands; few CTAs of
+//   4 warps per SM (the dk/dv kernel's 107.5 KB of shared memory at HD
+//   64 allows 2), likely too few to hide the products' latency.
+//   chip_smoke.py logs each kernel's registers and shared memory.
+
+// The FMA kernels (and dq) compute in fp32 on the CUDA cores: one CTA of
+// 256 threads per (b, h, 64-row tile); the other side's 64-row tiles
+// stream through shared memory; each thread owns a 4 x 4 block of the
+// 64 x 64 score tile and a 4 x HD/16 block of the output.  Rows are
+// padded by one float so column walks hit distinct banks.  Their ceiling
+// is the 67 TFLOP/s fp32 rate.
 
 #include <cfloat>
 #include <cmath>
@@ -106,12 +148,12 @@ __device__ __forceinline__ int key_tiles(int q0, int S, int kvl, int causal) {
 }
 
 // ---------------------------------------------------------------------------
-// K1: forward.  o = softmax(q k^T * scale) v with an online softmax over
-// key tiles; lse = m + log(l) per row.
+// K1 on the CUDA cores (fp32 FMA).  o = softmax(q k^T * scale) v with an
+// online softmax over key tiles; lse = m + log(l) per row.
 // ---------------------------------------------------------------------------
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ kv_len,
                  T* __restrict__ o, float* __restrict__ lse,
                  int H, int Hkv, int S, int causal, int window, float scale) {
@@ -332,15 +374,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K3: dk, dv for one kv head.  The TPU kernel writes dk/dv per query head
-// and sums the GQA group outside; here the CTA loops over the group's
-// query heads and sums in registers, so dk/dv come out per kv head.
+// K3 on the CUDA cores (fp32 FMA): dk, dv for one kv head.  The TPU kernel
+// writes dk/dv per query head and sums the GQA group outside; here the CTA
+// loops over the group's query heads and sums in registers, so dk/dv come
+// out per kv head.
 // dv = p^T do, dk = ds^T q with p, ds as in K2, masked additionally by
 // q < kv_len.
 // ---------------------------------------------------------------------------
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_bwd_dkv_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const int* __restrict__ kv_len, T* __restrict__ dk,
@@ -492,9 +535,557 @@ cudaError_t prepare(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// ---------------------------------------------------------------------------
+// the tensor-core kernels
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int NW = 4;               // warps per CTA, 16 rows each
+constexpr int TPB = NW * 32;        // threads per CTA
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int K>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a b for one m16n8k16 tile: bf16 operands, fp32 accumulator
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack(__nv_bfloat162 v) {
+  return *reinterpret_cast<unsigned*>(&v);
+}
+// (v0, v1) as a bf16 pair hi and, with SPLIT, the pair of what hi leaves
+// out, lo; without SPLIT one rounding to bf16
+template <bool SPLIT>
+__device__ __forceinline__ void split(float v0, float v1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = pack(h);
+  if (SPLIT) lo = pack(__floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h)));
+}
+
+// an A operand (m16 x k16) and a B operand (k16 x n8), hi and lo halves
+struct FragA { unsigned hi[4], lo[4]; };
+struct FragB { unsigned hi[2], lo[2]; };
+
+// two adjacent elements of q (in global memory) as an operand pair:
+// fp32 ones are split, bf16 ones are exact and taken as they are
+__device__ __forceinline__ void pair_of(const float* p, unsigned& hi, unsigned& lo) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  split<true>(x.x, x.y, hi, lo);
+}
+__device__ __forceinline__ void pair_of(const __nv_bfloat16* p, unsigned& hi, unsigned&) {
+  hi = *reinterpret_cast<const unsigned*>(p);
+}
+
+// the B operands of two adjacent n8 tiles from bf16 operand rows (hi, and
+// lo with SPLIT) by one ldmatrix.x4 each: rows along n (trans = false:
+// the operand is stored n-major, as k rows are) or along k (trans = true,
+// as v rows are)
+__device__ __forceinline__ void load_b(FragB& b0, FragB& b1, const __nv_bfloat16* hi,
+                                       const __nv_bfloat16* lo, bool split, bool trans) {
+  unsigned r[4];
+  if (trans) ldsm_x4_t(r, hi); else ldsm_x4(r, hi);
+  b0.hi[0] = r[0]; b0.hi[1] = r[1]; b1.hi[0] = r[2]; b1.hi[1] = r[3];
+  if (split) {
+    if (trans) ldsm_x4_t(r, lo); else ldsm_x4(r, lo);
+    b0.lo[0] = r[0]; b0.lo[1] = r[1]; b1.lo[0] = r[2]; b1.lo[1] = r[3];
+  }
+}
+
+// d += a b as hi.hi + hi.lo + lo.hi (SPLIT) or one product
+template <bool SPLIT>
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
+  mma(d, a.hi, b.hi[0], b.hi[1]);
+  if (SPLIT) {
+    mma(d, a.hi, b.lo[0], b.lo[1]);
+    mma(d, a.lo, b.hi[0], b.hi[1]);
+  }
+}
+
+// the A operand of k-step j from the fp32 accumulators of score tiles 2j
+// and 2j+1 (their m16n8 layout is the m16k16 operand's)
+template <bool SPLIT>
+__device__ __forceinline__ void acc_to_a(FragA& a, const float (&c0)[4], const float (&c1)[4]) {
+  split<SPLIT>(c0[0], c0[1], a.hi[0], a.lo[0]);
+  split<SPLIT>(c0[2], c0[3], a.hi[1], a.lo[1]);
+  split<SPLIT>(c1[0], c1[1], a.hi[2], a.lo[2]);
+  split<SPLIT>(c1[2], c1[3], a.hi[3], a.lo[3]);
+}
+
+// sum over the 4 lanes that share a fragment row
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// rows [row0, row0 + 64) of an (S, HD) matrix into shared memory (row
+// stride LD elements) by 16-byte cp.async; rows at or past S zero-filled
+template <typename T, int HD, int LD>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, int row0,
+                                           int S) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int PER_ROW = HD / VEC;
+  for (int i = threadIdx.x; i < 64 * PER_ROW; i += TPB) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + r * LD + c, src + (size_t)(ok ? row0 + r : 0) * HD + c, ok);
+  }
+}
+
+// 64 contiguous rows of HD elements (rows at or past n_valid read as 0)
+// into bf16 operand rows of stride HD + 8: hi, and for fp32 lo; all the
+// CTA's threads, 16 bytes of the source each
+template <typename T, int HD>
+__device__ __forceinline__ void split_rows(__nv_bfloat16* hi, __nv_bfloat16* lo,
+                                           const T* src, int n_valid) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int PER_ROW = HD / VEC;
+  for (int i = threadIdx.x; i < 64 * PER_ROW; i += TPB) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
+    const bool ok = r < n_valid;
+    __nv_bfloat16* dst = hi + r * (HD + 8) + c;
+    if constexpr (sizeof(T) == 4) {
+      const float4 x = ok ? *reinterpret_cast<const float4*>(src + (size_t)r * HD + c)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      uint2 h, l;
+      split<true>(x.x, x.y, h.x, l.x);
+      split<true>(x.z, x.w, h.y, l.y);
+      *reinterpret_cast<uint2*>(dst) = h;
+      *reinterpret_cast<uint2*>(lo + (dst - hi)) = l;
+    } else {
+      *reinterpret_cast<uint4*>(dst) =
+          ok ? *reinterpret_cast<const uint4*>(src + (size_t)r * HD + c) : make_uint4(0, 0, 0, 0);
+    }
+  }
+}
+
+template <typename T, int HD> struct FwdLayout {
+  static constexpr bool SPLIT = sizeof(T) == 4;
+  static constexpr int LDS = HD + 8;                          // bf16 operand rows
+  static constexpr size_t PLANE = (size_t)64 * LDS;           // one operand tile
+  static constexpr size_t RAW = (size_t)2 * 64 * HD * sizeof(T);          // staged k, v
+  static constexpr size_t SMEM = RAW + (SPLIT ? 4 : 2) * PLANE * 2;
+};
+
+// ---------------------------------------------------------------------------
+// K1 on the tensor cores: o = softmax(q k^T * scale) v, online softmax over
+// 64-key tiles; lse = m + log(l) per row.
+// ---------------------------------------------------------------------------
+template <typename T, int HD>
+__global__ void __launch_bounds__(TPB)
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ kv_len,
+                    T* __restrict__ o, float* __restrict__ lse,
+                    int H, int Hkv, int S, int causal, int window, float scale) {
+  using L = FwdLayout<T, HD>;
+  constexpr bool SPLIT = L::SPLIT;
+  constexpr int KS = HD / 16;       // k-steps over HD
+  constexpr int DN = HD / 8;        // n8 tiles over HD
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* raw = reinterpret_cast<T*>(smem_raw);
+  // k, v as bf16 operands: k hi, v hi (, k lo, v lo)
+  __nv_bfloat16* ops = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::RAW);
+  const __nv_bfloat16 *kh = ops, *vh = ops + L::PLANE;
+  const __nv_bfloat16 *kl = ops + 2 * L::PLANE, *vl = ops + 3 * L::PLANE;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // longest first
+  const int q0 = qt * BQ;
+  const int hk = h / (H / Hkv);
+  const int kvl = kv_len[b];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lm = lane >> 3, lr = lane & 7;     // ldmatrix: matrix, row of it
+  const size_t qoff = ((size_t)b * H + h) * S * HD;
+  const size_t koff = ((size_t)b * Hkv + hk) * S * HD;
+  const int n_kt = key_tiles(q0, S, kvl, causal);
+  const int r0 = q0 + 16 * warp + g;           // this lane's rows r0, r0 + 8
+
+  auto stage_kv = [&](int kt) {
+    stage_rows<T, HD, HD>(raw, k + koff, kt * BK, S);
+    stage_rows<T, HD, HD>(raw + 64 * HD, v + koff, kt * BK, S);
+    cp_async_commit();
+  };
+  if (n_kt > 0) stage_kv(0);
+
+  // q as A operands, kept in registers: rows r0 (+8), columns 16 ks + 2t
+  // (+1, +8, +9)
+  FragA qa[KS];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = r0 + (r & 1) * 8, col = 16 * ks + 2 * t + (r >> 1) * 8;
+      qa[ks].hi[r] = qa[ks].lo[r] = 0u;
+      if (row < S) pair_of(q + qoff + (size_t)row * HD + col, qa[ks].hi[r], qa[ks].lo[r]);
+    }
+
+  float acc[DN][4], m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait<0>();
+    __syncthreads();                   // tile kt staged; tile kt-1's operands read
+    split_rows<T, HD>(ops, ops + 2 * L::PLANE, raw, 64);
+    split_rows<T, HD>(ops + L::PLANE, ops + 3 * L::PLANE, raw + 64 * HD, 64);
+    __syncthreads();
+    if (kt + 1 < n_kt) stage_kv(kt + 1);   // in flight while tile kt computes
+    // on the causal diagonal this warp's rows see keys < 16 (warp + 1)
+    const bool diag = causal && k0 == q0;
+    const int n_nt = diag ? 2 * warp + 2 : 8;
+
+    // s = q k^T: 8 tiles of 8 keys, two at a time
+    float sc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (2 * np >= n_nt) continue;
+      const int at = (16 * np + (lm >> 1) * 8 + lr) * L::LDS + (lm & 1) * 8;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        FragB b0, b1;
+        load_b(b0, b1, kh + at + 16 * ks, kl + at + 16 * ks, SPLIT, false);
+        mma3<SPLIT>(sc[2 * np], qa[ks], b0);
+        mma3<SPLIT>(sc[2 * np + 1], qa[ks], b1);
+      }
+    }
+
+    // masks only where the tile is not wholly visible
+    const bool full = k0 + BK <= kvl && (!causal || k0 + BK <= q0 + 1) &&
+                      (window <= 0 || q0 + BQ - 1 - k0 < window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[nt][e] * scale;
+        if (!full && !visible(r0 + (e >> 1) * 8, k0 + 8 * nt + 2 * t + (e & 1), kvl, causal,
+                              window))
+          x = -INFINITY;
+        sc[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // m stays finite (>= NEG_BIG), so exp never sees inf - inf
+      const float m_new = fmaxf(m[i], quad_max(mx[i]));
+      corr[i] = exp2f((m[i] - m_new) * LOG2E);
+      m[i] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f((sc[nt][e] - m[e >> 1]) * LOG2E);   // 0 where masked
+        sc[nt][e] = p;
+        rs[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];   // this lane's part
+#pragma unroll
+    for (int n = 0; n < DN; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+
+    // o += p v, p from the score registers (k-step j: keys 16 j .. 16 j + 15)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (2 * j >= n_nt) continue;
+      FragA pa;
+      acc_to_a<SPLIT>(pa, sc[2 * j], sc[2 * j + 1]);
+      const int at = (16 * j + (lm & 1) * 8 + lr) * L::LDS + (lm >> 1) * 8;
+#pragma unroll
+      for (int np = 0; np < DN / 2; ++np) {
+        FragB b0, b1;
+        load_b(b0, b1, vh + at + 16 * np, vl + at + 16 * np, SPLIT, true);
+        mma3<SPLIT>(acc[2 * np], pa, b0);
+        mma3<SPLIT>(acc[2 * np + 1], pa, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    const float lc = fmaxf(quad_sum(l[i]), 1e-30f);
+    if (row >= S) continue;
+#pragma unroll
+    for (int n = 0; n < DN; ++n)
+      store_pair(o + qoff + (size_t)row * HD + 8 * n + 2 * t, acc[n][2 * i] / lc,
+                 acc[n][2 * i + 1] / lc);
+    if (t == 0) lse[((size_t)b * H + h) * S + row] = m[i] + logf(lc);
+  }
+}
+
+template <typename T, int HD> struct DkvLayout {
+  static constexpr bool SPLIT = sizeof(T) == 4;
+  static constexpr int LDS = HD + 8;                          // bf16 operand rows
+  static constexpr size_t PLANE = (size_t)64 * LDS;           // one operand tile
+  static constexpr size_t OPS = (SPLIT ? 8 : 4) * PLANE * 2;  // k, v, q, do hi (, lo)
+  static constexpr size_t RAW = (size_t)2 * 64 * HD * sizeof(T) + 2 * 64 * sizeof(float);
+  static constexpr size_t SMEM = OPS + RAW + 2 * 64 * sizeof(float);
+};
+
+// ---------------------------------------------------------------------------
+// K3 on the tensor cores: dk, dv for one 64-key tile of one kv head, the
+// GQA group's query heads summed in the accumulators.  Per 64-query tile
+// (transposed, keys as rows): s^T = k q^T, dp^T = v do^T,
+// p^T = exp(s^T scale - lse) under the forward's masks and q < kv_len,
+// ds^T = p^T (dp^T - delta) scale, dv += p^T do, dk += ds^T q.
+// ---------------------------------------------------------------------------
+template <typename T, int HD>
+__global__ void __launch_bounds__(TPB)
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        const int* __restrict__ kv_len, T* __restrict__ dk,
+                        T* __restrict__ dv,
+                        int H, int Hkv, int S, int causal, int window, float scale) {
+  using L = DkvLayout<T, HD>;
+  constexpr bool SPLIT = L::SPLIT;
+  constexpr int KS = HD / 16;
+  constexpr int DN = HD / 8;
+  constexpr int QW = HD <= 64 ? 64 : 32;   // query columns per pass (registers)
+  constexpr size_t LO = 4 * L::PLANE;      // lo plane of an operand, after its hi
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // bf16 operands: k, v, q, do hi (then k, v, q, do lo); then the staged
+  // q, do, lse, delta of the next tile; then this tile's lse, delta
+  __nv_bfloat16* ops = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const __nv_bfloat16 *kh = ops, *vh = ops + L::PLANE;
+  const __nv_bfloat16 *qh = ops + 2 * L::PLANE, *dh = ops + 3 * L::PLANE;
+  T* raw = reinterpret_cast<T*>(smem_raw + L::OPS);
+  float* raw_rows = reinterpret_cast<float*>(raw + 2 * 64 * HD);
+  float* rows = raw_rows + 2 * 64;          // lse (64), then delta (64)
+
+  // the grid's slowest axis walks the key tiles from the first: under
+  // causal masking the longest first
+  const int k0 = blockIdx.z * BK, hk = blockIdx.x, b = blockIdx.y;
+  const int group = H / Hkv;
+  const int kvl = kv_len[b];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lm = lane >> 3, lr = lane & 7;     // ldmatrix: matrix, row of it
+  const size_t koff = ((size_t)b * Hkv + hk) * S * HD;
+  const int kr0 = 16 * warp + g;               // this lane's key rows kr0, kr0 + 8
+
+  const int lo = causal ? k0 / BQ : 0;
+  const int hi = k0 >= kvl ? 0 : min((S + BQ - 1) / BQ, (kvl + BQ - 1) / BQ);
+  const int n_it = max(hi - lo, 0);
+  const int n_items = group * n_it;
+
+  auto stage_item = [&](int i) {
+    const int h = hk * group + i / n_it, q0 = (lo + i % n_it) * BQ;
+    const size_t qoff = ((size_t)b * H + h) * S * HD;
+    const size_t roff = ((size_t)b * H + h) * S;
+    stage_rows<T, HD, HD>(raw, q + qoff, q0, S);
+    stage_rows<T, HD, HD>(raw + 64 * HD, dout + qoff, q0, S);
+    for (int r = threadIdx.x; r < 2 * BQ; r += TPB) {
+      const int qp = q0 + (r % BQ);
+      const bool ok = qp < S;
+      cp_async4(raw_rows + r, (r < BQ ? lse : delta) + roff + (ok ? qp : 0), ok);
+    }
+    cp_async_commit();
+  };
+  if (n_items > 0) stage_item(0);
+  // this tile's k and v as operands, zero past S
+  split_rows<T, HD>(ops, ops + LO, k + koff + (size_t)k0 * HD, S - k0);
+  split_rows<T, HD>(ops + L::PLANE, ops + L::PLANE + LO, v + koff + (size_t)k0 * HD, S - k0);
+
+  float gk[DN][4], gv[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[n][e] = gv[n][e] = 0.f;
+
+  const int a_at = (16 * warp + (lm & 1) * 8 + lr) * L::LDS + (lm >> 1) * 8;
+
+  for (int i = 0; i < n_items; ++i) {
+    const int q0 = (lo + i % n_it) * BQ;
+    cp_async_wait<0>();
+    __syncthreads();                   // item i staged; item i-1's operands read
+    split_rows<T, HD>(ops + 2 * L::PLANE, ops + 2 * L::PLANE + LO, raw, 64);
+    split_rows<T, HD>(ops + 3 * L::PLANE, ops + 3 * L::PLANE + LO, raw + 64 * HD, 64);
+    for (int r = threadIdx.x; r < 2 * BQ; r += TPB) rows[r] = raw_rows[r];
+    __syncthreads();
+    if (i + 1 < n_items) stage_item(i + 1);   // in flight while item i computes
+    const bool full = k0 + BK <= kvl && q0 + BQ <= kvl && (!causal || k0 + BK <= q0 + 1) &&
+                      (window <= 0 || q0 + BQ - 1 - k0 < window);
+    // on the causal diagonal this warp's keys are seen by queries >= 16 warp
+    const int nt_lo = causal && q0 == k0 ? 2 * warp : 0;
+
+#pragma unroll
+    for (int c0 = 0; c0 < BQ; c0 += QW) {
+      if (c0 + QW <= 8 * nt_lo) continue;      // the whole pass is masked
+      float sc[QW / 8][4], dp[QW / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < QW / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        FragA ka, va;
+        ldsm_x4(ka.hi, kh + a_at + 16 * ks);
+        ldsm_x4(va.hi, vh + a_at + 16 * ks);
+        if (SPLIT) {
+          ldsm_x4(ka.lo, kh + LO + a_at + 16 * ks);
+          ldsm_x4(va.lo, vh + LO + a_at + 16 * ks);
+        }
+#pragma unroll
+        for (int np = 0; np < QW / 16; ++np) {
+          if (c0 / 8 + 2 * np + 1 < nt_lo) continue;
+          const int at = (c0 + 16 * np + (lm >> 1) * 8 + lr) * L::LDS + 16 * ks + (lm & 1) * 8;
+          FragB q0b, q1b, d0b, d1b;
+          load_b(q0b, q1b, qh + at, qh + LO + at, SPLIT, false);
+          load_b(d0b, d1b, dh + at, dh + LO + at, SPLIT, false);
+          mma3<SPLIT>(sc[2 * np], ka, q0b);
+          mma3<SPLIT>(sc[2 * np + 1], ka, q1b);
+          mma3<SPLIT>(dp[2 * np], va, d0b);
+          mma3<SPLIT>(dp[2 * np + 1], va, d1b);
+        }
+      }
+      // p^T and ds^T in place of s^T and dp^T
+#pragma unroll
+      for (int nt = 0; nt < QW / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + 8 * nt + 2 * t + (e & 1);
+          const int qp = q0 + c, kp = k0 + kr0 + (e >> 1) * 8;
+          const bool ok = c0 / 8 + nt >= nt_lo &&
+                          (full || (qp < kvl && visible(qp, kp, kvl, causal, window)));
+          const float p = ok ? exp2f((sc[nt][e] * scale - rows[c]) * LOG2E) : 0.f;
+          sc[nt][e] = p;
+          dp[nt][e] = p * (dp[nt][e] - rows[BQ + c]) * scale;
+        }
+      // dv += p^T do, dk += ds^T q (k-step j: queries c0 + 16 j .. + 15)
+#pragma unroll
+      for (int j = 0; j < QW / 16; ++j) {
+        if (c0 / 8 + 2 * j + 1 < nt_lo) continue;
+        FragA pa, da;
+        acc_to_a<SPLIT>(pa, sc[2 * j], sc[2 * j + 1]);
+        acc_to_a<SPLIT>(da, dp[2 * j], dp[2 * j + 1]);
+        const int at = (c0 + 16 * j + (lm & 1) * 8 + lr) * L::LDS + (lm >> 1) * 8;
+#pragma unroll
+        for (int np = 0; np < DN / 2; ++np) {
+          FragB o0b, o1b, q0b, q1b;
+          load_b(o0b, o1b, dh + at + 16 * np, dh + LO + at + 16 * np, SPLIT, true);
+          load_b(q0b, q1b, qh + at + 16 * np, qh + LO + at + 16 * np, SPLIT, true);
+          mma3<SPLIT>(gv[2 * np], pa, o0b);
+          mma3<SPLIT>(gv[2 * np + 1], pa, o1b);
+          mma3<SPLIT>(gk[2 * np], da, q0b);
+          mma3<SPLIT>(gk[2 * np + 1], da, q1b);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kp = k0 + kr0 + 8 * i;
+    if (kp >= S) continue;
+#pragma unroll
+    for (int n = 0; n < DN; ++n) {
+      const size_t at = koff + (size_t)kp * HD + 8 * n + 2 * t;
+      store_pair(dk + at, gk[n][2 * i], gk[n][2 * i + 1]);
+      store_pair(dv + at, gv[n][2 * i], gv[n][2 * i + 1]);
+    }
+  }
+}
+
 template <typename T, int HD>
 cudaError_t run_fwd(const Args& a) {
-  auto kern = flash_fwd_kernel<T, HD>;
+  using L = FwdLayout<T, HD>;
+  auto kern = flash_fwd_tc_kernel<T, HD>;
+  cudaError_t e = prepare(kern, L::SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid(a.H, a.B, (a.S + BQ - 1) / BQ);
+  kern<<<grid, TPB, L::SMEM, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.kv_len,
+      (T*)a.o, (float*)a.lse_out, a.H, a.Hkv, a.S, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t run_dkv(const Args& a) {
+  using L = DkvLayout<T, HD>;
+  auto kern = flash_bwd_dkv_tc_kernel<T, HD>;
+  cudaError_t e = prepare(kern, L::SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid(a.Hkv, a.B, (a.S + BK - 1) / BK);
+  kern<<<grid, TPB, L::SMEM, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
+      (const float*)a.lse, (const float*)a.delta, (const int*)a.kv_len,
+      (T*)a.dk, (T*)a.dv, a.H, a.Hkv, a.S, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// the FMA kernels and dq
+template <typename T, int HD>
+cudaError_t run_fwd(const Args& a) {
+  auto kern = flash_fwd_fma_kernel<T, HD>;
   cudaError_t e = prepare(kern, fwd_smem<HD>());
   if (e != cudaSuccess) return e;
   dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
@@ -519,7 +1110,7 @@ cudaError_t run_dq(const Args& a) {
 
 template <typename T, int HD>
 cudaError_t run_dkv(const Args& a) {
-  auto kern = flash_bwd_dkv_kernel<T, HD>;
+  auto kern = flash_bwd_dkv_fma_kernel<T, HD>;
   cudaError_t e = prepare(kern, dkv_smem<HD>());
   if (e != cudaSuccess) return e;
   dim3 grid((a.S + BK - 1) / BK, a.Hkv, a.B);
@@ -530,12 +1121,17 @@ cudaError_t run_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-// which kernel: 0 forward, 1 dq, 2 dk/dv
+// which kernel: 0 forward, 1 dq, 2 dk/dv on the tensor cores; 3 forward,
+// 4 dk/dv on the CUDA cores
 template <typename T, int HD>
 cudaError_t run(int which, const Args& a) {
-  if (which == 0) return run_fwd<T, HD>(a);
-  if (which == 1) return run_dq<T, HD>(a);
-  return run_dkv<T, HD>(a);
+  switch (which) {
+    case 0: return tc::run_fwd<T, HD>(a);
+    case 1: return run_dq<T, HD>(a);
+    case 2: return tc::run_dkv<T, HD>(a);
+    case 3: return run_fwd<T, HD>(a);
+    default: return run_dkv<T, HD>(a);
+  }
 }
 
 template <typename T>
@@ -549,8 +1145,15 @@ cudaError_t run_hd(int which, int hd, const Args& a) {
   }
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 int dispatch(int which, int hd, int dtype, const Args& a) {
   if (a.B <= 0 || a.S <= 0 || a.Hkv <= 0 || a.H % a.Hkv != 0) return (int)cudaErrorInvalidValue;
+  // the tensor-core kernels copy and load 16-byte pieces of every tensor
+  if ((which == 0 || which == 2) &&
+      !(aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+        (which == 0 ? aligned16(a.o) : aligned16(a.dout) && aligned16(a.dk) && aligned16(a.dv))))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)run_hd<float>(which, hd, a);
   if (dtype == 1) return (int)run_hd<__nv_bfloat16>(which, hd, a);
   return (int)cudaErrorInvalidValue;
@@ -559,15 +1162,50 @@ int dispatch(int which, int hd, int dtype, const Args& a) {
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  dtype: 0 = fp32, 1 = bf16.
-// Each returns the cudaError_t of the launch (0 = launched).
-extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* kv_len,
-                         void* o, void* lse, int B, int H, int Hkv, int S, int hd,
-                         int causal, int window, float scale, int dtype, void* stream) {
+// Each returns the cudaError_t of the launch (0 = launched;
+// cudaErrorInvalidValue, launching nothing, for a case it does not take).
+// flash_fwd and flash_bwd_dkv run the tensor-core kernels and take every
+// head dim 16, 32, 64, 128 with 16-byte aligned tensors; flash_fwd_fma
+// and flash_bwd_dkv_fma the fp32 FMA kernels of the same functions.
+
+namespace {
+
+int fwd_entry(int which, const void* q, const void* k, const void* v, const void* kv_len,
+              void* o, void* lse, int B, int H, int Hkv, int S, int hd, int causal,
+              int window, float scale, int dtype, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.kv_len = kv_len; a.o = o; a.lse_out = lse;
   a.B = B; a.H = H; a.Hkv = Hkv; a.S = S; a.causal = causal; a.window = window;
   a.scale = scale; a.stream = (cudaStream_t)stream;
-  return dispatch(0, hd, dtype, a);
+  return dispatch(which, hd, dtype, a);
+}
+
+int dkv_entry(int which, const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, const void* kv_len, void* dk, void* dv,
+              int B, int H, int Hkv, int S, int hd, int causal, int window, float scale,
+              int dtype, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
+  a.kv_len = kv_len; a.dk = dk; a.dv = dv;
+  a.B = B; a.H = H; a.Hkv = Hkv; a.S = S; a.causal = causal; a.window = window;
+  a.scale = scale; a.stream = (cudaStream_t)stream;
+  return dispatch(which, hd, dtype, a);
+}
+
+}  // namespace
+
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* kv_len,
+                         void* o, void* lse, int B, int H, int Hkv, int S, int hd,
+                         int causal, int window, float scale, int dtype, void* stream) {
+  return fwd_entry(0, q, k, v, kv_len, o, lse, B, H, Hkv, S, hd, causal, window, scale,
+                   dtype, stream);
+}
+
+extern "C" int flash_fwd_fma(const void* q, const void* k, const void* v, const void* kv_len,
+                             void* o, void* lse, int B, int H, int Hkv, int S, int hd,
+                             int causal, int window, float scale, int dtype, void* stream) {
+  return fwd_entry(3, q, k, v, kv_len, o, lse, B, H, Hkv, S, hd, causal, window, scale,
+                   dtype, stream);
 }
 
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -586,10 +1224,15 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              const void* lse, const void* delta, const void* kv_len,
                              void* dk, void* dv, int B, int H, int Hkv, int S, int hd,
                              int causal, int window, float scale, int dtype, void* stream) {
-  Args a{};
-  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
-  a.kv_len = kv_len; a.dk = dk; a.dv = dv;
-  a.B = B; a.H = H; a.Hkv = Hkv; a.S = S; a.causal = causal; a.window = window;
-  a.scale = scale; a.stream = (cudaStream_t)stream;
-  return dispatch(2, hd, dtype, a);
+  return dkv_entry(2, q, k, v, dout, lse, delta, kv_len, dk, dv, B, H, Hkv, S, hd, causal,
+                   window, scale, dtype, stream);
+}
+
+extern "C" int flash_bwd_dkv_fma(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse, const void* delta,
+                                 const void* kv_len, void* dk, void* dv, int B, int H,
+                                 int Hkv, int S, int hd, int causal, int window,
+                                 float scale, int dtype, void* stream) {
+  return dkv_entry(4, q, k, v, dout, lse, delta, kv_len, dk, dv, B, H, Hkv, S, hd, causal,
+                   window, scale, dtype, stream);
 }

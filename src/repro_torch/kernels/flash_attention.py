@@ -3,19 +3,33 @@ PyTorch versions, and the ``torch.autograd.Function`` that joins them.
 
 Counterpart of the reference's ``kernels/flash_attention.py``:
 
-============================  ==========================  =====================
-wrapper here                  CUDA kernel                 TPU kernel replaced
-============================  ==========================  =====================
-``flash_fwd``                 ``flash_fwd_kernel``        ``_flash_kernel``
-``flash_bwd`` (dq)            ``flash_bwd_dq_kernel``     ``_flash_bwd_dq_kernel``
-``flash_bwd`` (dk, dv)        ``flash_bwd_dkv_kernel``    ``_flash_bwd_dkv_kernel``
-============================  ==========================  =====================
+=====================  ============================  =====================
+wrapper here           CUDA kernel                   TPU kernel replaced
+=====================  ============================  =====================
+``flash_fwd``          ``flash_fwd_tc_kernel``       ``_flash_kernel``
+``flash_fwd_fma``      ``flash_fwd_fma_kernel``      ``_flash_kernel``
+``flash_bwd_dq``       ``flash_bwd_dq_kernel``       ``_flash_bwd_dq_kernel``
+``flash_bwd_dkv``      ``flash_bwd_dkv_tc_kernel``   ``_flash_bwd_dkv_kernel``
+``flash_bwd_dkv_fma``  ``flash_bwd_dkv_fma_kernel``  ``_flash_bwd_dkv_kernel``
+=====================  ============================  =====================
 
 Layout: q (B, H, S, hd); k, v (B, Hkv, S, hd); GQA through the kv head
 ``h // (H // Hkv)``.  ``kv_len`` is an optional (B,) int32 tensor of true
 lengths: keys at or past it are masked and fully padded tiles skipped.
 Output rows at or past ``kv_len`` are unspecified; dk and dv are exactly
 zero there.
+
+Which kernel: the forward and dk/dv kernels on the tensor cores (bf16
+hi/lo products, ``csrc/flash_attention.cu``) take every case these
+wrappers take -- fp32 and bf16, head dims ``HEAD_DIMS``, GQA, causal or
+not, window, ragged -- and ``flash_bwd`` and ``FlashAttention`` launch
+them.  The fp32 FMA kernels they replaced are reached only through
+their own entry points ``flash_fwd_fma`` and ``flash_bwd_dkv_fma`` (a
+second fp32 witness on the card).  Each kernel has its own launch count
+in ``LAUNCHES``, and no entry point hands a call to another kernel.  The
+tensor-core kernels read 16-byte pieces, so the forward and dk/dv entry
+points copy an input whose address is not 16-byte aligned to one that
+is before the launch.
 
 Routing: for a CUDA tensor a wrapper launches its kernel or raises — it
 never falls back.  For a CPU tensor it runs the plain version beside it.
@@ -24,8 +38,7 @@ For a ``meta`` tensor it returns ``meta`` outputs of the kernel's shapes
 
 The kernels are built from ``csrc/flash_attention.cu`` with ``nvcc`` at
 first use into ``build/repro_torch/`` at the repository root and loaded
-with ``ctypes`` (``kernels/build.py``).  Each wrapper counts its launches
-in ``LAUNCHES``.
+with ``ctypes`` (``kernels/build.py``).
 """
 from __future__ import annotations
 
@@ -44,6 +57,9 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 _SRC = build.CSRC / "flash_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+# C entry point -> number of pointer arguments
+_ENTRY_POINTS = {"flash_fwd": 6, "flash_fwd_fma": 6, "flash_bwd_dq": 8,
+                 "flash_bwd_dkv": 9, "flash_bwd_dkv_fma": 9}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -59,9 +75,7 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i] * 7 + [ctypes.c_float, i, p]
         _lib = build.load(_SRC, {name: [p] * n_ptrs + tail
-                                 for name, n_ptrs in (("flash_fwd", 6),
-                                                      ("flash_bwd_dq", 8),
-                                                      ("flash_bwd_dkv", 9))})
+                                 for name, n_ptrs in _ENTRY_POINTS.items()})
     return _lib
 
 
@@ -166,8 +180,23 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, kv_len=None, causal=True,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def flash_fwd(q, k, v, kv_len=None, causal: bool = True, window: int = 0):
-    """K1: returns (o in q's dtype, lse (B, H, S) fp32)."""
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it at a 16-byte aligned address."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(name, tensors, dims, causal, window, q) -> None:
+    """One launch of the C entry point ``name`` on the tensors' pointers;
+    raises if it was refused, counts it if not."""
+    err = getattr(library(), name)(
+        *(t.data_ptr() for t in tensors), *dims, int(causal), int(window),
+        1.0 / math.sqrt(q.shape[-1]), _DTYPE_CODE[q.dtype],
+        _stream_handle(q.device))
+    build.raise_on(err, name)
+    LAUNCHES[name] += 1
+
+
+def _fwd(name, q, k, v, kv_len, causal, window):
     route = build.route(q, "flash attention")
     if route == "plain":
         return flash_fwd_plain(q, k, v, kv_len, causal, window)
@@ -176,53 +205,88 @@ def flash_fwd(q, k, v, kv_len=None, causal: bool = True, window: int = 0):
         return (torch.empty_like(q),
                 torch.empty((B, H, S), dtype=torch.float32, device="meta"))
     dims, kvl = _kernel_args(q, k, v, kv_len)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = _alloc(q.shape, q.dtype, q.device)
     lse = _alloc((B, H, S), torch.float32, q.device)
-    err = library().flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), *dims, int(causal), int(window),
-        1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _stream_handle(q.device))
-    build.raise_on(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _launch(name, (q, k, v, kvl, o, lse), dims, causal, window, q)
     return o, lse
 
 
-def flash_bwd(q, k, v, o, lse, do, kv_len=None, causal: bool = True,
-              window: int = 0):
-    """K2 and K3: returns (dq, dk, dv), dk/dv per kv head.  ``delta =
-    rowsum(do * o)`` is a torch reduction outside the kernels, as in the
-    reference."""
-    route = build.route(q, "flash attention")
-    delta = (do.float() * o.float()).sum(-1)
-    if route == "plain":
-        dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, kv_len, causal,
-                                window)
-        dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, kv_len,
-                                     causal, window)
-        return dq, dk, dv
-    if route == "meta":
-        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+def flash_fwd(q, k, v, kv_len=None, causal: bool = True, window: int = 0):
+    """K1 on the tensor cores: returns (o in q's dtype, lse (B, H, S)
+    fp32)."""
+    return _fwd("flash_fwd", q, k, v, kv_len, causal, window)
+
+
+def flash_fwd_fma(q, k, v, kv_len=None, causal: bool = True,
+                  window: int = 0):
+    """K1's fp32 FMA kernel: the same function as ``flash_fwd``."""
+    return _fwd("flash_fwd_fma", q, k, v, kv_len, causal, window)
+
+
+def _bwd_args(q, k, v, do, lse, delta, kv_len):
     dims, kvl = _kernel_args(q, k, v, kv_len)
     B, H, S, hd = q.shape
     build.check("do", do, q.shape, q.dtype, q.device)
     build.check("lse", lse, (B, H, S), torch.float32, q.device)
-    tail = (*dims, int(causal), int(window), 1.0 / math.sqrt(hd),
-            _DTYPE_CODE[q.dtype], _stream_handle(q.device))
-    lib = library()
+    build.check("delta", delta, (B, H, S), torch.float32, q.device)
+    return dims, kvl
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, kv_len=None, causal: bool = True,
+                 window: int = 0):
+    """K2: dq from the residuals and ``delta = rowsum(do * o)``."""
+    route = build.route(q, "flash attention")
+    if route == "plain":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, kv_len, causal,
+                                  window)
+    if route == "meta":
+        return torch.empty_like(q)
+    dims, kvl = _bwd_args(q, k, v, do, lse, delta, kv_len)
     dq = _alloc(q.shape, q.dtype, q.device)
-    err = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                           kvl.data_ptr(), dq.data_ptr(), *tail)
-    build.raise_on(err, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+    _launch("flash_bwd_dq", (q, k, v, do, lse, delta, kvl, dq), dims, causal,
+            window, q)
+    return dq
+
+
+def _dkv(name, q, k, v, do, lse, delta, kv_len, causal, window):
+    route = build.route(q, "flash attention")
+    if route == "plain":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, kv_len, causal,
+                                   window)
+    if route == "meta":
+        return torch.empty_like(k), torch.empty_like(v)
+    dims, kvl = _bwd_args(q, k, v, do, lse, delta, kv_len)
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     dk = _alloc(k.shape, k.dtype, k.device)
     dv = _alloc(v.shape, v.dtype, v.device)
-    err = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                            kvl.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                            *tail)
-    build.raise_on(err, "flash_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
+    _launch(name, (q, k, v, do, lse, delta, kvl, dk, dv), dims, causal,
+            window, q)
+    return dk, dv
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, kv_len=None, causal: bool = True,
+                  window: int = 0):
+    """K3 on the tensor cores: (dk, dv) per kv head."""
+    return _dkv("flash_bwd_dkv", q, k, v, do, lse, delta, kv_len, causal,
+                window)
+
+
+def flash_bwd_dkv_fma(q, k, v, do, lse, delta, kv_len=None,
+                      causal: bool = True, window: int = 0):
+    """K3's fp32 FMA kernel: the same function as ``flash_bwd_dkv``."""
+    return _dkv("flash_bwd_dkv_fma", q, k, v, do, lse, delta, kv_len, causal,
+                window)
+
+
+def flash_bwd(q, k, v, o, lse, do, kv_len=None, causal: bool = True,
+              window: int = 0):
+    """K2 and K3 (on the tensor cores): returns (dq, dk, dv), dk/dv per kv
+    head.  ``delta = rowsum(do * o)`` is a torch reduction outside the
+    kernels, as in the reference."""
+    delta = (do.float() * o.float()).sum(-1)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, kv_len, causal, window)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, kv_len, causal, window)
     return dq, dk, dv
 
 
