@@ -10,10 +10,10 @@ Phases (each raises on failure; the script then exits non-zero):
 1. card identity (``nvidia-smi`` name and power limit);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` per source, all started together;
-3. bert path: hold each flash kernel (the forward and dk/dv kernels on
-   the tensor cores, dq, and the fp32 FMA forward and dk/dv kernels they
-   replaced) against its plain PyTorch version on the card, and the
-   tensor-core kernels against the FMA ones, over the reference suite's
+3. bert path: hold each flash kernel (the forward, dq and dk/dv kernels
+   on the tensor cores, and the fp32 FMA kernels they replaced) against
+   its plain PyTorch version on the card, and the tensor-core kernels
+   against the FMA ones, over the reference suite's
    cases and the main path's shapes; the bitwise padded-versus-unpadded
    check on the forward, dq and dk/dv kernels; one full-width loss
    through the flash kernels against plain attention; then the main path:
@@ -66,10 +66,8 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA's data sheet): HBM 3.35 TB/s;
 # fp32 outside the tensor cores 67 TFLOP/s; bf16 tensor cores 989
-# TFLOP/s.  The flash forward and dk/dv kernels and the SSD scan run on
-# the bf16 tensor cores, so their operation bounds use the bf16 rate;
-# the dq kernel computes fp32 on the CUDA cores, so its bound uses the
-# fp32 rate.
+# TFLOP/s.  The flash kernels and the SSD scan run on the bf16 tensor
+# cores, so their operation bounds use the bf16 rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
@@ -98,8 +96,9 @@ KERNELS = [
      "src/repro/kernels/offload_dma.py:30"),
 ]
 FLASH_KERNELS = [k[0] for k in KERNELS[:3]]
-# the fp32 FMA kernels the tensor-core forward and dk/dv kernels replaced
-FMA_OF = {"flash_fwd": "flash_fwd_fma", "flash_bwd_dkv": "flash_bwd_dkv_fma"}
+# the fp32 FMA kernels the tensor-core flash kernels replaced
+FMA_OF = {"flash_fwd": "flash_fwd_fma", "flash_bwd_dq": "flash_bwd_dq_fma",
+          "flash_bwd_dkv": "flash_bwd_dkv_fma"}
 
 # (B, S, H, Hkv, hd, causal, window, dtype, ragged): the reference's
 # FLASH_CASES (tests/test_kernels.py) and RAGGED_FLASH_CASES
@@ -169,8 +168,8 @@ def _one_launch(ops, name, fn):
 
 
 def check_case(fa, ops, case, lens=None, seed=0):
-    """Run K1-K3 (K1 and K3 on the tensor cores and on the FMA kernels)
-    and their plain versions on one case; returns the max abs error
+    """Run K1-K3 (each on the tensor cores and on its FMA kernel) and
+    their plain versions on one case; returns the max abs error
     against the plain version per kernel.  Raises on a tolerance miss,
     against the plain version or between a tensor-core kernel and its
     FMA predecessor."""
@@ -218,14 +217,18 @@ def check_case(fa, ops, case, lens=None, seed=0):
 
     delta = (do.float() * o.float()).sum(-1)
     bwd_args = (q, k, v, do, lse, delta, kvl, causal, window)
-    dq = _one_launch(ops, "flash_bwd_dq", lambda: fa.flash_bwd_dq(*bwd_args))
+    dqs = {name: _one_launch(ops, name, lambda n=name: getattr(fa, n)(
+        *bwd_args)) for name in ("flash_bwd_dq", "flash_bwd_dq_fma")}
     dkv = {name: _one_launch(ops, name, lambda n=name: getattr(fa, n)(
         *bwd_args)) for name in ("flash_bwd_dkv", "flash_bwd_dkv_fma")}
     torch.cuda.synchronize()
     dq_p = fa.flash_bwd_dq_plain(*bwd_args)
     dk_p, dv_p = fa.flash_bwd_dkv_plain(*bwd_args)
     torch.cuda.synchronize()
-    errs["flash_bwd_dq"] = held("flash_bwd_dq", dq, dq_p, "bwd")
+    for name, dq in dqs.items():
+        errs[name] = held(name, dq, dq_p, "bwd")
+    held("flash_bwd_dq against flash_bwd_dq_fma", dqs["flash_bwd_dq"],
+         dqs["flash_bwd_dq_fma"], "bwd")
     for name, (dk, dv) in dkv.items():
         errs[name] = max(held(name + " dk", dk, dk_p, "bwd", rows=False),
                          held(name + " dv", dv, dv_p, "bwd", rows=False))
@@ -240,7 +243,7 @@ def check_case(fa, ops, case, lens=None, seed=0):
     # the public wrapper (backward through the same kernels) agrees too
     dq2, dk2, dv2 = fa.flash_bwd(q, k, v, o, lse, do, kvl, causal, window)
     torch.cuda.synchronize()
-    dk, dv = dkv["flash_bwd_dkv"]
+    dq, (dk, dv) = dqs["flash_bwd_dq"], dkv["flash_bwd_dkv"]
     if not (torch.equal(dq2, dq) and torch.equal(dk2, dk)
             and torch.equal(dv2, dv)):
         raise AssertionError(f"flash_bwd wrapper differs from the direct "
@@ -538,7 +541,10 @@ def profile_step(trainer, batch, groups):
         sums[g] += ms
     log("profile groups (ms): " + json.dumps(
         {k: round(v, 3) for k, v in sums.items()}))
-    for ms, n, name in rows[:12]:
+    # the twelve longest, then every other kernel of the first group
+    mixer = [r for r in rows[12:] if any(k in r[2].lower()
+                                          for k in groups[0][1])]
+    for ms, n, name in rows[:12] + mixer:
         log(f"  {ms:9.3f} ms  x{n:<4d} {name[:110]}")
 
 
@@ -832,9 +838,9 @@ def log_flash_resources(kb, lib):
         return
     found = 0
     for name, usage in zip(out, out[1:]):
-        for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
-                       "flash_fwd_fma_kernel", "flash_bwd_dkv_fma_kernel",
-                       "flash_bwd_dq_kernel"):
+        for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                       "flash_bwd_dkv_tc_kernel", "flash_fwd_fma_kernel",
+                       "flash_bwd_dq_fma_kernel", "flash_bwd_dkv_fma_kernel"):
             if f"{kernel}IfLi64E" in name:
                 found += 1
                 log(f"resources {kernel}<float, 64>: {usage.strip()}")
@@ -860,8 +866,8 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
     """Each kernel at the main path's shape (B = len(lens), S, H, hd,
     fp32, causal, these lengths), with its plain version, the library
     call (``scaled_dot_product_attention``, timed here only) and its
-    bound; the tensor-core forward and dk/dv kernels in turns with their
-    FMA predecessors (tc, fma, fma, tc; each time the mean of its two)."""
+    bound; each tensor-core kernel in turns with its FMA predecessor (tc,
+    fma, fma, tc; each time the mean of its two)."""
     import torch.nn.functional as F
     B = len(lens)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -884,6 +890,8 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
         "flash_fwd_fma": lambda: lib.flash_fwd_fma(*fwd_ptrs, *dims),
         "flash_bwd_dq": lambda: lib.flash_bwd_dq(*bwd_ptrs, dq.data_ptr(),
                                                  *dims),
+        "flash_bwd_dq_fma": lambda: lib.flash_bwd_dq_fma(
+            *bwd_ptrs, dq.data_ptr(), *dims),
         "flash_bwd_dkv": lambda: lib.flash_bwd_dkv(
             *bwd_ptrs, dk.data_ptr(), dv.data_ptr(), *dims),
         "flash_bwd_dkv_fma": lambda: lib.flash_bwd_dkv_fma(
@@ -917,7 +925,7 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
     # work this run's data needs: visible (q, k) pairs under the causal
     # mask and the lengths; FLOPs per pair per head: 4 hd (q.k, p.v)
     # forward, 6 hd for dq (q.k, do.v, ds.k), 8 hd for dk/dv; at the
-    # bf16 tensor-core rate for the kernels that run there.  Bytes: the
+    # bf16 tensor-core rate, where the kernels run.  Bytes: the
     # inputs (q, k, v, do, lse, delta) over the 64-row tiles that hold
     # valid rows (min(ceil(L / 64) 64, S) rows of each sequence; no
     # tile past kv_len is needed), the lengths once, the outputs (o, lse,
@@ -931,7 +939,7 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
         "flash_fwd": (4 * hd * pairs, 3 * tensor_in + 4 * B + tensor_out
                       + rows_out, BF16_TC_FLOPS),
         "flash_bwd_dq": (6 * hd * pairs, 4 * tensor_in + 2 * rows_in + 4 * B
-                         + tensor_out, FP32_FLOPS),
+                         + tensor_out, BF16_TC_FLOPS),
         "flash_bwd_dkv": (8 * hd * pairs, 4 * tensor_in + 2 * rows_in + 4 * B
                           + 2 * tensor_out, BF16_TC_FLOPS),
     }
@@ -940,9 +948,7 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
     out = {}
     for name in FLASH_KERNELS:
         turns = {}
-        order = ((name, FMA_OF[name], FMA_OF[name], name) if name in FMA_OF
-                 else (name,))
-        for n in order:
+        for n in (name, FMA_OF[name], FMA_OF[name], name):
             turns.setdefault(n, []).append(_time_ms(launch[n], 20))
         ms = sum(turns[name]) / len(turns[name])
         plain_ms = _time_ms(plain[name], 5)
@@ -952,15 +958,12 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
                          bound_ms=max(t_ops, t_bytes),
                          bound_by="operations" if t_ops >= t_bytes
                          else "bytes", flops=flops, bytes=nbytes)
-        fma = ""
-        if name in FMA_OF:
-            f = turns[FMA_OF[name]]
-            out[name]["fma_ms"] = sum(f) / len(f)
-            fma = (f" (turns {turns[name][0]:.4f}, {turns[name][1]:.4f}); "
-                   f"FMA kernel {FMA_OF[name]} {out[name]['fma_ms']:.4f} ms "
-                   f"(turns {f[0]:.4f}, {f[1]:.4f}), bound at the 67 TFLOP/s "
-                   f"fp32 rate {max(flops / FP32_FLOPS * 1e3, t_bytes):.4f} "
-                   f"ms")
+        f = turns[FMA_OF[name]]
+        out[name]["fma_ms"] = sum(f) / len(f)
+        fma = (f" (turns {turns[name][0]:.4f}, {turns[name][1]:.4f}); "
+               f"FMA kernel {FMA_OF[name]} {out[name]['fma_ms']:.4f} ms "
+               f"(turns {f[0]:.4f}, {f[1]:.4f}), bound at the 67 TFLOP/s "
+               f"fp32 rate {max(flops / FP32_FLOPS * 1e3, t_bytes):.4f} ms")
         log(f"timing {name} B={B} S={S} H={H} hd={hd} fp32 lens={lens}: "
             f"kernel {ms:.4f} ms{fma}, plain {plain_ms:.4f} ms, library "
             f"{lib_ms[name]:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "

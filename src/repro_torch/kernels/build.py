@@ -30,9 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_fma": 0,
-                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                            "flash_bwd_dkv_fma": 0, "ssd_scan": 0,
-                            "ssd_scan_fma": 0, "dma_copy": 0}
+                            "flash_bwd_dq": 0, "flash_bwd_dq_fma": 0,
+                            "flash_bwd_dkv": 0, "flash_bwd_dkv_fma": 0,
+                            "ssd_scan": 0, "ssd_scan_fma": 0, "dma_copy": 0}
 
 
 def nvcc() -> str:

@@ -3,11 +3,12 @@
 // Replaces the three Pallas TPU kernels of the JAX reference
 // (src/repro/kernels/flash_attention.py):
 //   flash_fwd_tc_kernel      <- _flash_kernel          (C entry flash_fwd)
-//   flash_bwd_dq_kernel      <- _flash_bwd_dq_kernel   (C entry flash_bwd_dq)
+//   flash_bwd_dq_tc_kernel   <- _flash_bwd_dq_kernel   (C entry flash_bwd_dq)
 //   flash_bwd_dkv_tc_kernel  <- _flash_bwd_dkv_kernel  (C entry flash_bwd_dkv)
-// and keeps the first fp32 FMA versions of the forward and dk/dv kernels
-// (flash_fwd_fma_kernel, flash_bwd_dkv_fma_kernel; C entries
-// flash_fwd_fma, flash_bwd_dkv_fma) as a second fp32 witness.
+// and keeps the first fp32 FMA version of each (flash_fwd_fma_kernel,
+// flash_bwd_dq_fma_kernel, flash_bwd_dkv_fma_kernel; C entries
+// flash_fwd_fma, flash_bwd_dq_fma, flash_bwd_dkv_fma) as a second fp32
+// witness.
 //
 // Layout: q, o, do (B, H, S, HD); k, v, dk, dv (B, Hkv, S, HD); lse, delta
 // (B, H, S) fp32; kv_len (B,) int32.  All row-major and contiguous.  GQA:
@@ -29,13 +30,14 @@
 // What bounds them: at the training path's shapes (B=8, H=12, HD=64,
 // S ~ 400, causal, squad lengths) the forward must move 39 MB (inputs
 // over the 64-row tiles that hold valid rows, outputs in full) and does
-// 4 HD FLOPs per visible (q, k) pair, the dk/dv kernel 58 MB and 8 HD;
-// at the bf16 tensor-core rate the bytes bound them (12 us and 17 us;
-// chip_smoke.py's time_flash_kernels counts both).
+// 4 HD FLOPs per visible (q, k) pair, the dq kernel 48 MB and 6 HD, the
+// dk/dv kernel 58 MB and 8 HD; at the bf16 tensor-core rate the bytes
+// bound all three (12, 14 and 17 us; chip_smoke.py's time_flash_kernels
+// counts them).
 //
-// The tensor-core kernels (forward, dk/dv).  One CTA of 4 warps per
-// (b, h, 64-row tile); each warp owns 16 rows of it and every product is
-// mma.sync.m16n8k16 with bf16 operands and fp32 accumulators.
+// The tensor-core kernels.  One CTA of 4 warps per (b, h, 64-row tile);
+// each warp owns 16 rows of it and every product is mma.sync.m16n8k16
+// with bf16 operands and fp32 accumulators.
 // - Precision.  The bert path is fp32 and must match the reference to
 //   fp32 tolerance, which one bf16 (8 bits) or TF32 (11 bits) rounding
 //   cannot.  So for fp32 inputs every operand -- q, k, v, do and the
@@ -46,36 +48,38 @@
 //   take one product; their p and ds are rounded to bf16 once.
 // - Score tiles stay in registers.  The fp32 accumulator of two adjacent
 //   m16n8 score tiles has the layout of one m16k16 A operand, so p (the
-//   forward) and p^T, ds^T (dk/dv) feed the next product straight from
-//   the registers they were computed in.
-// - The streamed tiles (k, v in the forward; q, do, lse, delta in dk/dv)
-//   are staged by 16-byte cp.async; the copy of tile i+1 overlaps the
-//   math on tile i.  Once a tile has landed, the CTA's threads split it
-//   together into bf16 hi (and lo) operand tiles in shared memory, rows
-//   padded by 16 bytes, from which every warp reads its fragments with
-//   ldmatrix (.trans where the operand is stored k-major: v, and q, do
-//   in the second products), free of bank conflicts.  Each operand is
-//   split once per CTA, not once per warp.  The forward keeps q's
-//   fragments in registers; dk/dv splits its k and v tile once.
+//   forward), ds (dq) and p^T, ds^T (dk/dv) feed the next product
+//   straight from the registers they were computed in.
+// - The streamed tiles (k, v in the forward and dq; q, do, lse, delta in
+//   dk/dv) are staged by 16-byte cp.async; the copy of tile i+1 overlaps
+//   the math on tile i.  Once a tile has landed, the CTA's threads split
+//   it together into bf16 hi (and lo) operand tiles in shared memory,
+//   rows padded by 16 bytes, from which every warp reads its fragments
+//   with ldmatrix (.trans where the operand is stored k-major: v in the
+//   forward, k in dq's ds k, and q, do in dk/dv's second products), free
+//   of bank conflicts.  Each operand is split once per CTA, not once per
+//   warp.  The forward keeps q's fragments in registers, dq keeps q's and
+//   do's (up to HD 64; at HD 128 they would spill, so they are split once
+//   into operand tiles); dk/dv splits its k and v tile once.
 // - Masks are applied only on tiles that are not wholly visible (the
 //   causal diagonal, the kv_len edge, the window's edge).  On the causal
-//   diagonal a warp skips the 16-key (forward) or 16-query (dk/dv) steps
-//   wholly masked for its 16 rows.
-// - Both launch their longest CTAs first under causal masking: the
-//   grid's slowest axis walks the forward's q-tiles from the last and
-//   the dk/dv kernel's key tiles from the first, so the short tail of
-//   diagonal-only tiles runs last.
+//   diagonal a warp skips the 16-key (forward, dq) or 16-query (dk/dv)
+//   steps wholly masked for its 16 rows.
+// - All three launch their longest CTAs first under causal masking: the
+//   grid's slowest axis walks the forward's and dq's q-tiles from the
+//   last and the dk/dv kernel's key tiles from the first, so the short
+//   tail of diagonal-only tiles runs last.
 // - Costs they keep: three products per pair of operands; few CTAs of
 //   4 warps per SM (the dk/dv kernel's 107.5 KB of shared memory at HD
 //   64 allows 2), likely too few to hide the products' latency.
 //   chip_smoke.py logs each kernel's registers and shared memory.
 
-// The FMA kernels (and dq) compute in fp32 on the CUDA cores: one CTA of
-// 256 threads per (b, h, 64-row tile); the other side's 64-row tiles
-// stream through shared memory; each thread owns a 4 x 4 block of the
-// 64 x 64 score tile and a 4 x HD/16 block of the output.  Rows are
-// padded by one float so column walks hit distinct banks.  Their ceiling
-// is the 67 TFLOP/s fp32 rate.
+// The FMA kernels compute in fp32 on the CUDA cores: one CTA of 256
+// threads per (b, h, 64-row tile); the other side's 64-row tiles stream
+// through shared memory; each thread owns a 4 x 4 block of the 64 x 64
+// score tile and a 4 x HD/16 block of the output.  Rows are padded by
+// one float so column walks hit distinct banks.  Their ceiling is the
+// 67 TFLOP/s fp32 rate.
 
 #include <cfloat>
 #include <cmath>
@@ -262,12 +266,13 @@ flash_fwd_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K2: dq.  p = exp(s - lse) under the forward's masks,
-// ds = p * (dp - delta) * scale with dp = do v^T, dq = ds k.
+// K2 on the CUDA cores (fp32 FMA): dq.  p = exp(s - lse) under the
+// forward's masks, ds = p * (dp - delta) * scale with dp = do v^T,
+// dq = ds k.
 // ---------------------------------------------------------------------------
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_bwd_dq_fma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const int* __restrict__ kv_len, T* __restrict__ dq,
@@ -1053,6 +1058,187 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+template <typename T, int HD> struct DqLayout {
+  static constexpr bool SPLIT = sizeof(T) == 4;
+  static constexpr bool QREG = HD <= 64;                      // q, do in registers
+  static constexpr int LDS = HD + 8;                          // bf16 operand rows
+  static constexpr size_t PLANE = (size_t)64 * LDS;           // one operand tile
+  static constexpr int NH = QREG ? 2 : 4;                     // k, v (, q, do) hi
+  static constexpr size_t LO = NH * PLANE;                    // lo plane after its hi
+  static constexpr size_t RAW = (size_t)2 * 64 * HD * sizeof(T);          // staged k, v
+  static constexpr size_t SMEM = RAW + (SPLIT ? 2 : 1) * LO * 2;
+};
+
+// ---------------------------------------------------------------------------
+// K2 on the tensor cores: dq for one 64-row q tile of one head.  Per
+// 64-key tile: s = q k^T, dp = do v^T, p = exp(s scale - lse) under the
+// forward's masks, ds = p (dp - delta) scale, dq += ds k.
+// ---------------------------------------------------------------------------
+template <typename T, int HD>
+__global__ void __launch_bounds__(TPB)
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       const int* __restrict__ kv_len, T* __restrict__ dq,
+                       int H, int Hkv, int S, int causal, int window, float scale) {
+  using L = DqLayout<T, HD>;
+  constexpr bool SPLIT = L::SPLIT;
+  constexpr int KS = HD / 16;       // k-steps over HD
+  constexpr int DN = HD / 8;        // n8 tiles over HD
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* raw = reinterpret_cast<T*>(smem_raw);
+  // bf16 operands: k hi, v hi (, q hi, do hi); then their lo planes
+  __nv_bfloat16* ops = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::RAW);
+  const __nv_bfloat16 *kh = ops, *vh = ops + L::PLANE;
+  const __nv_bfloat16 *qh = ops + 2 * L::PLANE, *dh = ops + 3 * L::PLANE;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // longest first
+  const int q0 = qt * BQ;
+  const int hk = h / (H / Hkv);
+  const int kvl = kv_len[b];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lm = lane >> 3, lr = lane & 7;     // ldmatrix: matrix, row of it
+  const size_t qoff = ((size_t)b * H + h) * S * HD;
+  const size_t koff = ((size_t)b * Hkv + hk) * S * HD;
+  const size_t roff = ((size_t)b * H + h) * S;
+  const int n_kt = key_tiles(q0, S, kvl, causal);
+  const int r0 = q0 + 16 * warp + g;           // this lane's rows r0, r0 + 8
+
+  auto stage_kv = [&](int kt) {
+    stage_rows<T, HD, HD>(raw, k + koff, kt * BK, S);
+    stage_rows<T, HD, HD>(raw + 64 * HD, v + koff, kt * BK, S);
+    cp_async_commit();
+  };
+  if (n_kt > 0) stage_kv(0);
+
+  // q and do as A operands: in registers (rows r0 (+8), columns 16 ks +
+  // 2t (+1, +8, +9)), or at HD 128 as operand tiles read by ldmatrix
+  FragA qreg[L::QREG ? KS : 1], dreg[L::QREG ? KS : 1];
+  if constexpr (L::QREG) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = r0 + (r & 1) * 8, col = 16 * ks + 2 * t + (r >> 1) * 8;
+        qreg[ks].hi[r] = qreg[ks].lo[r] = dreg[ks].hi[r] = dreg[ks].lo[r] = 0u;
+        if (row < S) {
+          pair_of(q + qoff + (size_t)row * HD + col, qreg[ks].hi[r], qreg[ks].lo[r]);
+          pair_of(dout + qoff + (size_t)row * HD + col, dreg[ks].hi[r], dreg[ks].lo[r]);
+        }
+      }
+  } else if (n_kt > 0) {
+    split_rows<T, HD>(ops + 2 * L::PLANE, ops + 2 * L::PLANE + L::LO,
+                      q + qoff + (size_t)q0 * HD, S - q0);
+    split_rows<T, HD>(ops + 3 * L::PLANE, ops + 3 * L::PLANE + L::LO,
+                      dout + qoff + (size_t)q0 * HD, S - q0);
+  }
+  // this lane's rows of lse and delta
+  float ls[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    ls[i] = row < S ? lse[roff + row] : 0.f;
+    dl[i] = row < S ? delta[roff + row] : 0.f;
+  }
+
+  float acc[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int a_at = (16 * warp + (lm & 1) * 8 + lr) * L::LDS + (lm >> 1) * 8;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait<0>();
+    __syncthreads();                   // tile kt staged; tile kt-1's operands read
+    split_rows<T, HD>(ops, ops + L::LO, raw, 64);
+    split_rows<T, HD>(ops + L::PLANE, ops + L::PLANE + L::LO, raw + 64 * HD, 64);
+    __syncthreads();
+    if (kt + 1 < n_kt) stage_kv(kt + 1);   // in flight while tile kt computes
+    // on the causal diagonal this warp's rows see keys < 16 (warp + 1)
+    const int n_nt = causal && k0 == q0 ? 2 * warp + 2 : 8;
+    // masks only where the tile is not wholly visible
+    const bool full = k0 + BK <= kvl && (!causal || k0 + BK <= q0 + 1) &&
+                      (window <= 0 || q0 + BQ - 1 - k0 < window);
+
+    // s = q k^T and dp = do v^T: 8 tiles of 8 keys, two at a time
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      FragA qa, da;
+      if constexpr (L::QREG) {
+        qa = qreg[ks];
+        da = dreg[ks];
+      } else {
+        ldsm_x4(qa.hi, qh + a_at + 16 * ks);
+        ldsm_x4(da.hi, dh + a_at + 16 * ks);
+        if (SPLIT) {
+          ldsm_x4(qa.lo, qh + L::LO + a_at + 16 * ks);
+          ldsm_x4(da.lo, dh + L::LO + a_at + 16 * ks);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (2 * np >= n_nt) continue;
+        const int at = (16 * np + (lm >> 1) * 8 + lr) * L::LDS + 16 * ks + (lm & 1) * 8;
+        FragB k0b, k1b, v0b, v1b;
+        load_b(k0b, k1b, kh + at, kh + L::LO + at, SPLIT, false);
+        load_b(v0b, v1b, vh + at, vh + L::LO + at, SPLIT, false);
+        mma3<SPLIT>(sc[2 * np], qa, k0b);
+        mma3<SPLIT>(sc[2 * np + 1], qa, k1b);
+        mma3<SPLIT>(dp[2 * np], da, v0b);
+        mma3<SPLIT>(dp[2 * np + 1], da, v1b);
+      }
+    }
+
+    // ds in place of s
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, kp = k0 + 8 * nt + 2 * t + (e & 1);
+        const bool ok = nt < n_nt && (full || visible(r0 + 8 * i, kp, kvl, causal, window));
+        const float p = ok ? exp2f((sc[nt][e] * scale - ls[i]) * LOG2E) : 0.f;
+        sc[nt][e] = p * (dp[nt][e] - dl[i]) * scale;
+      }
+
+    // dq += ds k, ds from the score registers (k-step j: keys 16 j ..
+    // 16 j + 15), k read k-major
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (2 * j >= n_nt) continue;
+      FragA a;
+      acc_to_a<SPLIT>(a, sc[2 * j], sc[2 * j + 1]);
+      const int at = (16 * j + (lm & 1) * 8 + lr) * L::LDS + (lm >> 1) * 8;
+#pragma unroll
+      for (int np = 0; np < DN / 2; ++np) {
+        FragB b0, b1;
+        load_b(b0, b1, kh + at + 16 * np, kh + L::LO + at + 16 * np, SPLIT, true);
+        mma3<SPLIT>(acc[2 * np], a, b0);
+        mma3<SPLIT>(acc[2 * np + 1], a, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= S) continue;
+#pragma unroll
+    for (int n = 0; n < DN; ++n)
+      store_pair(dq + qoff + (size_t)row * HD + 8 * n + 2 * t, acc[n][2 * i],
+                 acc[n][2 * i + 1]);
+  }
+}
+
 template <typename T, int HD>
 cudaError_t run_fwd(const Args& a) {
   using L = FwdLayout<T, HD>;
@@ -1080,9 +1266,23 @@ cudaError_t run_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t run_dq(const Args& a) {
+  using L = DqLayout<T, HD>;
+  auto kern = flash_bwd_dq_tc_kernel<T, HD>;
+  cudaError_t e = prepare(kern, L::SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid(a.H, a.B, (a.S + BQ - 1) / BQ);
+  kern<<<grid, TPB, L::SMEM, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
+      (const float*)a.lse, (const float*)a.delta, (const int*)a.kv_len,
+      (T*)a.dq, a.H, a.Hkv, a.S, a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
-// the FMA kernels and dq
+// the FMA kernels
 template <typename T, int HD>
 cudaError_t run_fwd(const Args& a) {
   auto kern = flash_fwd_fma_kernel<T, HD>;
@@ -1097,7 +1297,7 @@ cudaError_t run_fwd(const Args& a) {
 
 template <typename T, int HD>
 cudaError_t run_dq(const Args& a) {
-  auto kern = flash_bwd_dq_kernel<T, HD>;
+  auto kern = flash_bwd_dq_fma_kernel<T, HD>;
   cudaError_t e = prepare(kern, dq_smem<HD>());
   if (e != cudaSuccess) return e;
   dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
@@ -1122,15 +1322,17 @@ cudaError_t run_dkv(const Args& a) {
 }
 
 // which kernel: 0 forward, 1 dq, 2 dk/dv on the tensor cores; 3 forward,
-// 4 dk/dv on the CUDA cores
+// 4 dk/dv, 5 dq on the CUDA cores
 template <typename T, int HD>
 cudaError_t run(int which, const Args& a) {
   switch (which) {
     case 0: return tc::run_fwd<T, HD>(a);
-    case 1: return run_dq<T, HD>(a);
+    case 1: return tc::run_dq<T, HD>(a);
     case 2: return tc::run_dkv<T, HD>(a);
     case 3: return run_fwd<T, HD>(a);
-    default: return run_dkv<T, HD>(a);
+    case 4: return run_dkv<T, HD>(a);
+    case 5: return run_dq<T, HD>(a);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -1150,9 +1352,10 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 int dispatch(int which, int hd, int dtype, const Args& a) {
   if (a.B <= 0 || a.S <= 0 || a.Hkv <= 0 || a.H % a.Hkv != 0) return (int)cudaErrorInvalidValue;
   // the tensor-core kernels copy and load 16-byte pieces of every tensor
-  if ((which == 0 || which == 2) &&
-      !(aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
-        (which == 0 ? aligned16(a.o) : aligned16(a.dout) && aligned16(a.dk) && aligned16(a.dv))))
+  const bool outs16 = which == 0   ? aligned16(a.o)
+                      : which == 1 ? aligned16(a.dout) && aligned16(a.dq)
+                                   : aligned16(a.dout) && aligned16(a.dk) && aligned16(a.dv);
+  if (which <= 2 && !(aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && outs16))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)run_hd<float>(which, hd, a);
   if (dtype == 1) return (int)run_hd<__nv_bfloat16>(which, hd, a);
@@ -1164,9 +1367,10 @@ int dispatch(int which, int hd, int dtype, const Args& a) {
 // Plain C interface (loaded with ctypes).  dtype: 0 = fp32, 1 = bf16.
 // Each returns the cudaError_t of the launch (0 = launched;
 // cudaErrorInvalidValue, launching nothing, for a case it does not take).
-// flash_fwd and flash_bwd_dkv run the tensor-core kernels and take every
-// head dim 16, 32, 64, 128 with 16-byte aligned tensors; flash_fwd_fma
-// and flash_bwd_dkv_fma the fp32 FMA kernels of the same functions.
+// flash_fwd, flash_bwd_dq and flash_bwd_dkv run the tensor-core kernels
+// and take every head dim 16, 32, 64, 128 with 16-byte aligned tensors;
+// flash_fwd_fma, flash_bwd_dq_fma and flash_bwd_dkv_fma the fp32 FMA
+// kernels of the same functions.
 
 namespace {
 
@@ -1175,6 +1379,18 @@ int fwd_entry(int which, const void* q, const void* k, const void* v, const void
               int window, float scale, int dtype, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.kv_len = kv_len; a.o = o; a.lse_out = lse;
+  a.B = B; a.H = H; a.Hkv = Hkv; a.S = S; a.causal = causal; a.window = window;
+  a.scale = scale; a.stream = (cudaStream_t)stream;
+  return dispatch(which, hd, dtype, a);
+}
+
+int dq_entry(int which, const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, const void* kv_len, void* dq, int B, int H,
+             int Hkv, int S, int hd, int causal, int window, float scale, int dtype,
+             void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
+  a.kv_len = kv_len; a.dq = dq;
   a.B = B; a.H = H; a.Hkv = Hkv; a.S = S; a.causal = causal; a.window = window;
   a.scale = scale; a.stream = (cudaStream_t)stream;
   return dispatch(which, hd, dtype, a);
@@ -1212,12 +1428,17 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* delta, const void* kv_len, void* dq,
                             int B, int H, int Hkv, int S, int hd, int causal, int window,
                             float scale, int dtype, void* stream) {
-  Args a{};
-  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
-  a.kv_len = kv_len; a.dq = dq;
-  a.B = B; a.H = H; a.Hkv = Hkv; a.S = S; a.causal = causal; a.window = window;
-  a.scale = scale; a.stream = (cudaStream_t)stream;
-  return dispatch(1, hd, dtype, a);
+  return dq_entry(1, q, k, v, dout, lse, delta, kv_len, dq, B, H, Hkv, S, hd, causal, window,
+                  scale, dtype, stream);
+}
+
+extern "C" int flash_bwd_dq_fma(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse, const void* delta,
+                                const void* kv_len, void* dq, int B, int H, int Hkv, int S,
+                                int hd, int causal, int window, float scale, int dtype,
+                                void* stream) {
+  return dq_entry(5, q, k, v, dout, lse, delta, kv_len, dq, B, H, Hkv, S, hd, causal, window,
+                  scale, dtype, stream);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,

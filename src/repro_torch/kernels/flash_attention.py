@@ -8,7 +8,8 @@ wrapper here           CUDA kernel                   TPU kernel replaced
 =====================  ============================  =====================
 ``flash_fwd``          ``flash_fwd_tc_kernel``       ``_flash_kernel``
 ``flash_fwd_fma``      ``flash_fwd_fma_kernel``      ``_flash_kernel``
-``flash_bwd_dq``       ``flash_bwd_dq_kernel``       ``_flash_bwd_dq_kernel``
+``flash_bwd_dq``       ``flash_bwd_dq_tc_kernel``    ``_flash_bwd_dq_kernel``
+``flash_bwd_dq_fma``   ``flash_bwd_dq_fma_kernel``   ``_flash_bwd_dq_kernel``
 ``flash_bwd_dkv``      ``flash_bwd_dkv_tc_kernel``   ``_flash_bwd_dkv_kernel``
 ``flash_bwd_dkv_fma``  ``flash_bwd_dkv_fma_kernel``  ``_flash_bwd_dkv_kernel``
 =====================  ============================  =====================
@@ -19,17 +20,17 @@ lengths: keys at or past it are masked and fully padded tiles skipped.
 Output rows at or past ``kv_len`` are unspecified; dk and dv are exactly
 zero there.
 
-Which kernel: the forward and dk/dv kernels on the tensor cores (bf16
-hi/lo products, ``csrc/flash_attention.cu``) take every case these
+Which kernel: the forward, dq and dk/dv kernels on the tensor cores
+(bf16 hi/lo products, ``csrc/flash_attention.cu``) take every case these
 wrappers take -- fp32 and bf16, head dims ``HEAD_DIMS``, GQA, causal or
 not, window, ragged -- and ``flash_bwd`` and ``FlashAttention`` launch
 them.  The fp32 FMA kernels they replaced are reached only through
-their own entry points ``flash_fwd_fma`` and ``flash_bwd_dkv_fma`` (a
-second fp32 witness on the card).  Each kernel has its own launch count
-in ``LAUNCHES``, and no entry point hands a call to another kernel.  The
-tensor-core kernels read 16-byte pieces, so the forward and dk/dv entry
-points copy an input whose address is not 16-byte aligned to one that
-is before the launch.
+their own entry points ``flash_fwd_fma``, ``flash_bwd_dq_fma`` and
+``flash_bwd_dkv_fma`` (a second fp32 witness on the card).  Each kernel
+has its own launch count in ``LAUNCHES``, and no entry point hands a
+call to another kernel.  The tensor-core kernels read 16-byte pieces, so
+every entry point copies an input whose address is not 16-byte aligned
+to one that is before the launch.
 
 Routing: for a CUDA tensor a wrapper launches its kernel or raises — it
 never falls back.  For a CPU tensor it runs the plain version beside it.
@@ -59,7 +60,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 # C entry point -> number of pointer arguments
 _ENTRY_POINTS = {"flash_fwd": 6, "flash_fwd_fma": 6, "flash_bwd_dq": 8,
-                 "flash_bwd_dkv": 9, "flash_bwd_dkv_fma": 9}
+                 "flash_bwd_dq_fma": 8, "flash_bwd_dkv": 9,
+                 "flash_bwd_dkv_fma": 9}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -233,9 +235,7 @@ def _bwd_args(q, k, v, do, lse, delta, kv_len):
     return dims, kvl
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, kv_len=None, causal: bool = True,
-                 window: int = 0):
-    """K2: dq from the residuals and ``delta = rowsum(do * o)``."""
+def _dq(name, q, k, v, do, lse, delta, kv_len, causal, window):
     route = build.route(q, "flash attention")
     if route == "plain":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, kv_len, causal,
@@ -243,10 +243,26 @@ def flash_bwd_dq(q, k, v, do, lse, delta, kv_len=None, causal: bool = True,
     if route == "meta":
         return torch.empty_like(q)
     dims, kvl = _bwd_args(q, k, v, do, lse, delta, kv_len)
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     dq = _alloc(q.shape, q.dtype, q.device)
-    _launch("flash_bwd_dq", (q, k, v, do, lse, delta, kvl, dq), dims, causal,
-            window, q)
+    _launch(name, (q, k, v, do, lse, delta, kvl, dq), dims, causal, window,
+            q)
     return dq
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, kv_len=None, causal: bool = True,
+                 window: int = 0):
+    """K2 on the tensor cores: dq from the residuals and ``delta =
+    rowsum(do * o)``."""
+    return _dq("flash_bwd_dq", q, k, v, do, lse, delta, kv_len, causal,
+               window)
+
+
+def flash_bwd_dq_fma(q, k, v, do, lse, delta, kv_len=None,
+                     causal: bool = True, window: int = 0):
+    """K2's fp32 FMA kernel: the same function as ``flash_bwd_dq``."""
+    return _dq("flash_bwd_dq_fma", q, k, v, do, lse, delta, kv_len, causal,
+               window)
 
 
 def _dkv(name, q, k, v, do, lse, delta, kv_len, causal, window):

@@ -1,29 +1,30 @@
 """The tensor-core flash-attention kernels' arithmetic, emulated on the
 CPU, and the dispatch between them and the FMA kernels they replaced.
 
-``csrc/flash_attention.cu``'s forward (``flash_fwd_tc_kernel``) and dk/dv
-kernel (``flash_bwd_dkv_tc_kernel``) multiply on the tensor cores
-(``mma.sync`` m16n8k16, bf16 operands, fp32 accumulators).  For fp32
-inputs every operand -- q, k, v, do and the score tiles p and ds built
-in fp32 -- is split into bf16 hi + lo = hi + bf16(x - hi), and each
-product is issued as hi.hi + hi.lo + lo.hi; for bf16 inputs the
-operands are exact and p, ds are rounded to bf16 once.  The forward
-walks 64-key tiles with an online softmax (row max and row sum in fp32
-from the unrounded p); the dk/dv kernel walks 64-query tiles and sums
-the GQA group in its accumulators.
+``csrc/flash_attention.cu``'s forward (``flash_fwd_tc_kernel``), dq
+kernel (``flash_bwd_dq_tc_kernel``) and dk/dv kernel
+(``flash_bwd_dkv_tc_kernel``) multiply on the tensor cores (``mma.sync``
+m16n8k16, bf16 operands, fp32 accumulators).  For fp32 inputs every
+operand -- q, k, v, do and the score tiles p and ds built in fp32 -- is
+split into bf16 hi + lo = hi + bf16(x - hi), and each product is issued
+as hi.hi + hi.lo + lo.hi; for bf16 inputs the operands are exact and p,
+ds are rounded to bf16 once.  The forward walks 64-key tiles with an
+online softmax (row max and row sum in fp32 from the unrounded p); the
+dq kernel walks 64-key tiles with no softmax state; the dk/dv kernel
+walks 64-query tiles and sums the GQA group in its accumulators.
 
-``flash_fwd_tc_emulated`` and ``flash_dkv_tc_emulated`` repeat that
-arithmetic tile by tile.  They are held against the JAX reference
+``flash_fwd_tc_emulated``, ``flash_dq_tc_emulated`` and
+``flash_dkv_tc_emulated`` repeat that arithmetic tile by tile.  They are
+held against the JAX reference
 (``repro.kernels.ref.flash_attention_reference`` and its ``jax.vjp``)
 from the same numpy inputs at ``chip_smoke.py``'s ``TOL``: forward rtol
 2e-4 / atol 2e-5 (lse 2e-5 / 2e-5), backward rtol 2e-3 / atol 2e-4,
 bf16 3e-2.  Without the lo halves (one bf16 rounding of each fp32
-operand) the forward and the dk/dv kernel leave their tolerances at the
-main width.
+operand) each of the three kernels leaves its tolerance at the main
+width.
 """
-import importlib.util
 import math
-from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -90,6 +91,13 @@ def _expand(t, group):
     return t.float().repeat_interleave(group, dim=1)
 
 
+def _idle_rows(kv_len, B, S):
+    """(B, 1, S) rows of the q-tiles that start at or past kv_len: those
+    tiles do no work."""
+    lens = torch.full((B,), S) if kv_len is None else kv_len.long()
+    return (torch.arange(S)[None] // BQ * BQ >= lens[:, None])[:, None]
+
+
 def flash_fwd_tc_emulated(q, k, v, kv_len=None, causal=True, window=0,
                           split=None):
     """(o, lse) of the tensor-core forward.  ``split`` defaults to the
@@ -121,11 +129,37 @@ def flash_fwd_tc_emulated(q, k, v, kv_len=None, causal=True, window=0,
     lc = l.clamp_min(1e-30)
     o, lse = acc / lc[..., None], m + torch.log(lc)
     # q-tiles starting at or past kv_len do no work
-    lens = torch.full((B,), S) if kv_len is None else kv_len.long()
-    idle = (torch.arange(S)[None] // BQ * BQ >= lens[:, None])[:, None]
+    idle = _idle_rows(kv_len, B, S)
     o = o.masked_fill(idle[..., None], 0.0)
     lse = lse.masked_fill(idle, NEG_BIG + math.log(1e-30))
     return o.to(q.dtype), lse
+
+
+def flash_dq_tc_emulated(q, k, v, do, lse, delta, kv_len=None, causal=True,
+                         window=0, split=None):
+    """dq of the tensor-core dq kernel: per 64-key tile, s = q k^T and
+    dp = do v^T, p = exp(s scale - lse) and ds = p (dp - delta) scale
+    under the forward's masks, dq += ds k; q-tiles starting at or past
+    kv_len give 0."""
+    if split is None:
+        split = q.dtype == torch.float32
+    B, H, S, hd = q.shape
+    group = H // k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    qf, dof = q.float(), do.float()
+    kf, vf = _expand(k, group), _expand(v, group)
+    mask = attention_mask(S, S, kv_len, causal=causal, window=window,
+                          device=q.device)[:, None]
+    dq = torch.zeros((B, H, S, hd))
+    for k0 in range(0, S, BK):
+        ks = slice(k0, k0 + BK)
+        s = _mm(qf, kf[..., ks, :].transpose(-1, -2), split) * scale
+        p = torch.where(mask[..., ks], torch.exp(s - lse[..., None]), 0.0)
+        dp = _mm(dof, vf[..., ks, :].transpose(-1, -2), split)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + _mm(ds, kf[..., ks, :], split)
+    dq = dq.masked_fill(_idle_rows(kv_len, B, S)[..., None], 0.0)
+    return dq.to(q.dtype)
 
 
 def flash_dkv_tc_emulated(q, k, v, do, lse, delta, kv_len=None, causal=True,
@@ -229,29 +263,52 @@ def test_flash_fwd_tc_arithmetic_matches_reference(case):
     assert o_x <= 1.0 and lse_x <= 1.0, (o_x, lse_x)
 
 
-def _dkv_excess(case, split=None):
-    """dk, dv of the emulated kernel, from the emulated forward's o and
-    lse, against ``jax.vjp`` of the reference with the same cotangent,
-    as ``_excess``; and whether dk and dv are exactly 0 past each
-    length."""
+def _bwd_case(case):
+    """The backward's inputs as the kernels get them (o, lse from the
+    emulated forward, delta = rowsum(do o)), the lengths, and ``jax.vjp``
+    of the reference with the same cotangent: (dq, dk, dv)."""
     B, S, H, Hkv, hd, causal, window, dtype, _ = case
     (jq, jk, jv, jdo), (q, k, v, do), lens = _case_inputs(case)
     kvl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
     jlens = None if lens is None else jnp.asarray(lens)
     _, vjp = jax.vjp(lambda a, b, c: jax_reference(
         a, b, c, causal=causal, window=window, kv_len=jlens), jq, jk, jv)
-    _, want_dk, want_dv = vjp(jdo)
+    want = [np.asarray(w, np.float32) for w in vjp(jdo)]
     o, lse = flash_fwd_tc_emulated(q, k, v, kvl, causal, window)
     delta = (do.float() * o.float()).sum(-1)
-    dk, dv = flash_dkv_tc_emulated(q, k, v, do, lse, delta, kvl, causal,
-                                   window, split)
-    rtol, atol = TOL[dtype]["bwd"]
-    excess = [_excess(got.float().numpy(), np.asarray(want, np.float32),
-                      rtol, atol)
+    return (q, k, v, do, lse, delta, kvl, causal, window), lens, want
+
+
+def _dq_excess(case, split=None):
+    """dq of the emulated kernel against ``jax.vjp`` of the reference, on
+    the rows below each length, as ``_excess``."""
+    args, lens, (want_dq, _, _) = _bwd_case(case)
+    dq = flash_dq_tc_emulated(*args, split)
+    S, dtype = case[1], case[7]
+    return _excess(_rows(dq.float(), lens, S), _rows(want_dq, lens, S),
+                   *TOL[dtype]["bwd"])
+
+
+def _dkv_excess(case, split=None):
+    """dk, dv of the emulated kernel, from the emulated forward's o and
+    lse, against ``jax.vjp`` of the reference with the same cotangent,
+    as ``_excess``; and whether dk and dv are exactly 0 past each
+    length."""
+    args, lens, (_, want_dk, want_dv) = _bwd_case(case)
+    dk, dv = flash_dkv_tc_emulated(*args, split)
+    rtol, atol = TOL[case[7]]["bwd"]
+    excess = [_excess(got.float().numpy(), want, rtol, atol)
               for got, want in ((dk, want_dk), (dv, want_dv))]
     zero_past = all(not dk[b, :, L:].any() and not dv[b, :, L:].any()
                     for b, L in enumerate(lens or []))
     return excess, zero_past
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_flash_dq_tc_arithmetic_matches_reference(case):
+    """dq within the backward tolerance on the rows below each length."""
+    dq_x = _dq_excess(case)
+    assert dq_x <= 1.0, dq_x
 
 
 @pytest.mark.parametrize("case", TC_CASES)
@@ -265,16 +322,19 @@ def test_flash_dkv_tc_arithmetic_matches_reference(case):
 
 def test_flash_tc_hi_lo_split_is_what_keeps_fp32():
     """At the main width (one bert head, S = 416, hd 64, L = 338) the
-    forward and the dk/dv kernel without the lo halves leave the fp32
-    tolerance; with the hi/lo split they stay well inside it.  The dk/dv
-    case takes the split forward's o and lse, so only its own products
-    lose the lo halves."""
+    forward, the dq and the dk/dv kernel without the lo halves leave the
+    fp32 tolerance; with the hi/lo split they stay well inside it.  The
+    dq and dk/dv cases take the split forward's o and lse, so only their
+    own products lose the lo halves."""
     with_split = _fwd_excess(MAIN_HEAD, split=True)
     without = _fwd_excess(MAIN_HEAD, split=False)
     assert max(with_split) < 0.5 < 1.0 < without[0], (with_split, without)
     (with_split, _), (without, _) = (_dkv_excess(MAIN_HEAD, split=s)
                                      for s in (True, False))
     assert max(with_split) < 0.5 < 1.0 < min(without), (with_split, without)
+    with_split, without = (_dq_excess(MAIN_HEAD, split=s)
+                           for s in (True, False))
+    assert with_split < 0.5 < 1.0 < without, (with_split, without)
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +400,7 @@ def _count_changes(before):
 # entry point -> (C function, pointer arguments)
 ENTRIES = {"flash_fwd": ("flash_fwd", 6), "flash_fwd_fma": ("flash_fwd_fma", 6),
            "flash_bwd_dq": ("flash_bwd_dq", 8),
+           "flash_bwd_dq_fma": ("flash_bwd_dq_fma", 8),
            "flash_bwd_dkv": ("flash_bwd_dkv", 9),
            "flash_bwd_dkv_fma": ("flash_bwd_dkv_fma", 9)}
 
@@ -374,8 +435,8 @@ def test_flash_entry_launches_its_kernel_and_count(fake_lib, name, hd, dtype):
 
 
 def test_flash_bwd_and_autograd_use_the_tensor_core_dkv_kernel(fake_lib):
-    """``flash_bwd`` (the backward of ``FlashAttention``) launches dq and
-    the tensor-core dk/dv kernel, never the FMA kernels."""
+    """``flash_bwd`` and the backward of ``FlashAttention`` launch the
+    tensor-core dq and dk/dv kernels, never the FMA kernels."""
     lib = fake_lib(0)
     q, k, v, do, lse, delta, lens = _fake_inputs()
     before = dict(ops.LAUNCHES)
@@ -385,6 +446,13 @@ def test_flash_bwd_and_autograd_use_the_tensor_core_dkv_kernel(fake_lib):
                                          "flash_bwd_dkv"]
     assert _count_changes(before) == {"flash_fwd": 1, "flash_bwd_dq": 1,
                                       "flash_bwd_dkv": 1}
+    lib.calls.clear()
+    before = dict(ops.LAUNCHES)
+    ctx = SimpleNamespace(saved_tensors=(q, k, v, o, lse, lens),
+                          causal=True, window=0)
+    fa.FlashAttention.backward(ctx, do)
+    assert [c[0] for c in lib.calls] == ["flash_bwd_dq", "flash_bwd_dkv"]
+    assert _count_changes(before) == {"flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 
 
 @pytest.mark.parametrize("name", list(ENTRIES))
@@ -399,7 +467,8 @@ def test_flash_failed_launch_raises_and_never_tries_another(fake_lib, name):
     assert ops.LAUNCHES == before
 
 
-@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dkv"])
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv"])
 def test_flash_tensor_core_entry_gets_16_byte_aligned_inputs(fake_lib, name):
     """The tensor-core kernels read 16-byte pieces: a contiguous view off
     16-byte alignment reaches them as an aligned copy of equal values."""
@@ -429,7 +498,7 @@ def test_flash_entry_on_cpu_and_meta_never_launches(fake_lib, name):
              fa.flash_fwd_plain}.get(name)
     if plain is not None:
         want = plain(q, k, v, lens, True, 0)
-    elif name == "flash_bwd_dq":
+    elif name.startswith("flash_bwd_dq"):
         want = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, lens, True, 0)
     else:
         want = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, lens, True, 0)
