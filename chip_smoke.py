@@ -24,6 +24,16 @@ Phases (each raises on failure; the script then exits non-zero):
    memory against the planner's prediction; kernel timings (CUDA events; each tensor-core
    kernel and its FMA predecessor in turns) beside the plain version,
    the library call and the bound;
+3b. planners path: full-width ``bert_base_paper`` through
+   ``repro_torch.launch.train.main`` under ``--planner none``,
+   ``sublinear``, ``dtr``, ``mimose`` and ``mimose --max-microbatches 4
+   --solver dp`` at the main path's budget, then Mimose at a budget the
+   simulator says no k = 1 plan meets, 8 steps each, with launch counts
+   read around each run (K1 = sum k (12 + n_remat), K2 = K3 = sum 12 k);
+   the k = 2 and k = 3 accumulated loss and gradients against the k = 1
+   step's (k = 3 adds a pad row of length 0), and the flash kernels on a
+   length-0 row; the three planning constants of
+   ``launch/roofline.py`` measured (``launch/calibrate.py``);
 4. the SSD chunk-scan kernels against their plain version through
    ``ops.ssd_scan`` (the reference's SSD cases and its ragged cases on
    the fp32 FMA kernel, the mamba2 main path's buckets on the
@@ -81,6 +91,15 @@ MAMBA_ARGS = dict(arch="mamba2_1p3b", dataset="squad", batch_size=8,
 # share of the first batch's collected activation bytes the budget
 # leaves on top of the fixed bytes: the rest must be rematerialised
 BUDGET_ACT_SHARE = 0.6
+# the planners path: the bert main path's first 8 batches, under each
+# planner (launcher arguments after --planner)
+PLANNER_STEPS = 8
+PLANNER_RUNS = [("none", []), ("sublinear", []), ("dtr", []),
+                ("mimose", []),
+                ("mimose", ["--max-microbatches", "4", "--solver", "dp"])]
+# accumulated against full-batch loss and gradients: the tolerances of
+# tests/test_microbatch.py (loss rtol, atol; grads rtol, atol)
+ACCUM_TOL = {"loss": (1e-5, 1e-6), "grads": (2e-4, 1e-6)}
 
 CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = [
@@ -240,6 +259,16 @@ def check_case(fa, ops, case, lens=None, seed=0):
         held(f"flash_bwd_dkv {part} against flash_bwd_dkv_fma",
              dkv["flash_bwd_dkv"][i], dkv["flash_bwd_dkv_fma"][i], "bwd",
              rows=False)
+    # a row of length 0 (the pad row of a non-divisor split): every
+    # kernel writes exactly 0 to its o, dq, dk and dv, and a finite lse
+    for b in (b for b, L in enumerate(lens) if L == 0):
+        outs = ([t[0][b] for t in fwd.values()]
+                + [t[b] for t in dqs.values()]
+                + [t[b] for ts in dkv.values() for t in ts])
+        if any(bool(t.any()) for t in outs) or not all(
+                bool(torch.isfinite(t[1][b]).all()) for t in fwd.values()):
+            raise AssertionError(f"a kernel wrote a nonzero or non-finite "
+                                 f"value in row {b}, of length 0: {case}")
     # the public wrapper (backward through the same kernels) agrees too
     dq2, dk2, dv2 = fa.flash_bwd(q, k, v, o, lse, do, kvl, causal, window)
     torch.cuda.synchronize()
@@ -485,6 +514,8 @@ def profile_step(trainer, batch, groups):
     ``groups``: (group name, substrings of kernel names), first match
     wins; the rest is "other"."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.calibrate import device_rows
     opt_state = trainer.optimizer.init(trainer.params)
     for _ in range(2):                      # warm, then the timed step
         opt_state, _ = trainer.step(opt_state, batch)
@@ -514,14 +545,7 @@ def profile_step(trainer, batch, groups):
               enumerate(("forward", "backward", "optimizer"))}
     log(f"phases {trainer.lm.cfg.name} (CUDA events, profiler off, ms): "
         + json.dumps({k: round(v, 3) for k, v in phases.items()}))
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            rows.append((t / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     dev_ms = sum(r[0] for r in rows)
     wall_ms = st.step_time_s * 1e3
     if not dev_ms:
@@ -580,6 +604,241 @@ def memory_phase(trainer, batch):
         f"of unit residuals kept); forward peak {fwd_peak / mib:.1f} MiB; "
         f"backward peak {bwd_peak / mib:.1f} MiB above resident, of which "
         f"grads {grads / mib:.1f} MiB")
+
+
+# ---------------------------------------------------------------------------
+# the planners path: the planner's decision space on the bert main path
+# ---------------------------------------------------------------------------
+
+def run_planner(args, budget_mb, planner, extra):
+    """One 8-step run of ``launch.train.main`` under ``planner``, launch
+    counts read around it; checks what every planner run must show."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    argv = ["--arch", args["arch"], "--dataset", args["dataset"],
+            "--planner", planner, "--attn-impl", "flash",
+            "--budget-mb", f"{budget_mb:.3f}",
+            "--steps", str(PLANNER_STEPS),
+            "--batch-size", str(args["batch_size"]),
+            "--quantum", str(args["quantum"]), "--device", "cuda"] + extra
+    label = " ".join([planner] + extra)
+    log(f"planners path [{label}]: python -m repro_torch.launch.train "
+        + " ".join(argv))
+    ops.reset_launches()
+    trainer = launch_train.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    h = trainer.history
+    lm = trainer.lm
+    layers = [e - s for s, e in lm.unit_bounds()]
+    k1 = sum(s.microbatches * (lm.cfg.num_layers + s.remat_units * layers[0])
+             for s in h)
+    k23 = sum(s.microbatches * lm.cfg.num_layers for s in h)
+    checks = {
+        "losses finite": all(math.isfinite(s.loss) for s in h),
+        "equal units": len(set(layers)) == 1,
+        "K1 = sum k (12 + n_remat)": launches["flash_fwd"] == k1,
+        "K2 = K3 = sum 12 k": launches["flash_bwd_dq"]
+        == launches["flash_bwd_dkv"] == k23,
+        "no FMA flash, ssd or dma launches": all(
+            launches[k] == 0 for k in list(FMA_OF.values())
+            + ["ssd_scan", "ssd_scan_fma", "dma_copy"]),
+    }
+    summ = trainer.summary()
+    pstats = getattr(trainer.planner, "stats", {})
+    log(f"planners path [{label}]: launches {launches}; checks "
+        + json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"planners path [{label}] checks failed: "
+                             f"{checks}")
+    log(f"planners path [{label}]: tokens/s over warm steps "
+        f"{summ['tokens_per_s']:.1f}, mean warm step "
+        f"{summ['mean_step_s'] * 1e3:.2f} ms, plan time "
+        f"{summ['total_plan_s'] * 1e3:.2f} ms wall"
+        + (f" ({pstats['plan_time_s'] * 1e3:.2f} ms with DTR's modelled "
+           f"evict search, {pstats['plan_ops']} ops)"
+           if "plan_ops" in pstats else "")
+        + f", mean k {summ['mean_microbatches']:.3f}, losses "
+        f"{[round(s.loss, 4) for s in h]}")
+    rows = {}
+    for st in h:
+        rows.setdefault(st.bucket, []).append(st)
+    per_bucket = {}
+    for bucket, sts in sorted(rows.items()):
+        per_bucket[bucket] = {
+            "steps": len(sts),
+            "n_remat": sorted({s.remat_units for s in sts}),
+            "k": sorted({s.microbatches for s in sts}),
+            "measured_peak_mib": max(s.max_memory_bytes for s in sts) / 2**20,
+            "predicted_peak_mib": max(s.predicted_peak_bytes
+                                      for s in sts) / 2**20}
+        log(f"  bucket {bucket}: {len(sts)} steps, n_remat "
+            f"{per_bucket[bucket]['n_remat']}, k {per_bucket[bucket]['k']}, "
+            f"measured peak {per_bucket[bucket]['measured_peak_mib']:.1f} MiB "
+            f"vs predicted {per_bucket[bucket]['predicted_peak_mib']:.1f} "
+            f"MiB, budget {budget_mb:.1f} MiB")
+    return trainer, {"planner": label, "budget_mb": budget_mb,
+                     "tokens_per_s": summ["tokens_per_s"],
+                     "mean_step_ms": summ["mean_step_s"] * 1e3,
+                     "plan_ms": summ["total_plan_s"] * 1e3,
+                     "mean_k": summ["mean_microbatches"],
+                     "launches": {k: launches[k] for k in FLASH_KERNELS},
+                     "buckets": per_bucket}
+
+
+def tight_budget_mb(args, batches) -> float:
+    """A budget below the simulator's k = 1 remat-all peak of the
+    largest bucket and above its k = 2 one (their midpoint), so no k = 1
+    plan fits there; from collections on a ``meta`` model."""
+    from repro_torch.actions import Action
+    from repro_torch.core.collector import ShuttlingCollector
+    from repro_torch.core.planner import fixed_train_bytes
+    from repro_torch.core.simulator import simulate
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import get_config
+    lm = LM(get_config(args["arch"]), attn_impl="flash", device="meta")
+    fixed = fixed_train_bytes(lm.parameters())
+    B = args["batch_size"]
+    S = max(b["tokens"].shape[1] for b in batches)
+    col = ShuttlingCollector(lm)
+    peaks = {}
+    for k in (1, 2):
+        act = col.collect({"tokens": torch.zeros((-(-B // k), S),
+                                                 dtype=torch.long)})
+        act = act.activation_vector()
+        peaks[k] = simulate(act, [Action.REMAT] * len(act), fixed).peak_bytes
+    budget = 0.5 * (peaks[1] + peaks[2])
+    log(f"tight budget: largest bucket S={S}, simulated remat-all peak "
+        f"k=1 {peaks[1] / 2**20:.1f} MiB, k=2 {peaks[2] / 2**20:.1f} MiB; "
+        f"budget {budget / 2**20:.1f} MiB")
+    return budget / 2**20
+
+
+def _grad_err(got, want, rtol, atol):
+    """(max |got - want|, worst |got - want| - rtol |want| - atol)."""
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("accumulated or full-batch value not finite")
+    d = (got.double() - want.double()).abs()
+    return float(d.max()), float((d - rtol * want.double().abs()).max()
+                                 - atol)
+
+
+def check_microbatch_equivalence(lm, batch, quantum):
+    """The k = 2 and k = 3 accumulated loss and gradients against the
+    full-batch step's, on one batch with the same parameters, at
+    ACCUM_TOL; k = 3 on B = 8 adds a pad row of length 0."""
+    from repro_torch.train.accumulate import accumulated_grads, split_batch
+    b = _device_batch(batch, quantum)
+    params = dict(lm.named_parameters())
+    loss, _ = lm.loss(b)
+    full = torch.autograd.grad(loss, list(params.values()))
+    want_loss = loss.detach()
+    want = dict(zip(params, full))
+    del loss, full
+    out = {}
+    for k in (2, 3):
+        lens = split_batch(b, k)["lengths"].reshape(-1).tolist()
+        got_loss, _, got = accumulated_grads(lm, b, k)
+        e_loss = _grad_err(got_loss, want_loss, *ACCUM_TOL["loss"])
+        worst = max((_grad_err(got[n], want[n], *ACCUM_TOL["grads"]) + (n,)
+                     for n in params), key=lambda e: e[1])
+        log(f"accumulation k={k} (row lengths {lens}): loss "
+            f"{float(got_loss):.7f} vs full batch {float(want_loss):.7f} "
+            f"(abs err {e_loss[0]:.3e}); grads max abs err "
+            f"{max(_grad_err(got[n], want[n], *ACCUM_TOL['grads'])[0] for n in params):.3e}, "
+            f"tightest against the tolerance {worst[1]:.3e} at {worst[2]}")
+        if e_loss[1] > 0 or worst[1] > 0:
+            raise AssertionError(f"k={k} accumulation disagrees with the "
+                                 f"full-batch step beyond {ACCUM_TOL}")
+        out[k] = {"loss_abs_err": e_loss[0]}
+    return out
+
+
+def check_empty_row(fa, ops, S):
+    """K1-K3 (each on the tensor cores and on its FMA kernel) at the
+    main width on a batch with a row of length 0, the pad row of a
+    non-divisor split: ``check_case`` holds every kernel against its
+    plain version on the valid rows and requires that row's o, dq, dk
+    and dv to be exactly 0 and its lse finite."""
+    lens = [S, S // 2, 0]
+    errs = check_case(fa, ops, (3, S, 12, 12, 64, True, 0, "float32", True),
+                      lens)
+    log(f"empty-row check (B=3 S={S} H=12 hd=64 fp32, lens {lens}): the "
+        f"row of length 0 has o, dq, dk, dv exactly 0 and a finite lse in "
+        f"every kernel; max abs error against the plain versions "
+        + " ".join(f"{n}={e:.3e}" for n, e in errs.items()))
+
+
+def calibrate_on(trainer, batch, S, fa, ops, quantum):
+    """On the plain Mimose run's model: the k = 2 and k = 3 accumulation
+    checks, K1-K3 on a length-0 row, and the three planning constants
+    with the card line and a k = 1 vs k = 2 step profile."""
+    from repro_torch.launch import calibrate
+    accum = check_microbatch_equivalence(trainer.lm, batch, quantum)
+    check_empty_row(fa, ops, S)
+    card = card_line()
+    mb = calibrate.microbatch_overhead(trainer, batch)
+    constants = {"PEAK_FLOPS": calibrate.peak_flops(),
+                 "PCIE_BW": calibrate.pcie_bandwidth(),
+                 "MICROBATCH_OVERHEAD_S": mb["overhead_s"]}
+    log(f"planning constants on {card}: PEAK_FLOPS "
+        f"{constants['PEAK_FLOPS']:.4e} FLOP/s (fp32 mm 3328x768x3072, TF32 "
+        f"off), PCIE_BW {constants['PCIE_BW']:.4e} B/s (pinned 256 MiB "
+        f"round trip, per direction), MICROBATCH_OVERHEAD_S "
+        f"{constants['MICROBATCH_OVERHEAD_S']:.4e} s (bert S={S} warm "
+        f"step k=2 minus k=1, difference of the medians; k=1 steps "
+        f"{[round(t * 1e3, 2) for t in mb['k1_s']]} ms, k=2 steps "
+        f"{[round(t * 1e3, 2) for t in mb['k2_s']]} ms)")
+    log(f"split profile (S={S}, n_remat={mb['n_remat']}, one profiled "
+        f"step per k): " + json.dumps(
+            {f"k={k}": {n: round(v, 3) for n, v in o.items()}
+             for k, o in mb["profiled"].items()}))
+    return {"card": card, "accumulation": accum, "constants": constants,
+            "split_profile": mb["profiled"]}
+
+
+def run_planners_path(args, budget_mb, fa, ops):
+    """Every planner on the bert main path, the tight-budget Mimose run,
+    and on the plain Mimose run's model the accumulation checks and the
+    planning constants.  Each run's model is freed before the next run
+    starts, so its measured peaks count no other model."""
+    batches = main_path_batches(dict(args, steps=PLANNER_STEPS))
+    S_main, main_batch = most_common_bucket(batches)
+    results, calib = [], None
+    runs = PLANNER_RUNS + [("tight", ["--max-microbatches", "4"])]
+    for planner, extra in runs:
+        if planner == "tight":
+            trainer, res = run_planner(args, tight_budget_mb(args, batches),
+                                       "mimose", extra)
+            if not any(s.microbatches >= 2 for s in trainer.history):
+                raise AssertionError("tight budget: no step ran with k >= 2")
+        else:
+            trainer, res = run_planner(args, budget_mb, planner, extra)
+        results.append(res)
+        bs = getattr(trainer.planner, "background_solver", None)
+        if bs is not None:
+            drained = bs.drain(timeout=60.0)
+            bs.close()
+            st = trainer.planner.stats
+            log(f"solver: drained {drained}, solves {st['solves']}, "
+                f"wins {st['solver_wins']}, swaps {st['solver_swaps']}, "
+                f"timeouts {st['solver_timeouts']}, errors {bs.errors}; by "
+                f"bucket {json.dumps(st.get('solver_delta_by_bucket', {}))}")
+            res["solver"] = {k: st[k] for k in ("solves", "solver_wins",
+                                                "solver_swaps",
+                                                "solver_timeouts")}
+            if not (drained and st["solves"] > 0 and bs.errors == 0):
+                raise AssertionError("background solver: no solve landed")
+            del bs
+        if planner == "mimose" and not extra:
+            calib = calibrate_on(trainer, main_batch, S_main, fa, ops,
+                                 args["quantum"])
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("planners: " + json.dumps({"card": calib["card"], "runs": results,
+                                   **{k: v for k, v in calib.items()
+                                      if k != "card"}}))
 
 
 # ---------------------------------------------------------------------------
@@ -1158,6 +1417,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"bert path: {time.perf_counter() - t0:.1f} s")
+
+    # -- planners path: the planner's decision space on bert --------------
+    t0 = time.perf_counter()
+    run_planners_path(BERT_ARGS, budget_mb, fa, ops)
+    log(f"planners path: {time.perf_counter() - t0:.1f} s")
 
     # -- the SSD scan and DMA copy against their plain versions -----------
     t0 = time.perf_counter()

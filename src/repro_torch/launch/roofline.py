@@ -1,14 +1,39 @@
-"""Per-plan-unit analytic cost model (copied from the reference's
-``launch/roofline.py``, dense and ssm kinds).
+"""Planning constants of the H100 and the per-plan-unit analytic cost
+model (copied from the reference's ``launch/roofline.py``, dense and
+ssm kinds).
+
+The simulator, scheduler, solver and planners bind the three constants
+below at import, as the reference binds its own.  They price a plan's
+overhead in seconds: recompute FLOPs over ``PEAK_FLOPS``, host traffic
+over ``PCIE_BW``, and ``(k - 1) x MICROBATCH_OVERHEAD_S`` for a k-way
+gradient-accumulation split.  Each was measured by
+``repro_torch.launch.calibrate`` (run by ``chip_smoke.py``).
 
 Forward FLOPs of one schedulable unit at a given batch geometry.
 Rematerialising a unit re-runs exactly this forward, so these numbers
-are the recompute cost the cost-aware scheduler scores against.  The
-scheduler uses only their ratios, so no device peak rate is needed.
+are the recompute cost the cost-aware scheduler scores against.
 """
 from __future__ import annotations
 
 import numpy as np
+
+# Measured by chip_smoke.py (launch/calibrate.py) on an NVIDIA H100 80GB
+# HBM3, 700.00 W power limit; PEAK_FLOPS and PCIE_BW in the chip run
+# PERF.md calls C3 (its planners-path findings give the spread over the
+# other runs).
+# fp32 GEMM rate with TF32 off (as the bert path runs), torch.mm at the
+# bert MLP shape 3328 x 768 x 3072 (the data sheet's fp32 peak: 67e12)
+PEAK_FLOPS = 4.4837e13
+# one pinned host <-> device round trip of 256 MiB, bytes per direction
+# over the round trip's time per direction
+PCIE_BW = 5.4387e10
+# a warm full-width bert_base_paper step (squad lengths, B = 8, S = 448)
+# at k = 2 minus the same step at k = 1 under the same plan, difference
+# of the medians of 12 steps each: the median of five runs (C3, F, F2,
+# F3, G1: 39.3 to 74.1 ms).  About 11 ms of it is device time, the rest
+# the host's dispatch of 2,600 more kernels, so it follows the host's
+# load more than the card.
+MICROBATCH_OVERHEAD_S = 0.063917
 
 
 def _attention_flops(cfg, B: int, S: int, *, is_global: bool = True) -> float:

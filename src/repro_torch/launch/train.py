@@ -12,18 +12,26 @@ for ``bert_base_paper``, the SSD chunk scan for ``mamba2_1p3b``):
         --dataset squad --planner mimose --attn-impl flash --budget-mb 30000 \\
         --steps 16 --batch-size 8
 
-CPU demo at reduced scale:
+CPU demo at reduced scale, and the planner's decision space (the
+Sublinear and DTR baselines, no checkpointing, adaptive microbatching
+and the background solver):
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
         --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+        --steps 3 --planner dtr --budget-mb 120
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+        --steps 3 --max-microbatches 4 --solver dp --budget-mb 120
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+from repro_torch.core.baselines import DTRSimPlanner, SublinearPlanner
 from repro_torch.core.planner import MimosePlanner, NonePlanner
-from repro_torch.data.pipeline import DISTRIBUTIONS, make_batches
+from repro_torch.data.pipeline import (DISTRIBUTIONS, bucket_length,
+                                       make_batches)
 from repro_torch.models.lm import LM
 from repro_torch.models.registry import get_config
 from repro_torch.optim.adamw import AdamW, cosine_schedule
@@ -34,13 +42,28 @@ def main(argv=None) -> Trainer:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="bert_base_paper")
     ap.add_argument("--dataset", default="swag", choices=list(DISTRIBUTIONS))
-    ap.add_argument("--planner", default="mimose", choices=["mimose", "none"])
+    ap.add_argument("--planner", default="mimose",
+                    choices=["mimose", "sublinear", "dtr", "none"])
     ap.add_argument("--attn-impl", default="xla", choices=["xla", "flash"],
                     help="flash = the hand-written CUDA kernels of every "
                          "mixer: flash attention, the SSD chunk scan (on "
                          "CPU tensors their plain versions)")
     ap.add_argument("--budget-mb", type=float, default=0.0,
                     help="device memory budget; 0 = unlimited")
+    ap.add_argument("--byte-only-remat", action="store_true",
+                    help="paper's byte-only Algorithm 1 instead of "
+                         "cost-aware (bytes per recompute-FLOP) selection")
+    ap.add_argument("--max-microbatches", type=int, default=1,
+                    help="adaptive microbatching: the planner may split "
+                         "a bucket's step into up to K gradient-"
+                         "accumulation microbatches when that wins on "
+                         "simulated step time or alone fits the budget")
+    ap.add_argument("--solver", default="off", choices=["off", "dp"],
+                    help="optimal-plan tier: a background thread solves "
+                         "each bucket's (k, action) assignment exactly and "
+                         "swaps an improved plan into the cache")
+    ap.add_argument("--solver-budget-ms", type=float, default=50.0,
+                    help="wall-clock budget of one background solve")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--lr", type=float, default=3e-4)
@@ -50,6 +73,11 @@ def main(argv=None) -> Trainer:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    if args.solver != "off" and args.planner != "mimose":
+        ap.error("--solver needs --planner mimose (the solver tier swaps "
+                 "plans into the Mimose bucket cache)")
+    if args.max_microbatches < 1:
+        ap.error("--max-microbatches must be >= 1")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -66,11 +94,22 @@ def main(argv=None) -> Trainer:
           f"attn={args.attn_impl}")
 
     budget = args.budget_mb * 2**20 if args.budget_mb else 1e18
-    if args.planner == "mimose":
-        planner = MimosePlanner(lm, budget, quantum=args.quantum,
-                                warmup_samples=3)
-    else:
-        planner = NonePlanner(lm)
+    dist = DISTRIBUTIONS[args.dataset]
+    max_size = args.batch_size * bucket_length(dist.hi, args.quantum)
+    planner = {
+        "mimose": lambda: MimosePlanner(
+            lm, budget, quantum=args.quantum, warmup_samples=3,
+            cost_aware=not args.byte_only_remat,
+            max_microbatches=args.max_microbatches, solver=args.solver,
+            solver_budget_ms=args.solver_budget_ms),
+        "sublinear": lambda: SublinearPlanner(
+            lm, budget, max_input_size=max_size,
+            cost_aware=not args.byte_only_remat,
+            max_microbatches=args.max_microbatches),
+        "dtr": lambda: DTRSimPlanner(lm, budget,
+                                     max_microbatches=args.max_microbatches),
+        "none": lambda: NonePlanner(lm),
+    }[args.planner]()
     opt = AdamW(lr=cosine_schedule(args.lr, 10, args.steps))
     trainer = Trainer(lm, planner, opt)
     batches = make_batches(args.dataset, batch_size=args.batch_size,
@@ -85,14 +124,22 @@ def main(argv=None) -> Trainer:
         source = ("hit" if st.cache_hit else
                   "collected" if st.collected else "predicted")
         print(f"step {i:4d} loss {loss:.4f} S={batch['tokens'].shape[1]} "
-              f"bucket={st.bucket} remat={st.remat_units} plan={source} "
+              f"bucket={st.bucket} remat={st.remat_units} "
+              f"k={st.microbatches} plan={source} "
               f"step_s={st.step_time_s:.4f} "
               f"predicted_peak_mb={st.predicted_peak_bytes / 2**20:.1f} "
               f"max_alloc_mb={st.max_memory_bytes / 2**20:.1f}")
+    bs = getattr(planner, "background_solver", None)
+    if bs is not None:
+        # let in-flight solves land so the summary sees them (bounded
+        # wait; training is done), then end the solver's thread
+        bs.drain(timeout=5.0)
+        bs.close()
     print(f"done in {time.time() - t0:.1f}s")
     print("summary:", trainer.summary())
     if hasattr(planner, "stats"):
-        print("planner:", planner.stats, "plans cached:", len(planner.cache))
+        print("planner:", planner.stats, "plans cached:",
+              len(getattr(planner, "cache", {})))
     return trainer
 
 

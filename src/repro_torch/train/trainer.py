@@ -1,7 +1,7 @@
 """Training loop with the Mimose planner on the critical path (paper §4.1).
 
 Counterpart of the reference's ``train/trainer.py`` (eager, single
-device, one microbatch):
+device):
 
   1. Each batch is padded up to the planner's quantum (``pad_batch``);
      the true ``lengths`` ride along so attention masks (and the flash
@@ -9,13 +9,17 @@ device, one microbatch):
      loss weight.
   2. ``planner.plan`` maps the bucket to a KEEP/REMAT action tuple.
   3. The step runs forward + backward under that plan and an AdamW
-     update in place.  Step functions are cached per (batch shapes,
-     plan) like the reference's jit cache, so ``StepStats.compile``
-     marks the first step of each (bucket, plan) key.
+     update in place.  A plan with ``Plan.microbatch = k > 1`` runs as
+     ``k`` accumulated microbatches (``train/accumulate.py``).  Step
+     functions are cached per (batch shapes, plan, k) like the
+     reference's jit cache, so ``StepStats.compile`` marks the first
+     step of each key — and a plan the background solver swapped in
+     builds a new step function for its bucket only.
 
 On CUDA each step records ``torch.cuda.max_memory_allocated`` next to
 the plan's predicted peak (fixed bytes + predicted activations - bytes
-the plan frees) — the paper's headline comparison.
+the plan frees, per microbatch under a split) — the paper's headline
+comparison.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro_torch.core.cache import LRUCache
 from repro_torch.core.planner import PlannerBase
 from repro_torch.data.pipeline import pad_batch
 from repro_torch.optim.adamw import AdamW, AdamWState
+from repro_torch.train.accumulate import accumulated_grads
 
 MAX_CACHED_STEPS = 64     # step-function cache bound, as the reference's
 
@@ -49,6 +54,7 @@ class StepStats:
     predicted_peak_bytes: float = 0.0
     # torch.cuda.max_memory_allocated over the step (0 off CUDA)
     max_memory_bytes: int = 0
+    microbatches: int = 1      # gradient-accumulation split of the step
 
 
 class Trainer:
@@ -81,8 +87,16 @@ class Trainer:
                     dtype=dtypes.get(k, torch.float32))
                 for k, v in batch.items()}
 
-    def _build_step(self, actions):
+    def _build_step(self, actions, microbatch: int = 1):
         lm, opt, params = self.lm, self.optimizer, self.params
+
+        if microbatch > 1:
+            def train_step(opt_state: AdamWState, batch):
+                loss, metrics, grads = accumulated_grads(lm, batch,
+                                                         microbatch, actions)
+                opt_state = opt.update(grads, opt_state, params)
+                return opt_state, loss, metrics
+            return train_step
 
         def train_step(opt_state: AdamWState, batch):
             loss, metrics = lm.loss(batch, actions)
@@ -95,14 +109,15 @@ class Trainer:
 
         return train_step
 
-    def _step_key(self, actions, batch) -> tuple:
-        return (self._batch_key(batch), tuple(int(a) for a in actions))
+    def _step_key(self, actions, batch, microbatch: int = 1) -> tuple:
+        return (self._batch_key(batch), tuple(int(a) for a in actions),
+                int(microbatch))
 
-    def _get_step_fn(self, actions, batch):
-        key = self._step_key(actions, batch)
+    def _get_step_fn(self, actions, batch, microbatch: int = 1):
+        key = self._step_key(actions, batch, microbatch)
         fn = self._step_cache.get(key)
         if fn is None:
-            fn = self._build_step(actions)
+            fn = self._build_step(actions, microbatch)
             self._step_cache[key] = fn
             self.cache_stats["compiles"] += 1
             self.cache_stats["evictions"] = self._step_cache.evictions
@@ -117,7 +132,8 @@ class Trainer:
         actions, info = self.planner.plan(batch)
         t_plan = time.perf_counter() - t0
         bucket = self.planner.bucket_key(batch)
-        fn, is_new = self._get_step_fn(actions, batch)
+        k = max(int(info.plan.microbatch), 1)
+        fn, is_new = self._get_step_fn(actions, batch, k)
         cuda = self.lm.device.type == "cuda"
         if cuda:
             torch.cuda.synchronize(self.lm.device)
@@ -132,14 +148,17 @@ class Trainer:
         plan = info.plan
         predicted = (float(self.planner.fixed_bytes or 0.0)
                      + plan.est_activation_bytes - plan.covered_bytes)
+        B, S = batch["tokens"].shape
+        # a non-divisor split computes over ceil(B/k)*k rows
+        padded_tokens = int(-(-B // k) * k * S)
         buckets = self.cache_stats["bucket_steps"]
         buckets[bucket] = buckets.get(bucket, 0) + 1
         self.history.append(StepStats(
             loss, t_step, t_plan, is_new, plan.n_remat,
-            int(metrics["tokens"]), bucket,
-            int(np.prod(tuple(batch["tokens"].shape))),
+            int(metrics["tokens"]), bucket, padded_tokens,
             cache_hit=info.cache_hit, collected=info.collected,
-            predicted_peak_bytes=predicted, max_memory_bytes=int(peak)))
+            predicted_peak_bytes=predicted, max_memory_bytes=int(peak),
+            microbatches=k))
         return opt_state, loss
 
     def run(self, batches, opt_state: Optional[AdamWState] = None):
@@ -168,8 +187,14 @@ class Trainer:
             "jit_hits": int(self.cache_stats["jit_hits"]),
             "buckets": len(self.cache_stats["bucket_steps"]),
             "mean_remat_units": float(np.mean([s.remat_units for s in h])),
+            "mean_microbatches": float(np.mean([s.microbatches
+                                                for s in h])),
             "tokens_per_s": eff / warm_s if warm else 0.0,
             "padded_tokens_per_s": padded / warm_s if warm else 0.0,
             "pad_fraction": (1.0 - eff / max(padded, 1.0)) if warm else 0.0,
             "final_loss": h[-1].loss,
+            # background-solver counters (0 without the solver tier)
+            **{key: int(getattr(self.planner, "stats", {}).get(key, 0))
+               for key in ("solves", "solver_swaps", "solver_wins",
+                           "solver_timeouts")},
         }

@@ -106,9 +106,15 @@ def test_port_imports_nothing_of_jax_or_the_reference():
         "bad = sorted(n for n in sys.modules if n == 'jax' "
         "or n.startswith(('jax.', 'jaxlib')) or n == 'repro' "
         "or n.startswith('repro.'))\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "print(' '.join(n for n in sys.modules "
+        "if n.startswith('repro_torch')))\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 20
+    loaded = set(res.stdout.split())
+    assert len(loaded) >= 20
+    # the planner's decision space is reached by the walk
+    assert {"repro_torch.core.simulator", "repro_torch.core.solver",
+            "repro_torch.core.baselines", "repro_torch.train.accumulate",
+            "repro_torch.launch.calibrate"} <= loaded
