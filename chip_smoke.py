@@ -34,6 +34,28 @@ Phases (each raises on failure; the script then exits non-zero):
    step's (k = 3 adds a pad row of length 0), and the flash kernels on a
    length-0 row; the three planning constants of
    ``launch/roofline.py`` measured (``launch/calibrate.py``);
+3c. offload path: full-width ``bert_base_paper``, the first 8 batches,
+   each run through ``repro_torch.launch.train.main`` with every
+   telemetry sink on (``--metrics``, ``--events-out``, ``--trace-out``
+   into a temporary directory) and launch counts read around it:
+   (a) ``--offload --solver dp`` at a budget the simulator says no k = 1
+   KEEP/REMAT plan meets and a hybrid one does; (b) ``--offload
+   --opt-offload`` at a budget only parked moments meet (the planner's
+   choice logged), then the plan it does not find (every unit OFFLOAD,
+   the last OFFLOAD_OPT) through the trainer; (c) ``--max-microbatches
+   4`` at (a)'s budget.  Checks: OFFLOAD in every step of (a),
+   OFFLOAD_OPT in every step of (b)'s fixed plan, no OFFLOAD run as
+   REMAT, the lane's bytes equal to the offloaded inputs (and parked
+   moments), ``exposed_s <= copy_s``, K1 = sum k (12 + n_remat +
+   n_offload), K2 = K3 = sum 12 k, spans on the step, planner, transfer
+   and (when solves ran) solver tracks, ``plan`` and ``train_step``
+   events.  Then, with deterministic algorithms on: OFFLOAD against
+   REMAT on one batch (bert all 12 OFFLOAD, bert 6 + 6, and mamba2 in
+   scan mode at 12 layers in 2 chunks), loss and gradients bitwise (else
+   at the reference's tolerances) and the device bytes held after the
+   forward down by the offloaded inputs; three OFFLOAD_OPT split steps
+   against three fused ones, parameters equal; the bert main path with
+   every sink on and off, losses bitwise equal;
 4. the SSD chunk-scan kernels against their plain version through
    ``ops.ssd_scan`` (the reference's SSD cases and its ragged cases on
    the fp32 FMA kernel, the mamba2 main path's buckets on the
@@ -54,7 +76,8 @@ Phases (each raises on failure; the script then exits non-zero):
 7. DMA path: ``ops.residual_dma_copy`` stages a residual stream and the
    logits, with launch counts read around it; the DMA kernel's timings;
 
-then prints the card line, one ``{"kernels": [...]}`` JSON line and, as
+then prints the card line, one ``{"kernels": [...]}`` JSON line (no new
+kernel on the offload path: it runs K1-K3), and, as
 the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a CUDA device, and when the repository's ``src/`` is not beside it.
 """
@@ -423,7 +446,7 @@ def check_model(lm, batch, quantum, rtol):
                              f"kernels and the plain path disagree")
 
 
-def run_main_path(args, budget_mb):
+def run_main_path(args, budget_mb, extra=()):
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
     argv = ["--arch", args["arch"], "--dataset", args["dataset"],
@@ -431,7 +454,8 @@ def run_main_path(args, budget_mb):
             "--budget-mb", f"{budget_mb:.3f}",
             "--steps", str(args["steps"]),
             "--batch-size", str(args["batch_size"]),
-            "--quantum", str(args["quantum"]), "--device", "cuda"]
+            "--quantum", str(args["quantum"]), "--device", "cuda"] + list(
+                extra)
     log("main path: python -m repro_torch.launch.train " + " ".join(argv))
     ops.reset_launches()
     trainer = launch_train.main(argv)
@@ -839,6 +863,520 @@ def run_planners_path(args, budget_mb, fa, ops):
     log("planners: " + json.dumps({"card": calib["card"], "runs": results,
                                    **{k: v for k, v in calib.items()
                                       if k != "card"}}))
+
+
+# ---------------------------------------------------------------------------
+# the offload path: OFFLOAD and OFFLOAD_OPT executed on the bert main path
+# ---------------------------------------------------------------------------
+
+OFFLOAD_STEPS = 8
+# OFFLOAD against REMAT, and OFFLOAD_OPT split steps against fused ones,
+# are expected bitwise equal (the same kernels on the same values); when
+# they are not, they are held at the reference's tolerances
+# (tests/test_hybrid.py: loss rtol 1e-6; grads rtol 2e-4, atol 1e-5)
+OFFLOAD_TOL = {"loss": (1e-6, 0.0), "grads": (2e-4, 1e-5)}
+# the device bytes held after the forward fall by the offloaded inputs'
+# bytes, to this share of them: on an NVIDIA H100 80GB HBM3 the OFFLOAD
+# side held exact multiples of the inputs and the REMAT side up to
+# 0.66-0.75 MiB more than the inputs it keeps (0.5-1.2 %; small tensors
+# of the checkpoint, not identified)
+DROP_RTOL = 0.02
+
+
+def offload_budgets_mb(args, batches):
+    """Budgets for the offload runs, from the simulator on collections
+    of a ``meta`` model at every bucket of the batches: (a) between the
+    largest bucket's all-OFFLOAD peak and the smallest bucket's
+    remat-all peak, so no bucket fits a k = 1 KEEP/REMAT plan and a
+    hybrid one fits; (b) between the largest bucket's peak with the
+    last unit OFFLOAD_OPT and the rest OFFLOAD and the smallest
+    bucket's all-OFFLOAD peak, so only parked moments fit.  Returns
+    (a, b, {S: {plan: peak MiB}})."""
+    from repro_torch.actions import Action
+    from repro_torch.core.collector import ShuttlingCollector
+    from repro_torch.core.planner import fixed_train_bytes
+    from repro_torch.core.simulator import simulate
+    from repro_torch.launch.roofline import PCIE_BW
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import get_config
+    lm = LM(get_config(args["arch"]), attn_impl="flash", device="meta")
+    fixed = fixed_train_bytes(lm.parameters())
+    n = lm.num_plan_units()
+    col = ShuttlingCollector(lm)
+    plans = {"remat-all": [Action.REMAT] * n,
+             "all-OFFLOAD": [Action.OFFLOAD] * n,
+             "last-OFFLOAD_OPT": [Action.OFFLOAD] * (n - 1)
+             + [Action.OFFLOAD_OPT]}
+    peaks = {}
+    for S in sorted({b["tokens"].shape[1] for b in batches}):
+        r = col.collect({"tokens": torch.zeros((args["batch_size"], S),
+                                               dtype=torch.long)})
+        peaks[S] = {name: simulate(
+            r.activation_vector(), acts, fixed, r.output_vector(),
+            r.flops_vector(), offload_bytes=r.offloadable_vector(),
+            opt_bytes=r.opt_vector(), pcie_bytes_per_s=PCIE_BW).peak_bytes
+            / 2**20 for name, acts in plans.items()}
+        log(f"offload budgets: S={S} simulated peaks (MiB) " + json.dumps(
+            {k: round(v, 1) for k, v in peaks[S].items()}))
+    hi = {k: max(p[k] for p in peaks.values()) for k in plans}
+    lo = {k: min(p[k] for p in peaks.values()) for k in plans}
+    if not (hi["all-OFFLOAD"] < lo["remat-all"]
+            and hi["last-OFFLOAD_OPT"] < lo["all-OFFLOAD"]):
+        raise AssertionError(f"offload budgets: no gap between the "
+                             f"simulated peaks {peaks}")
+    a = 0.5 * (hi["all-OFFLOAD"] + lo["remat-all"])
+    b = 0.5 * (hi["last-OFFLOAD_OPT"] + lo["all-OFFLOAD"])
+    log(f"offload budgets: (a) {a:.1f} MiB, (b) {b:.1f} MiB")
+    return a, b, peaks
+
+
+def fixed_planner(lm, actions, quantum):
+    """A planner serving one action plan for every batch (the
+    OFFLOAD_OPT runs: the planner never picks OFFLOAD_OPT for bert at
+    squad lengths, PERF.md §6)."""
+    from repro_torch.core.planner import PlanInfo, PlannerBase
+    from repro_torch.core.scheduler import Plan
+
+    class FixedPlanner(PlannerBase):
+        def __init__(self):
+            self.lm, self.quantum = lm, quantum
+
+        def plan(self, batch):
+            p = Plan([], 0.0, 0.0, 0.0, actions=actions)
+            return p.as_actions(), PlanInfo(0, self.bucket_key(batch), True,
+                                            False, p)
+    return FixedPlanner()
+
+
+def _sinks(tmp):
+    return {"metrics": str(Path(tmp) / "metrics.json"),
+            "events": str(Path(tmp) / "events.jsonl"),
+            "trace": str(Path(tmp) / "trace.json")}
+
+
+def _read_sinks(paths):
+    from repro_torch.obs import read_events
+    return (json.load(open(paths["metrics"])),
+            list(read_events(paths["events"])),
+            json.load(open(paths["trace"]))["traceEvents"])
+
+
+def check_offload_run(trainer, launches, sinks, label, budget_mb,
+                      want="offload", parked_bytes=0.0, sim_peaks=None,
+                      batch_size=8):
+    """What an offload-path run must show; logs its numbers and returns
+    its record.  ``want``: "offload" (every step holds an OFFLOAD unit;
+    the lane moves exactly the OFFLOAD layers' inputs out and back),
+    "opt" (every step parks moments; the lane moves the inputs and
+    ``parked_bytes`` per step), or "any" (the planner's choice, logged).
+    ``sim_peaks``: {S: simulated peak MiB} to log against the measured
+    peak when the planner gives no prediction."""
+    from repro_torch.obs import TRACK_PLANNER, TRACK_SOLVER, TRACK_STEP, \
+        TRACK_TRANSFER
+    metrics, events, trace = _read_sinks(sinks)
+    h = trainer.history
+    lm = trainer.lm
+    d = lm.cfg.d_model
+    per = [e - s for s, e in lm.unit_bounds()][0]
+    k1 = sum(s.microbatches * (lm.cfg.num_layers + (s.remat_units
+                                                    + s.offload_units) * per)
+             for s in h)
+    k23 = sum(s.microbatches * lm.cfg.num_layers for s in h)
+
+    def total(name):
+        return float(metrics.get(name, {}).get("total", 0.0))
+    lane = {k: total("transfer_" + k) for k in ("bytes_out", "bytes_in",
+                                                "copy_s", "exposed_s",
+                                                "stall_s")}
+    lane["pinned_mib"] = (trainer.transfer_lane.pinned_bytes / 2**20
+                          if trainer.transfer_lane is not None else 0.0)
+    inputs = sum(s.offload_units * per * s.padded_tokens * d * 4 for s in h)
+    steps = [e for e in events if e["kind"] == "train_step"]
+    priced = sum(2.0 * e["offload_bytes"] for e in steps)
+    tracks = {e["tid"] for e in trace if e["ph"] in ("X", "i")}
+    summ = trainer.summary()
+    checks = {
+        "losses finite": all(math.isfinite(s.loss) for s in h),
+        "K1 = sum k (12 + n_remat + n_offload)": launches["flash_fwd"] == k1,
+        "K2 = K3 = sum 12 k": launches["flash_bwd_dq"]
+        == launches["flash_bwd_dkv"] == k23,
+        "no OFFLOAD step ran as REMAT": summ["offload_degraded_steps"] == 0,
+        "exposed_s <= copy_s": lane["exposed_s"] <= lane["copy_s"],
+        "plan and train_step events": {"plan", "train_step"}
+        <= {e["kind"] for e in events} or want == "opt",
+        "a train_step event per step": len(steps) == len(h),
+        "spans on the step and planner tracks": {TRACK_STEP}
+        <= tracks and (TRACK_PLANNER in tracks or want == "opt"),
+        "solver spans when solves ran": (TRACK_SOLVER in tracks)
+        == (total("solver_solves") + total("solver_timeouts") > 0),
+    }
+    if want == "offload":
+        checks["every step holds an OFFLOAD unit"] = all(
+            s.offload_units >= 1 for s in h)
+        checks["lane out = in = the OFFLOAD inputs"] = (
+            lane["bytes_out"] == lane["bytes_in"] == inputs)
+        checks["spans on the transfer track"] = TRACK_TRANSFER in tracks
+    elif want == "opt":
+        checks["every step holds an OFFLOAD_OPT unit"] = all(
+            s.opt_offload_units >= 1 for s in h)
+        checks["lane out = inputs + parked moments per step"] = (
+            lane["bytes_out"] == inputs + len(h) * parked_bytes)
+        checks["lane in = inputs + parked moments after step 1"] = (
+            lane["bytes_in"] == inputs + (len(h) - 1) * parked_bytes)
+        checks["spans on the transfer track"] = TRACK_TRANSFER in tracks
+    log(f"offload path [{label}]: launches "
+        + json.dumps({k: launches[k] for k in FLASH_KERNELS})
+        + "; lane " + json.dumps({k: round(v, 6) for k, v in lane.items()})
+        + f"; OFFLOAD inputs moved each way {inputs / 2**20:.1f} MiB, "
+        f"priced by the plans (2 x offloadable bytes) {priced / 2**20:.1f} "
+        f"MiB; tracks {sorted(tracks)}; checks " + json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"offload path [{label}] checks failed: "
+                             f"{checks}")
+    log(f"offload path [{label}]: tokens/s over warm steps "
+        f"{summ['tokens_per_s']:.1f}, mean warm step "
+        f"{summ['mean_step_s'] * 1e3:.2f} ms, plan time "
+        f"{summ['total_plan_s'] * 1e3:.2f} ms, exposed transfer "
+        f"{summ['exposed_transfer_s']:.6f} s vs simulated "
+        f"{summ['sim_transfer_s']:.6f} s, mean k "
+        f"{summ['mean_microbatches']:.3f}, losses "
+        f"{[round(s.loss, 4) for s in h]}")
+    rows = {}
+    for st in h:
+        rows.setdefault(st.bucket, []).append(st)
+    per_bucket = {}
+    for bucket, sts in sorted(rows.items()):
+        S = bucket // batch_size
+        per_bucket[bucket] = {
+            "steps": len(sts),
+            "n_remat": sorted({s.remat_units for s in sts}),
+            "n_offload": sorted({s.offload_units for s in sts}),
+            "n_opt": sorted({s.opt_offload_units for s in sts}),
+            "k": sorted({s.microbatches for s in sts}),
+            "measured_peak_mib": round(max(s.max_memory_bytes
+                                           for s in sts) / 2**20, 1),
+            "predicted_peak_mib": round(
+                (max(s.predicted_peak_bytes for s in sts) / 2**20)
+                if sim_peaks is None else sim_peaks.get(S, 0.0), 1)}
+        log(f"  bucket {bucket}: " + json.dumps(per_bucket[bucket])
+            + f", budget {budget_mb:.1f} MiB")
+    return {"run": label, "budget_mb": budget_mb,
+            "tokens_per_s": summ["tokens_per_s"],
+            "mean_step_ms": summ["mean_step_s"] * 1e3,
+            "plan_ms": summ["total_plan_s"] * 1e3,
+            "exposed_transfer_s": summ["exposed_transfer_s"],
+            "sim_transfer_s": summ["sim_transfer_s"], "lane": lane,
+            "inputs_mib": inputs / 2**20, "priced_mib": priced / 2**20,
+            "buckets": per_bucket}
+
+
+def run_offload(args, budget_mb, extra, label, want="offload"):
+    """One 8-step run of ``launch.train.main`` with every sink on, into
+    a temporary directory; launch counts read around it."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    with tempfile.TemporaryDirectory() as tmp:
+        sinks = _sinks(tmp)
+        argv = ["--arch", args["arch"], "--dataset", args["dataset"],
+                "--planner", "mimose", "--attn-impl", "flash",
+                "--budget-mb", f"{budget_mb:.3f}",
+                "--steps", str(OFFLOAD_STEPS),
+                "--batch-size", str(args["batch_size"]),
+                "--quantum", str(args["quantum"]), "--device", "cuda",
+                "--metrics", sinks["metrics"], "--events-out",
+                sinks["events"], "--trace-out", sinks["trace"]] + extra
+        log(f"offload path [{label}]: python -m repro_torch.launch.train "
+            + " ".join(argv))
+        ops.reset_launches()
+        trainer = launch_train.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        res = check_offload_run(trainer, launches, sinks, label, budget_mb,
+                                want, batch_size=args["batch_size"])
+    return trainer, res
+
+
+def run_fixed_opt(args, budget_mb, batches, sim_peaks):
+    """(b) with the plan the planner does not find: every unit OFFLOAD
+    but the last, whose fp32 moments are parked; 8 steps through the
+    trainer with every sink on."""
+    import tempfile
+
+    from repro_torch.actions import Action
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import get_config
+    from repro_torch.obs import build_telemetry, flush_telemetry
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.trainer import Trainer
+    lm = LM(get_config(args["arch"]), attn_impl="flash", device="cuda")
+    n = lm.num_plan_units()
+    acts = (Action.OFFLOAD,) * (n - 1) + (Action.OFFLOAD_OPT,)
+    with tempfile.TemporaryDirectory() as tmp:
+        sinks = _sinks(tmp)
+        tel = build_telemetry(metrics_path=sinks["metrics"],
+                              events_path=sinks["events"],
+                              trace_path=sinks["trace"])
+        tr = Trainer(lm, fixed_planner(lm, acts, args["quantum"]),
+                     AdamW(lr=cosine_schedule(3e-4, 10, OFFLOAD_STEPS)),
+                     telemetry=tel)
+        parked = float(sum(8 * tr.params[name].numel()
+                           for name in tr._unit_names[n - 1]))
+        ops.reset_launches()
+        tr.run(batches[:OFFLOAD_STEPS])
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        flush_telemetry(tel)
+        res = check_offload_run(tr, launches, sinks, "b: fixed plan, "
+                                "11 OFFLOAD + last unit OFFLOAD_OPT",
+                                budget_mb, "opt", parked,
+                                {S: p["last-OFFLOAD_OPT"]
+                                 for S, p in sim_peaks.items()},
+                                batch_size=args["batch_size"])
+    res["parked_mib_per_step"] = parked / 2**20
+    del tr, lm
+    return res
+
+
+def _same_or_close(name, got, want, tol):
+    """True when bitwise equal; else the max abs error, which must be
+    within ``tol`` (rtol, atol)."""
+    if torch.equal(got, want):
+        return 0.0
+    err = _err(got, want, *tol)
+    if err[1] > 0:
+        raise AssertionError(f"{name}: {err} beyond {tol}")
+    return err[0]
+
+
+def check_offload_equals_remat(arch_cfg, batch, quantum, acts, label):
+    """One batch under ``acts`` run with OFFLOAD for real and as REMAT
+    (``offload_exec`` off), deterministic algorithms on: loss and
+    gradients, and the device bytes held after the forward (synchronised,
+    freed blocks returned), which must fall by the offloaded layers'
+    inputs."""
+    from repro_torch.actions import Action
+    from repro_torch.models.lm import LM
+    lm = LM(arch_cfg, attn_impl="flash", device="cuda")
+    b = _device_batch(batch, quantum)
+    B, S = b["tokens"].shape
+    # one unmeasured step first, so allocations made on first use
+    # (library workspaces) land outside both measurements
+    loss, _ = lm.loss(b, acts)
+    loss.backward()
+    lm.zero_grad(set_to_none=True)
+    del loss
+    out = {}
+    for exe in (True, False):
+        lm.offload_exec = exe
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        loss, _ = lm.loss(b, acts)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() - base
+        loss.backward()
+        torch.cuda.synchronize()
+        out[exe] = (loss.detach().clone(), held,
+                    {n: p.grad.clone() for n, p in lm.named_parameters()})
+        for p in lm.parameters():
+            p.grad = None
+    per = [e - s for s, e in lm.unit_bounds()][0]
+    n_layers = sum(per for a in acts if a is Action.OFFLOAD)
+    elem = torch.empty((), dtype=lm.dtype).element_size()
+    want_drop = n_layers * B * S * lm.cfg.d_model * elem
+    drop = out[False][1] - out[True][1]
+    e_loss = _same_or_close("loss", out[True][0], out[False][0],
+                            OFFLOAD_TOL["loss"])
+    e_grad = max(_same_or_close(n, out[True][2][n], out[False][2][n],
+                                OFFLOAD_TOL["grads"]) for n in out[True][2])
+    bitwise = e_loss == 0.0 and e_grad == 0.0
+    log(f"offload check [{label}] (B={B} S={S}, {n_layers} layers' inputs "
+        f"to host): loss {float(out[True][0]):.7f} OFFLOAD vs "
+        f"{float(out[False][0]):.7f} REMAT; "
+        + ("loss and every gradient bitwise equal"
+           if bitwise else f"not bitwise: loss err {e_loss:.3e}, grads "
+           f"max abs err {e_grad:.3e} (within {OFFLOAD_TOL})")
+        + f"; held after the forward {out[True][1] / 2**20:.2f} MiB OFFLOAD "
+        f"vs {out[False][1] / 2**20:.2f} MiB REMAT: drop "
+        f"{drop / 2**20:.2f} MiB, the inputs {want_drop / 2**20:.2f} MiB")
+    if abs(drop - want_drop) > max(512 * n_layers, DROP_RTOL * want_drop):
+        raise AssertionError(f"offload check [{label}]: the device bytes "
+                             f"fell by {drop}, not by the offloaded inputs' "
+                             f"{want_drop}")
+    st = lm.transfer_lane.reset_stats()
+    del lm
+    return {"bitwise": bitwise, "drop_mib": drop / 2**20,
+            "inputs_mib": want_drop / 2**20, "lane": st}
+
+
+def check_split_equals_fused(args, batches):
+    """Three OFFLOAD_OPT split steps against three fused steps (the same
+    plan with KEEP for OFFLOAD_OPT) from the same state: parameters
+    equal; each step's peak logged beside the parked bytes."""
+    from repro_torch.actions import Action
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.trainer import Trainer
+    n = get_config(args["arch"]).num_layers
+    split = ((Action.OFFLOAD_OPT,) + (Action.OFFLOAD,) * (n - 2)
+             + (Action.OFFLOAD_OPT,))
+    fused = tuple(Action.KEEP if a is Action.OFFLOAD_OPT else a
+                  for a in split)
+    res = {}
+    for name, acts in (("split", split), ("fused", fused)):
+        lm = LM(get_config(args["arch"]), attn_impl="flash", device="cuda")
+        tr = Trainer(lm, fixed_planner(lm, acts, args["quantum"]),
+                     AdamW(lr=1e-3))
+        tr.run(batches[:3])
+        torch.cuda.synchronize()
+        parked = sum(8 * tr.params[p].numel() for u in (0, n - 1)
+                     for p in tr._unit_names[u])
+        res[name] = ({k: p.detach().clone() for k, p in tr.params.items()},
+                     [s.max_memory_bytes for s in tr.history], parked,
+                     [s.loss for s in tr.history])
+        del tr, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    errs = [_same_or_close(k, res["split"][0][k], res["fused"][0][k],
+                           OFFLOAD_TOL["grads"]) for k in res["fused"][0]]
+    mib = 2 ** 20
+    log(f"OFFLOAD_OPT split vs fused, 3 steps (units 0 and {n - 1} parked, "
+        f"{res['split'][2] / mib:.1f} MiB of moments): parameters "
+        + ("bitwise equal" if max(errs) == 0.0 else
+           f"max abs err {max(errs):.3e}")
+        + f"; losses split {res['split'][3]} fused {res['fused'][3]}; step "
+        f"peaks split {[round(x / mib, 1) for x in res['split'][1]]} MiB "
+        f"vs fused {[round(x / mib, 1) for x in res['fused'][1]]} MiB "
+        f"(fused minus parked: "
+        f"{[round((x - res['split'][2]) / mib, 1) for x in res['fused'][1]]})")
+    return {"bitwise": max(errs) == 0.0,
+            "split_peaks_mib": [x / mib for x in res["split"][1]],
+            "fused_peaks_mib": [x / mib for x in res["fused"][1]],
+            "parked_mib": res["split"][2] / mib}
+
+
+def check_telemetry_is_free(args, budget_mb):
+    """The bert main path with every sink on and with them off: losses
+    bitwise equal; warm step times side by side."""
+    import tempfile
+    out = {}
+    # off, on, on, off: each side once first and once second
+    for i, name in enumerate(("off", "on", "on", "off")):
+        with tempfile.TemporaryDirectory() as tmp:
+            sinks = _sinks(tmp)
+            extra = ([] if name == "off" else
+                     ["--metrics", sinks["metrics"], "--events-out",
+                      sinks["events"], "--trace-out", sinks["trace"]])
+            trainer, _ = run_main_path(args, budget_mb, extra)
+            summ = trainer.summary()
+            out.setdefault(name, []).append(
+                ([s.loss for s in trainer.history],
+                 summ["mean_step_s"] * 1e3, summ["tokens_per_s"]))
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    losses = [r[0] for runs in out.values() for r in runs]
+    same = all(x == losses[0] for x in losses)
+    ms = {k: [round(r[1], 2) for r in v] for k, v in out.items()}
+    tps = {k: [round(r[2], 1) for r in v] for k, v in out.items()}
+    log(f"telemetry on vs off (bert main path, {args['steps']} steps, runs "
+        f"off/on/on/off): mean warm step (ms) on {ms['on']} vs off "
+        f"{ms['off']}, tokens/s on {tps['on']} vs off {tps['off']}; losses "
+        + ("bitwise equal in all four" if same else f"DIFFER: {losses}"))
+    if not same:
+        raise AssertionError("telemetry changed the losses")
+    return {"step_ms_on": ms["on"], "step_ms_off": ms["off"]}
+
+
+def run_offload_path(args, budget_main_mb):
+    """(a) hybrid remat + offload, (b) with parked moments, (c) the
+    split plan at (a)'s budget; then the equality and memory checks on
+    the card and the telemetry check.  Every run's model is freed before
+    the next starts."""
+    import dataclasses
+    batches = main_path_batches(dict(args, steps=OFFLOAD_STEPS))
+    a_mb, b_mb, sim_peaks = offload_budgets_mb(args, batches)
+    results = []
+
+    def free(trainer=None):
+        bs = getattr(getattr(trainer, "planner", None), "background_solver",
+                     None)
+        if bs is not None:
+            drained = bs.drain(timeout=60.0)
+            bs.close()
+            st = trainer.planner.stats
+            log(f"offload path solver: drained {drained}, solves "
+                f"{st['solves']}, wins {st['solver_wins']}, swaps "
+                f"{st['solver_swaps']}, errors {bs.errors}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    _, main_batch = most_common_bucket(batches)
+    tr, res = run_offload(args, a_mb, ["--offload", "--max-microbatches",
+                                       "1", "--solver", "dp"],
+                          "a: mimose --offload")
+    results.append(res)
+    # where an OFFLOAD step's device time goes; the host copies run on
+    # the copy stream beside the kernels
+    profile_step(tr, main_batch, [("flash kernels", ("flash_",)),
+                                  ("host copies", ("memcpy",)),
+                                  ("gemm", ("gemm", "cutlass", "xmma"))])
+    free(tr)
+    del tr
+    free()
+    tr, res = run_offload(args, b_mb, ["--offload", "--opt-offload",
+                                       "--max-microbatches", "1"],
+                          "b: mimose --offload --opt-offload", want="any")
+    res["planner_picked_offload_opt"] = any(s.opt_offload_units
+                                            for s in tr.history)
+    results.append(res)
+    del tr
+    free()
+    results.append(run_fixed_opt(args, b_mb, batches, sim_peaks))
+    free()
+    tr, res = run_offload(args, a_mb, ["--max-microbatches", "4"],
+                          "c: mimose --max-microbatches 4", want="any")
+    results.append(res)
+    del tr
+    free()
+    # equality, memory and telemetry checks, deterministic algorithms on
+    from repro_torch.actions import Action
+    from repro_torch.models.registry import get_config
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg = get_config(args["arch"])
+        n = cfg.num_layers
+        eq = {"bert all OFFLOAD vs all REMAT": check_offload_equals_remat(
+            cfg, main_batch, args["quantum"], (Action.OFFLOAD,) * n,
+            "bert, 12 OFFLOAD")}
+        free()
+        eq["bert 6 OFFLOAD + 6 REMAT"] = check_offload_equals_remat(
+            cfg, main_batch, args["quantum"],
+            (Action.OFFLOAD, Action.REMAT) * (n // 2),
+            "bert, 6 OFFLOAD + 6 REMAT")
+        free()
+        mcfg = get_config(MAMBA_ARGS["arch"])
+        mcfg = dataclasses.replace(mcfg, num_layers=2 * mcfg.num_layers
+                                   // mcfg.scan_chunks, scan_chunks=2)
+        m_batch = main_path_batches(MAMBA_ARGS)[0]
+        eq["mamba2 scan, OFFLOAD chunk"] = check_offload_equals_remat(
+            mcfg, m_batch, MAMBA_ARGS["quantum"],
+            (Action.OFFLOAD, Action.REMAT), f"mamba2 scan mode, "
+            f"{mcfg.num_layers} layers in 2 chunks, first chunk OFFLOAD")
+        free()
+        split = check_split_equals_fused(args, batches)
+        free()
+        tele = check_telemetry_is_free(args, budget_main_mb)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log("offload: " + json.dumps({"card": card_line(), "runs": results,
+                                  "equality": eq, "split": split,
+                                  "telemetry": tele}))
 
 
 # ---------------------------------------------------------------------------
@@ -1422,6 +1960,11 @@ def main() -> int:
     t0 = time.perf_counter()
     run_planners_path(BERT_ARGS, budget_mb, fa, ops)
     log(f"planners path: {time.perf_counter() - t0:.1f} s")
+
+    # -- offload path: OFFLOAD / OFFLOAD_OPT and telemetry on bert --------
+    t0 = time.perf_counter()
+    run_offload_path(BERT_ARGS, budget_mb)
+    log(f"offload path: {time.perf_counter() - t0:.1f} s")
 
     # -- the SSD scan and DMA copy against their plain versions -----------
     t0 = time.perf_counter()

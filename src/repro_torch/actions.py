@@ -2,9 +2,10 @@
 
 A copy of the reference's ``Action`` enum.  ``KEEP == 0`` and
 ``REMAT == 1`` on purpose, so a plain bool mask converts value-exactly
-(``True -> REMAT``) through ``as_actions``.  This slice executes KEEP
-and REMAT; an ``OFFLOAD`` unit runs as REMAT (the reference's
-``offload_exec=False`` behaviour) and ``OFFLOAD_OPT`` is never planned.
+(``True -> REMAT``) through ``as_actions``.  All four are executed:
+OFFLOAD by ``models/lm.py`` (the unit's input checkpoint waits in host
+memory), OFFLOAD_OPT by ``train/trainer.py`` (the unit's optimizer
+moments are parked on the host).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Baseline checkpointing planners the paper compares against (§6.1),
 the counterparts of the reference's ``core/baselines.py`` (single
-device, remat-only).
+device).
 
 * ``SublinearPlanner`` — static: one conservative plan computed for the
   *largest* input size the task can produce, applied to every batch
@@ -12,6 +12,9 @@ device, remat-only).
 Both take ``max_microbatches``: Sublinear's one static plan may pick a
 gradient-accumulation split for the largest size, and DTR raises the
 split only when even evict-everything cannot fit the budget.
+``SublinearPlanner`` also takes ``MimosePlanner``'s ``offload=`` /
+``pcie_gbps=`` / ``offload_overlap=`` knobs (its static plan may then
+OFFLOAD units); DTR's evict-on-OOM is remat-only by construction.
 """
 from __future__ import annotations
 
@@ -34,6 +37,9 @@ class SublinearPlanner(PlannerBase):
                  fixed_bytes: Optional[float] = None,
                  warmup_samples: int = 4,
                  cost_aware: bool = True,
+                 offload: bool = False,
+                 pcie_gbps: Optional[float] = None,
+                 offload_overlap: float = 0.5,
                  max_microbatches: int = 1,
                  microbatch_overhead_s: Optional[float] = None):
         if not max_input_size:
@@ -45,6 +51,9 @@ class SublinearPlanner(PlannerBase):
         self.cost_aware = cost_aware
         self.max_microbatches = max(int(max_microbatches), 1)
         self.microbatch_overhead_s = microbatch_overhead_s
+        self._init_hybrid(offload=offload, pcie_gbps=pcie_gbps,
+                          offload_overlap=offload_overlap,
+                          cost_aware=cost_aware, min_samples=warmup_samples)
         self.collector = ShuttlingCollector(lm)
         self.estimator = PolyEstimator(DEGREE, min_samples=warmup_samples)
         self._plan: Optional[Plan] = None
@@ -64,29 +73,34 @@ class SublinearPlanner(PlannerBase):
                                           dtype=torch.long)
             res = self.collector.collect(probe)
             self.estimator.add_sample(res.input_size,
-                                      res.activation_vector())
+                                      self.collected_vector(res))
+            self._feed_hybrid_estimators(res.input_size, res)
         est = self.estimator.predict(self.max_input_size)
         # recompute cost at the planning geometry (the largest probe)
         flops = (plan_unit_flops(self.lm, probe) if self.cost_aware
                  else None)
         ks = self.candidate_microbatches(probe)
         if ks == [1]:
-            self._plan = greedy_plan(est, self.budget_bytes,
-                                     self.resolve_fixed_bytes(),
-                                     tol=BUCKET_TOL,
-                                     flops=self.planning_flops(flops))
+            self._plan = greedy_plan(
+                est, self.budget_bytes, self.resolve_fixed_bytes(),
+                tol=BUCKET_TOL, flops=self.planning_flops(flops),
+                **self._hybrid_kwargs(self.max_input_size))
             return
 
         def vectors_of_k(k):
             # the static plan is for the LARGEST input size, so the
             # per-microbatch vectors are the fits at max_size / k
             probe_k = self.microbatch_probe(probe, k)
-            d = {"est_mem": self.estimator.predict(input_size_of(probe_k))}
+            s_k = input_size_of(probe_k)
+            d = {"est_mem": self.estimator.predict(s_k)}
             if self.cost_aware:
                 d["flops"] = self.planning_flops(
                     plan_unit_flops(self.lm, probe_k))
                 d["pad_overhead_s"] = self.pad_waste_s(probe, k,
                                                        d["flops"])
+            hv = self._hybrid_vectors(s_k)
+            if hv is not None:
+                d["output_bytes"], d["offload_bytes"] = hv
             return d
 
         self._plan = greedy_plan_adaptive(

@@ -12,7 +12,12 @@ the storages autograd saves for the backward:
 * the unit's parameters are excluded (they are resident anyway);
 * storages are deduplicated by identity (``data_ptr()`` is 0 on meta);
 * offloadable bytes are the saved storages seen through a view of two
-  or more dimensions.
+  or more dimensions;
+* optimizer-moment bytes (what OFFLOAD_OPT parks) are the unit's
+  parameter count x 8 (fp32 AdamW m + v), input-size independent.
+
+On one device every ``device_*`` quantity equals its global one (the
+reference divides them by a mesh's sharding; the port has no mesh).
 
 The collection runs lazily, on the live batch geometry, only when a new
 input size appears; identical units are traced once (dedup by signature).
@@ -41,6 +46,11 @@ class UnitRecord:
     flops: float = 0.0
     # residual bytes worth a host copy (matrix-shaped saved tensors)
     offloadable_bytes: int = 0
+    device_offloadable_bytes: int = 0
+    # fp32 AdamW moment bytes (m + v) of the unit's parameters: what an
+    # OFFLOAD_OPT action parks on the host
+    opt_bytes: int = 0
+    device_opt_bytes: int = 0
 
 
 @dataclasses.dataclass
@@ -64,6 +74,20 @@ class CollectionResult:
 
     def offloadable_vector(self) -> np.ndarray:
         return np.array([r.offloadable_bytes for r in self.records],
+                        dtype=np.float64)
+
+    def device_offloadable_vector(self) -> np.ndarray:
+        return np.array([r.device_offloadable_bytes for r in self.records],
+                        dtype=np.float64)
+
+    def opt_vector(self) -> np.ndarray:
+        """Per-unit fp32 AdamW moment bytes, the OFFLOAD_OPT price
+        vector (parameter shapes only)."""
+        return np.array([r.opt_bytes for r in self.records],
+                        dtype=np.float64)
+
+    def device_opt_vector(self) -> np.ndarray:
+        return np.array([r.device_opt_bytes for r in self.records],
                         dtype=np.float64)
 
     def total_activation_bytes(self) -> int:
@@ -125,6 +149,15 @@ def unit_residual_bytes(unit: PlanUnit, x_shape, dtype, *,
             "offloadable_bytes": int(min(offl, act))}
 
 
+def unit_moment_bytes(unit_params) -> float:
+    """Fp32 AdamW moment bytes (m + v) owned by one plan unit, the
+    per-unit price of OFFLOAD_OPT: ``2 x 4 x n`` per parameter.  A copy
+    of the reference's ``sharding/budget.unit_moment_bytes`` without a
+    mesh (a scan-mode unit's params are its layers' trees, so every
+    layer of the chunk counts, as the stacked leaves do there)."""
+    return float(sum(2 * 4 * t.numel() for t in _leaves(unit_params)))
+
+
 def input_size_of(batch) -> int:
     """Paper §3.1: input size = number of elements in the input tensor."""
     return int(np.prod(tuple(batch["tokens"].shape)))
@@ -168,11 +201,14 @@ class ShuttlingCollector:
                 traced += 1
             else:
                 hits += 1
+            opt_b = int(unit_moment_bytes(u.params))
             records.append(UnitRecord(
                 u.name, u.index, info["activation_bytes"],
                 info["output_bytes"], info["param_bytes"],
                 float(unit_flops[u.index]),
-                offloadable_bytes=info["offloadable_bytes"]))
+                offloadable_bytes=info["offloadable_bytes"],
+                device_offloadable_bytes=info["offloadable_bytes"],
+                opt_bytes=opt_b, device_opt_bytes=opt_b))
         return CollectionResult(input_size_of(batch), records,
                                 time.perf_counter() - t0,
                                 traced_units=traced, dedup_hits=hits)

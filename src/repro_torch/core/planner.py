@@ -29,10 +29,25 @@ daemon thread solves its (k, action) assignment exactly and swaps a
 strictly better plan into the cache under ``_cache_lock``
 (``core/solver.py``).
 
-Plans are KEEP/REMAT only: ``offload=True`` and ``opt_offload=True``
-raise until the port executes OFFLOAD.  The reference's OOM escalation
-(``escalate``, ``record_oom``) is not ported.  Stats live in a plain
-dict under the reference's keys.
+Hybrid remat+offload (``offload=True``): every unit may also be
+OFFLOADed — its input checkpoint parked in pinned host memory between
+the forward and its recompute (``models/lm.py``) — priced at the host
+link (``pcie_gbps``; ``None`` reads ``PCIE_BW`` when a plan is made)
+with ``offload_overlap`` of the traffic hidden under compute.  Two more
+estimators track the per-unit boundary and offloadable byte vectors
+the hybrid scheduler needs.  ``opt_offload=True`` adds OFFLOAD_OPT:
+a unit's fp32 AdamW moments parked on the host for the whole step
+(``train/trainer.py``), priced by the moment vector the first
+collection pins.
+
+Telemetry (``repro_torch.obs``): ``stats`` is a ``StatsView`` over the
+run's metrics registry under the reference's keys; ``plan`` traces its
+``collect`` / ``predict`` / ``schedule`` spans and a ``refit`` instant
+on the planner track, keeps the per-bucket ``plan_predicted_peak_bytes``
+/ ``plan_actual_peak_bytes`` gauges (actual = the collector's exact
+re-collection, not the allocator) and emits ``plan`` and ``drift``
+events.  The reference's OOM escalation (``escalate``, ``record_oom``)
+is not ported.
 """
 from __future__ import annotations
 
@@ -53,6 +68,7 @@ from repro_torch.core.solver import BackgroundSolver, SolveRequest
 from repro_torch.data.pipeline import bucket_length
 from repro_torch.launch.roofline import (MICROBATCH_OVERHEAD_S, PCIE_BW,
                                          PEAK_FLOPS, plan_unit_flops)
+from repro_torch.obs import StatsView, Telemetry, TRACK_PLANNER
 
 # the reference's defaults, fixed here: estimator degree (paper §4.3),
 # scheduler bucket tolerance (Algorithm 1), plan-cache bound, and the
@@ -85,8 +101,15 @@ class PlanInfo:
 
 
 class PlannerBase:
+    telemetry: Optional[Telemetry] = None
     quantum: int = 1          # batch geometry granularity (1 = no bucketing)
     fixed_bytes: Optional[float] = None
+    # hybrid remat+offload knobs (set by _init_hybrid; off by default)
+    offload: bool = False
+    # optimizer-state offload: a unit's fp32 AdamW moments may be parked
+    # on the host for the whole step
+    opt_offload: bool = False
+    _opt_vector = None        # pinned: moment bytes are input-independent
     # adaptive microbatching: the largest gradient-accumulation split the
     # planner may pick per bucket (1 = plain full-batch steps), and the
     # fixed per-extra-microbatch cost it prices the split at (None:
@@ -94,14 +117,114 @@ class PlannerBase:
     max_microbatches: int = 1
     microbatch_overhead_s: Optional[float] = None
     # host-link pricing in GB/s (None: ``PCIE_BW``, read when a plan is
-    # made), part of the plan key as in the reference (no planner of the
-    # port plans OFFLOAD yet)
+    # made), part of the plan key as in the reference
     pcie_gbps: Optional[float] = None
     offload_overlap: float = 0.5
 
     def plan(self, batch) -> Tuple[tuple, PlanInfo]:
         """Returns ``(Plan.as_actions(), PlanInfo)``."""
         raise NotImplementedError
+
+    # -- observability (repro_torch.obs) -----------------------------------
+    def bind_telemetry(self, telemetry: Telemetry) -> None:
+        """Re-home this planner's metrics into ``telemetry``'s registry
+        (the trainer calls it, so a run has one registry)."""
+        self.telemetry = telemetry
+        st = getattr(self, "stats", None)
+        if isinstance(st, StatsView):
+            st.attach(telemetry.metrics)
+
+    # -- the byte vectors planning runs on (one device: the global ones,
+    # which equal the device ones) ----------------------------------------
+    @staticmethod
+    def collected_vector(res) -> np.ndarray:
+        return res.activation_vector()
+
+    @staticmethod
+    def collected_output_vector(res) -> np.ndarray:
+        """Boundary-tensor bytes per unit (what REMAT keeps)."""
+        return res.output_vector()
+
+    @staticmethod
+    def collected_offload_vector(res) -> np.ndarray:
+        """Offloadable residual bytes per unit."""
+        return res.offloadable_vector()
+
+    @staticmethod
+    def collected_opt_vector(res) -> np.ndarray:
+        """Optimizer-moment bytes per unit (fp32 AdamW m + v)."""
+        return res.opt_vector()
+
+    # -- shared hybrid remat+offload state (Mimose + Sublinear) ----------
+    def _init_hybrid(self, *, offload: bool, pcie_gbps: Optional[float],
+                     offload_overlap: float, cost_aware: bool,
+                     min_samples: int, opt_offload: bool = False) -> None:
+        """The offload knobs and the two extra per-unit fits (boundary
+        and offloadable bytes) the hybrid scheduler needs."""
+        if offload and not cost_aware:
+            raise ValueError("offload=True needs cost_aware=True: the "
+                             "hybrid selection compares remat FLOPs "
+                             "against transfer time")
+        if opt_offload and not offload:
+            raise ValueError("opt_offload=True needs offload=True: "
+                             "moment parking rides the same host link "
+                             "and link pricing as residual offload")
+        self.offload = offload
+        self.opt_offload = opt_offload
+        self.pcie_gbps = pcie_gbps
+        self.offload_overlap = offload_overlap
+        self.est_output = PolyEstimator(DEGREE, min_samples=min_samples)
+        self.est_offload = PolyEstimator(DEGREE, min_samples=min_samples)
+        # not an estimator: moment bytes depend only on the parameter
+        # shapes, so the first collection pins the vector exactly
+        self._opt_vector = None
+
+    def _feed_hybrid_estimators(self, s: int, res) -> None:
+        self.est_output.add_sample(s, self.collected_output_vector(res))
+        self.est_offload.add_sample(s, self.collected_offload_vector(res))
+        if self._opt_vector is None:
+            v = self.collected_opt_vector(res)
+            if v is not None and len(v):
+                self._opt_vector = np.asarray(v, dtype=np.float64)
+
+    def _hybrid_vectors(self, size: int, res=None):
+        """Boundary/offloadable byte vectors: exact from a collection
+        when ``res`` is given, predicted otherwise; ``None`` when
+        offload is off."""
+        if not self.offload:
+            return None
+        out_v = (self.collected_output_vector(res) if res is not None
+                 else self.est_output.predict(size))
+        off_v = (self.collected_offload_vector(res) if res is not None
+                 else self.est_offload.predict(size))
+        return out_v, off_v
+
+    def _opt_bytes_planning(self):
+        """The moment-bytes vector, or ``None`` when optimizer offload
+        is off, not yet pinned, or the model runs in scan mode (a
+        chunk's moments are parked per layer by nothing: the reference
+        stacks them in one leaf and cannot free a slice, so the action
+        is not offered there either)."""
+        if not self.opt_offload or self._opt_vector is None:
+            return None
+        cfg = getattr(getattr(self, "lm", None), "cfg", None)
+        if cfg is not None and getattr(cfg, "remat_mode", "") == "scan":
+            return None
+        return self._opt_vector
+
+    def _hybrid_kwargs(self, size: int, res=None) -> dict:
+        """The extra ``greedy_plan`` arguments for hybrid selection;
+        empty when offload is off."""
+        v = self._hybrid_vectors(size, res)
+        if v is None:
+            return {}
+        d = dict(output_bytes=v[0], offload_bytes=v[1],
+                 pcie_bytes_per_s=self.link_bytes_per_s(),
+                 offload_overlap=self.offload_overlap)
+        ov = self._opt_bytes_planning()
+        if ov is not None:
+            d["opt_bytes"] = ov
+        return d
 
     def resolve_fixed_bytes(self) -> float:
         """Resident bytes, resolved lazily from the model's parameters."""
@@ -201,14 +324,16 @@ class MimosePlanner(PlannerBase):
                  solver: str = "off",
                  solver_budget_ms: float = 50.0,
                  offload: bool = False,
-                 opt_offload: bool = False):
-        if offload or opt_offload:
-            raise ValueError("offload=True / opt_offload=True: the port "
-                             "does not execute OFFLOAD yet (ROADMAP A13)")
+                 opt_offload: bool = False,
+                 pcie_gbps: Optional[float] = None,
+                 offload_overlap: float = 0.5,
+                 telemetry: Optional[Telemetry] = None):
         if solver not in ("off", "dp"):
             raise ValueError(f"solver must be 'off' or 'dp', got "
                              f"{solver!r}")
         self.lm = lm
+        self.telemetry = (telemetry if telemetry is not None
+                          else Telemetry.disabled())
         self.budget_bytes = float(budget_bytes)
         self.fixed_bytes = None                 # resolved lazily from params
         self.quantum = quantum
@@ -216,6 +341,12 @@ class MimosePlanner(PlannerBase):
         # cost-aware selection (bytes freed per recompute-FLOP, floored
         # by the byte-only oracle); False = the paper's Algorithm 1
         self.cost_aware = cost_aware
+        # hybrid remat+offload: a unit's residuals may also go to pinned
+        # host memory, priced at the host link
+        self._init_hybrid(offload=offload, pcie_gbps=pcie_gbps,
+                          offload_overlap=offload_overlap,
+                          cost_aware=cost_aware, min_samples=warmup_samples,
+                          opt_offload=opt_offload)
         # every ``audit_every``-th unseen size, re-collect and re-fit if
         # the prediction drifted beyond AUDIT_TOL
         self.audit_every = audit_every
@@ -226,11 +357,25 @@ class MimosePlanner(PlannerBase):
         self.collector = ShuttlingCollector(lm)
         self.estimator = PolyEstimator(DEGREE, min_samples=warmup_samples)
         self.cache = LRUCache(MAX_PLANS)
-        self.stats = {"cache_hits": 0, "cache_misses": 0, "collections": 0,
-                      "collect_time_s": 0.0, "estimate_time_s": 0.0,
-                      "schedule_time_s": 0.0, "audits": 0, "refits": 0,
-                      "evictions": 0, "solves": 0, "solver_swaps": 0,
-                      "solver_wins": 0, "solver_timeouts": 0}
+        # stats (paper Table 2) and the solver tier's counters: a
+        # dict-shaped view over the metrics registry, under the
+        # reference's keys and metric names
+        self.stats = StatsView(
+            self.telemetry.metrics,
+            scalars={"cache_hits": "plan_cache_hits",
+                     "cache_misses": "plan_cache_misses",
+                     "collections": "planner_collections",
+                     "collect_time_s": "planner_collect_time_s",
+                     "estimate_time_s": "planner_estimate_time_s",
+                     "schedule_time_s": "planner_schedule_time_s",
+                     "audits": "planner_audits",
+                     "refits": "planner_refits",
+                     "evictions": "plan_cache_evictions",
+                     "solves": "solver_solves",
+                     "solver_swaps": "solver_swaps",
+                     "solver_wins": "solver_wins",
+                     "solver_timeouts": "solver_timeouts",
+                     "offload_fallbacks": "offload_fallbacks"})
         # optimal-plan tier: a daemon thread solves the (k, action)
         # assignment exactly and swaps strictly better plans into the
         # cache; every cache access goes through _cache_lock so the swap
@@ -244,10 +389,41 @@ class MimosePlanner(PlannerBase):
 
     def _collect(self, batch):
         """One online collection, booked in the stats."""
-        res = self.collector.collect(batch)
+        with self.telemetry.tracer.span("collect", TRACK_PLANNER):
+            res = self.collector.collect(batch)
         self.stats["collections"] += 1
         self.stats["collect_time_s"] += res.collect_time_s
         return res
+
+    def _feed_estimators(self, s: int, res) -> None:
+        """One collection feeds all three per-unit fits (activation,
+        boundary, offloadable), so they become ready together."""
+        self.estimator.add_sample(s, self.collected_vector(res))
+        self._feed_hybrid_estimators(s, res)
+
+    def _record_drift_point(self, bucket: int, size: int, est, truth,
+                            rel_err: float = 0.0,
+                            refit: bool = False) -> None:
+        """One point of the predicted-vs-actual peak-bytes series: the
+        estimator's activation bytes against an exact re-collection
+        (every sheltered collection is its own truth), as per-bucket
+        gauges and a ``drift`` event."""
+        fixed = (float(self.fixed_bytes) if self.fixed_bytes is not None
+                 else 0.0)
+        pred = fixed + float(np.sum(est))
+        act = fixed + float(np.sum(truth))
+        m = self.telemetry.metrics
+        m.gauge("plan_predicted_peak_bytes",
+                "predicted per-device peak bytes at the bucket's "
+                "geometry").set(pred, bucket=bucket)
+        m.gauge("plan_actual_peak_bytes",
+                "collected (ground-truth) per-device peak bytes").set(
+                    act, bucket=bucket)
+        if self.telemetry.events_on:
+            self.telemetry.events.emit(
+                "drift", bucket=int(bucket), size=int(size),
+                predicted_bytes=pred, actual_bytes=act,
+                rel_err=float(rel_err), refit=bool(refit))
 
     def _microbatch_vectors(self, batch, k: int, est1, flops1, res) -> dict:
         """Per-microbatch planning vectors at split ``k`` for
@@ -257,7 +433,7 @@ class MimosePlanner(PlannerBase):
         k = 1; the extra sample feeds the fits).  ``k == 1`` reuses the
         vectors the plain path derived."""
         if k == 1:
-            est, flops = est1, flops1
+            est, flops, size, res_k = est1, flops1, input_size_of(batch), res
         else:
             probe = self.microbatch_probe(batch, k)
             size = input_size_of(probe)
@@ -266,8 +442,8 @@ class MimosePlanner(PlannerBase):
                 est = self.estimator.predict(size)
             else:
                 res_k = self._collect(probe)
-                self.estimator.add_sample(size, res_k.activation_vector())
-                est = res_k.activation_vector()
+                self._feed_estimators(size, res_k)
+                est = self.collected_vector(res_k)
             flops = None
             if self.cost_aware:
                 flops = (res_k.flops_vector() if res_k is not None
@@ -276,6 +452,12 @@ class MimosePlanner(PlannerBase):
         if flops is not None:
             d["flops"] = self.planning_flops(flops)
             d["pad_overhead_s"] = self.pad_waste_s(batch, k, d["flops"])
+        hv = self._hybrid_vectors(size, res_k)
+        if hv is not None:
+            d["output_bytes"], d["offload_bytes"] = hv
+        ov = self._opt_bytes_planning()
+        if ov is not None:
+            d["opt_bytes"] = ov
         return d
 
     def plan(self, batch):
@@ -292,7 +474,9 @@ class MimosePlanner(PlannerBase):
             return p.as_actions(), PlanInfo(s, qs, True, False, p)
         self.stats["cache_misses"] += 1
 
+        tel = self.telemetry
         collected = False
+        audited = False
         flops = None
         res = None
         t_est = t_col = 0.0
@@ -300,15 +484,17 @@ class MimosePlanner(PlannerBase):
             # sheltered execution: collect this size online; the
             # collection carries the recompute-cost vector too
             res = self._collect(batch)
-            self.estimator.add_sample(s, res.activation_vector())
-            est = res.activation_vector()
+            self._feed_estimators(s, res)
+            est = self.collected_vector(res)
             if self.cost_aware:
                 flops = res.flops_vector()
             collected = True
             t_col = res.collect_time_s
+            self._record_drift_point(qs, s, est, est)
         else:
             t0 = time.perf_counter()
-            est = self.estimator.predict(s)
+            with tel.tracer.span("predict", TRACK_PLANNER):
+                est = self.estimator.predict(s)
             t_est = time.perf_counter() - t0
             self.stats["estimate_time_s"] += t_est
             if (self.audit_every
@@ -316,11 +502,17 @@ class MimosePlanner(PlannerBase):
                 # drift audit: exact re-collection for this size
                 self.stats["audits"] += 1
                 audit = self._collect(batch)
-                truth = audit.activation_vector()
+                truth = self.collected_vector(audit)
                 err = abs(truth.sum() - est.sum()) / max(truth.sum(), 1.0)
-                if err > AUDIT_TOL:
-                    self.estimator.add_sample(s, truth)
+                refit = err > AUDIT_TOL
+                audited = True
+                self._record_drift_point(qs, s, est, truth, rel_err=err,
+                                         refit=refit)
+                if refit:
+                    self._feed_estimators(s, audit)
                     self.estimator.fit()
+                    self.est_output.fit()
+                    self.est_offload.fit()
                     est = truth
                     res = audit                 # exact vectors for this plan
                     self.stats["refits"] += 1
@@ -328,29 +520,58 @@ class MimosePlanner(PlannerBase):
                         # stale plans out — also drops in-flight solves:
                         # their swap is identity-checked
                         self.cache.clear()
+                    if tel.events_on:
+                        tel.events.emit("refit", bucket=qs, size=s,
+                                        rel_err=float(err))
+                    tel.tracer.instant("refit", TRACK_PLANNER,
+                                       args={"bucket": qs})
 
         t0 = time.perf_counter()
         if self.cost_aware and flops is None:
             flops = plan_unit_flops(self.lm, batch)
         ks = self.candidate_microbatches(batch)
-        if ks == [1]:
-            plan = greedy_plan(est, self.budget_bytes,
-                               self.resolve_fixed_bytes(), tol=BUCKET_TOL,
-                               flops=self.planning_flops(flops))
-        else:
-            plan = greedy_plan_adaptive(
-                lambda k: self._microbatch_vectors(batch, k, est, flops,
-                                                   res),
-                self.budget_bytes, self.resolve_fixed_bytes(),
-                candidate_ks=ks, tol=BUCKET_TOL,
-                pcie_bytes_per_s=self.link_bytes_per_s(),
-                offload_overlap=self.offload_overlap,
-                accum_overhead_s=self.accum_overhead_s())
+        with tel.tracer.span("schedule", TRACK_PLANNER):
+            if ks == [1]:
+                plan = greedy_plan(est, self.budget_bytes,
+                                   self.resolve_fixed_bytes(),
+                                   tol=BUCKET_TOL,
+                                   flops=self.planning_flops(flops),
+                                   **self._hybrid_kwargs(s, res))
+            else:
+                plan = greedy_plan_adaptive(
+                    lambda k: self._microbatch_vectors(batch, k, est,
+                                                       flops, res),
+                    self.budget_bytes, self.resolve_fixed_bytes(),
+                    candidate_ks=ks, tol=BUCKET_TOL,
+                    pcie_bytes_per_s=self.link_bytes_per_s(),
+                    offload_overlap=self.offload_overlap,
+                    accum_overhead_s=self.accum_overhead_s())
         t_sch = time.perf_counter() - t0
         self.stats["schedule_time_s"] += t_sch
+        if not collected and not audited:
+            # a responsive plan carries a prediction but no truth: keep
+            # the predicted-peak gauge current for the drift table
+            tel.metrics.gauge("plan_predicted_peak_bytes").set(
+                float(self.fixed_bytes or 0.0) + float(np.sum(est)),
+                bucket=qs)
+        ev_before = self.cache.evictions
         with self._cache_lock:
             self.cache[key] = plan
         self.stats["evictions"] = self.cache.evictions
+        if tel.events_on:
+            tel.events.emit(
+                "plan", bucket=qs, size=s, source=plan.source,
+                collected=bool(collected),
+                k=int(getattr(plan, "microbatch", 1) or 1),
+                n_remat=int(plan.n_remat),
+                n_offload=int(plan.n_offload),
+                n_opt=int(plan.n_opt),
+                recompute_flops=float(plan.recompute_flops),
+                offload_bytes=float(plan.offload_bytes),
+                schedule_time_s=t_sch)
+            if self.cache.evictions > ev_before:
+                tel.events.emit("plan_evicted", bucket=qs,
+                                evictions=int(self.cache.evictions))
         self._maybe_submit_solve(batch, key, plan)
         return plan.as_actions(), PlanInfo(s, qs, False, collected, plan,
                                            t_est, t_sch, t_col)

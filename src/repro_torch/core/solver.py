@@ -33,12 +33,14 @@ Every candidate — DP optimum per k, exhaustive optimum, the greedy plan,
 seed plans — is replayed through the scalar ``simulate`` before
 comparison, so ``solve() <= greedy()`` holds by construction.
 
-The reference's tracing span around a background solve is not ported
-(the port has no telemetry layer yet).
+A background solve is traced as a ``solve`` span on the solver track
+of the planner's telemetry, and a swap as a ``solver_swap`` instant
+(plus a ``solver_swap`` event when the event log is on).
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -52,6 +54,7 @@ from repro_torch.core.scheduler import (ActionTables, Plan, action_tables,
                                         greedy_plan_adaptive)
 from repro_torch.core.simulator import link_rate, simulate, simulate_many
 from repro_torch.launch.roofline import MICROBATCH_OVERHEAD_S
+from repro_torch.obs import TRACK_SOLVER
 
 # feasibility tolerance — MUST match the scheduler's replay convention
 # (`peak_bytes <= budget + 1e-6`) or the tiers would disagree at the
@@ -520,16 +523,22 @@ class BackgroundSolver:
 
     def _process(self, req: SolveRequest) -> None:
         stats = self.planner.stats
-        res = solve(lambda k: req.vectors[int(k)], req.budget_bytes,
-                    req.fixed_bytes, candidate_ks=req.candidate_ks,
-                    pcie_bytes_per_s=req.pcie_bytes_per_s,
-                    offload_overlap=req.offload_overlap,
-                    accum_overhead_s=req.accum_overhead_s,
-                    method=self.method,
-                    deadline_s=self.budget_ms / 1e3,
-                    grid_bytes=self.grid_bytes,
-                    max_states=self.max_states,
-                    include_greedy=False, seed_plans=(req.baseline,))
+        tel = getattr(self.planner, "telemetry", None)
+        span = (tel.tracer.span("solve", TRACK_SOLVER,
+                                args={"bucket": req.bucket}
+                                if tel.trace_on else None)
+                if tel is not None else contextlib.nullcontext())
+        with span:
+            res = solve(lambda k: req.vectors[int(k)], req.budget_bytes,
+                        req.fixed_bytes, candidate_ks=req.candidate_ks,
+                        pcie_bytes_per_s=req.pcie_bytes_per_s,
+                        offload_overlap=req.offload_overlap,
+                        accum_overhead_s=req.accum_overhead_s,
+                        method=self.method,
+                        deadline_s=self.budget_ms / 1e3,
+                        grid_bytes=self.grid_bytes,
+                        max_states=self.max_states,
+                        include_greedy=False, seed_plans=(req.baseline,))
         req.baseline.solver_checked = True
         if res.timed_out:
             stats["solver_timeouts"] = stats.get("solver_timeouts", 0) + 1
@@ -559,3 +568,15 @@ class BackgroundSolver:
             if cache.get(req.key) is req.baseline:
                 cache[req.key] = plan
                 stats["solver_swaps"] = stats.get("solver_swaps", 0) + 1
+                if tel is not None and tel.events_on:
+                    tel.events.emit(
+                        "solver_swap", bucket=req.bucket,
+                        greedy_s=float(base_score),
+                        solved_s=float(res.score),
+                        improvement_pct=float(
+                            100.0 * (1.0 - res.score / base_score)
+                            if base_score > 0 else 0.0),
+                        k=int(plan.microbatch))
+                if tel is not None:
+                    tel.tracer.instant("solver_swap", TRACK_SOLVER,
+                                       args={"bucket": req.bucket})

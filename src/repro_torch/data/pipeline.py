@@ -14,7 +14,7 @@ number of distinct shapes (and Mimose plan-cache entries) stays bounded.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
@@ -83,6 +83,22 @@ DISTRIBUTIONS: Dict[str, LengthDistribution] = {
     "qqp": LengthDistribution("qqp", 30, 332, "powerlaw", alpha=2.5),
     "fixed": LengthDistribution("fixed", 128, 128, "uniform"),
 }
+
+
+def top_buckets(dataset: str, *, batch_size: int, quantum: int, k: int,
+                seed: int = 0, samples: int = 256) -> List[Tuple[int, float]]:
+    """The ``k`` most likely bucket seq-lens with their empirical
+    frequency (a copy of the reference's): ``Trainer.prewarm`` plans
+    them before step 0."""
+    dist = DISTRIBUTIONS[dataset]
+    rng = np.random.default_rng(seed)
+    counts: Dict[int, int] = {}
+    for _ in range(samples):
+        lens = dist.sample(rng, batch_size)
+        S = bucket_length(int(lens.max()), quantum)
+        counts[S] = counts.get(S, 0) + 1
+    ranked = sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+    return [(S, c / samples) for S, c in ranked]
 
 
 def make_batches(dataset: str, *, batch_size: int, vocab_size: int,

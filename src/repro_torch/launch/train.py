@@ -22,6 +22,20 @@ and the background solver):
         --steps 3 --planner dtr --budget-mb 120
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
         --steps 3 --max-microbatches 4 --solver dp --budget-mb 120
+
+Host offload (OFFLOAD units' input checkpoints, and with
+``--opt-offload`` a unit's AdamW moments, in pinned host memory) and
+the three telemetry sinks:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+        --steps 4 --offload --opt-offload --budget-mb 30 \\
+        --metrics m.json --events-out ev.jsonl --trace-out trace.json
+
+``--pcie-gbps`` defaults to ``MIMOSE_PCIE_GBPS``, else this host's
+calibration file (``python -m repro_torch.launch.bench_offload_bw``
+writes it), else ``launch/roofline.PCIE_BW``.  At exit the run prints
+the engine report and writes the sinks; they change no value of the
+run.
 """
 from __future__ import annotations
 
@@ -31,11 +45,15 @@ import time
 from repro_torch.core.baselines import DTRSimPlanner, SublinearPlanner
 from repro_torch.core.planner import MimosePlanner, NonePlanner
 from repro_torch.data.pipeline import (DISTRIBUTIONS, bucket_length,
-                                       make_batches)
-from repro_torch.models.lm import LM
+                                       make_batches, top_buckets)
+from repro_torch.launch.report import engine_report
+from repro_torch.launch.roofline import PCIE_BW
+from repro_torch.models.lm import LM, configure_offload
 from repro_torch.models.registry import get_config
+from repro_torch.obs import build_telemetry, flush_telemetry
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.train.trainer import Trainer
+from repro_torch.train.transfer import calibrated_pcie_gbps
 
 
 def main(argv=None) -> Trainer:
@@ -53,6 +71,20 @@ def main(argv=None) -> Trainer:
     ap.add_argument("--byte-only-remat", action="store_true",
                     help="paper's byte-only Algorithm 1 instead of "
                          "cost-aware (bytes per recompute-FLOP) selection")
+    ap.add_argument("--offload", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="hybrid remat+offload plans: a unit's input "
+                         "checkpoint may wait in pinned host memory "
+                         "between its forward and its recompute when "
+                         "that beats recompute")
+    ap.add_argument("--pcie-gbps", type=float, default=None,
+                    help="host <-> device link bandwidth (GB/s) OFFLOAD "
+                         "is priced at; default: $MIMOSE_PCIE_GBPS, else "
+                         "this host's calibration file, else PCIE_BW")
+    ap.add_argument("--opt-offload", action="store_true",
+                    help="a plan may park a unit's fp32 AdamW moments in "
+                         "host memory for the whole step (needs --offload "
+                         "and --planner mimose)")
     ap.add_argument("--max-microbatches", type=int, default=1,
                     help="adaptive microbatching: the planner may split "
                          "a bucket's step into up to K gradient-"
@@ -68,16 +100,41 @@ def main(argv=None) -> Trainer:
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--quantum", type=int, default=32)
+    ap.add_argument("--prewarm", type=int, default=0,
+                    help="plan the K likeliest buckets before step 0 "
+                         "(0 = off)")
     ap.add_argument("--reduced", action="store_true",
                     help="reduced model variant (CPU demo)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    # telemetry (repro_torch.obs): every sink is opt-in, and the run's
+    # values are the same with them off
+    ap.add_argument("--metrics", default=None,
+                    help="write the final metrics snapshot here at exit "
+                         "(.json = JSON, anything else = Prometheus text)")
+    ap.add_argument("--events-out", default=None,
+                    help="JSONL event log: every plan, drift point, refit, "
+                         "solver swap and train step")
+    ap.add_argument("--trace-out", default=None,
+                    help="Chrome trace_event JSON (Perfetto): step, "
+                         "planner, transfer and solver tracks")
     args = ap.parse_args(argv)
     if args.solver != "off" and args.planner != "mimose":
         ap.error("--solver needs --planner mimose (the solver tier swaps "
                  "plans into the Mimose bucket cache)")
     if args.max_microbatches < 1:
         ap.error("--max-microbatches must be >= 1")
+    if args.offload and args.byte_only_remat:
+        ap.error("--offload needs the cost-aware selector "
+                 "(drop --byte-only-remat)")
+    if args.opt_offload and not args.offload:
+        ap.error("--opt-offload needs --offload (moment parking rides "
+                 "the same host link)")
+    if args.opt_offload and args.planner != "mimose":
+        ap.error("--opt-offload needs --planner mimose")
+    if args.pcie_gbps is None:
+        # price the link at what this host measured
+        args.pcie_gbps = calibrated_pcie_gbps(PCIE_BW / 1e9)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -96,28 +153,44 @@ def main(argv=None) -> Trainer:
     budget = args.budget_mb * 2**20 if args.budget_mb else 1e18
     dist = DISTRIBUTIONS[args.dataset]
     max_size = args.batch_size * bucket_length(dist.hi, args.quantum)
+    if args.offload:
+        configure_offload(lm)       # on one device it never degrades
     planner = {
         "mimose": lambda: MimosePlanner(
             lm, budget, quantum=args.quantum, warmup_samples=3,
-            cost_aware=not args.byte_only_remat,
+            cost_aware=not args.byte_only_remat, offload=args.offload,
+            opt_offload=args.opt_offload, pcie_gbps=args.pcie_gbps,
             max_microbatches=args.max_microbatches, solver=args.solver,
             solver_budget_ms=args.solver_budget_ms),
         "sublinear": lambda: SublinearPlanner(
             lm, budget, max_input_size=max_size,
-            cost_aware=not args.byte_only_remat,
+            cost_aware=not args.byte_only_remat, offload=args.offload,
+            pcie_gbps=args.pcie_gbps,
             max_microbatches=args.max_microbatches),
         "dtr": lambda: DTRSimPlanner(lm, budget,
                                      max_microbatches=args.max_microbatches),
         "none": lambda: NonePlanner(lm),
     }[args.planner]()
     opt = AdamW(lr=cosine_schedule(args.lr, 10, args.steps))
-    trainer = Trainer(lm, planner, opt)
+    telemetry = build_telemetry(metrics_path=args.metrics,
+                                events_path=args.events_out,
+                                trace_path=args.trace_out)
+    trainer = Trainer(lm, planner, opt, telemetry=telemetry)
     batches = make_batches(args.dataset, batch_size=args.batch_size,
                            vocab_size=cfg.vocab_size,
                            num_batches=args.steps, quantum=args.quantum,
                            seed=0)
     t0 = time.time()
     opt_state = opt.init(trainer.params)
+    if args.prewarm:
+        likely = top_buckets(args.dataset, batch_size=args.batch_size,
+                             quantum=max(args.quantum,
+                                         getattr(planner, "quantum", 1)),
+                             k=args.prewarm)
+        tw = time.time()
+        n = trainer.prewarm([S for S, _ in likely], args.batch_size)
+        print(f"prewarmed {n} bucket(s) {[S for S, _ in likely]} "
+              f"in {time.time() - tw:.1f}s")
     for i, batch in enumerate(batches):
         opt_state, loss = trainer.step(opt_state, batch)
         st = trainer.history[-1]
@@ -125,7 +198,8 @@ def main(argv=None) -> Trainer:
                   "collected" if st.collected else "predicted")
         print(f"step {i:4d} loss {loss:.4f} S={batch['tokens'].shape[1]} "
               f"bucket={st.bucket} remat={st.remat_units} "
-              f"k={st.microbatches} plan={source} "
+              f"offload={st.offload_units} opt_offload="
+              f"{st.opt_offload_units} k={st.microbatches} plan={source} "
               f"step_s={st.step_time_s:.4f} "
               f"predicted_peak_mb={st.predicted_peak_bytes / 2**20:.1f} "
               f"max_alloc_mb={st.max_memory_bytes / 2**20:.1f}")
@@ -135,11 +209,19 @@ def main(argv=None) -> Trainer:
         # wait; training is done), then end the solver's thread
         bs.drain(timeout=5.0)
         bs.close()
+    if trainer.transfer_lane is not None:
+        pinned = trainer.transfer_lane.pinned_bytes / 2**20
+        print(f"transfer lane: {pinned:.1f} MiB of pinned host buffers "
+              f"(host memory, outside the device budget)")
     print(f"done in {time.time() - t0:.1f}s")
     print("summary:", trainer.summary())
+    print("\nengine report (where the padding went):")
+    print(engine_report(trainer, planner))
     if hasattr(planner, "stats"):
         print("planner:", planner.stats, "plans cached:",
               len(getattr(planner, "cache", {})))
+    for kind, path in flush_telemetry(telemetry).items():
+        print(f"{kind} written to {path}")
     return trainer
 
 

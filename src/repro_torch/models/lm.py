@@ -38,6 +38,7 @@ from repro_torch.actions import Action, as_actions
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.train.transfer import TransferLane
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -120,6 +121,53 @@ def block_apply(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
                            cfg.mlp_act)
 
 
+class _OffloadChain:
+    """The offloaded inputs of one forward, in forward order, so each
+    layer's backward can prefetch the input the backward needs next."""
+
+    def __init__(self, lane: TransferLane):
+        self.lane = lane
+        self.handles: list = []
+        self.prefetched: dict = {}
+
+    def prefetch(self, i: int) -> None:
+        if 0 <= i < len(self.handles) and i not in self.prefetched:
+            self.prefetched[i] = self.lane.prefetch(self.handles[i])
+
+    def fetch(self, i: int) -> torch.Tensor:
+        self.prefetch(i)
+        h = self.prefetched.pop(i)
+        self.handles[i] = None
+        return self.lane.fetch(h)
+
+
+class _OffloadLayer(torch.autograd.Function):
+    """One layer whose input checkpoint goes to host memory.  Inputs:
+    ``(x, fn, chain, *params)``: ``fn(x)`` runs the layer on its
+    parameters ``params`` (passed so autograd routes their gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, fn, chain, *params):
+        ctx.fn, ctx.chain = fn, chain
+        ctx.index = len(chain.handles)
+        chain.handles.append(chain.lane.offload(x))
+        ctx.n_params = len(params)
+        ctx.params = params
+        return fn(x)                 # forward of a Function: no grad
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        chain, i = ctx.chain, ctx.index
+        x = chain.fetch(i)
+        chain.prefetch(i - 1)        # the next input the backward needs
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            y = ctx.fn(xx)
+            grads = torch.autograd.grad(y, (xx,) + tuple(ctx.params),
+                                        grad_out, allow_unused=True)
+        return (grads[0], None, None) + tuple(grads[1:])
+
+
 @dataclasses.dataclass
 class PlanUnit:
     """One schedulable unit: a block (unrolled) or a layer chunk (scan)."""
@@ -176,6 +224,11 @@ class LM(nn.Module):
         self.final_norm = ParamTree(final_norm)
         self.blocks = nn.ModuleList(ParamTree(b) for b in blocks)
         self.to(device)
+        # OFFLOAD execution: True runs it for real (the only mode on
+        # CUDA unless a caller asks otherwise); the lane is made on first
+        # use, or set by the trainer to carry its telemetry
+        self.offload_exec = True
+        self.transfer_lane: Optional[TransferLane] = None
 
     @property
     def device(self) -> torch.device:
@@ -228,10 +281,10 @@ class LM(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor],
                 actions=None) -> torch.Tensor:
         """Logits (B, S, V) in fp32.  ``actions``: per-unit plan (bools or
-        ``Action``); every layer of a REMAT unit is checkpointed.  An
-        OFFLOAD unit runs as REMAT (the reference's
-        ``offload_exec=False``).  ``lengths`` ((B,) true lengths of a
-        bucket-padded batch) are threaded into every block's mixer."""
+        ``Action``); every layer of a REMAT unit is checkpointed, every
+        layer input of an OFFLOAD unit goes to host memory.  ``lengths``
+        ((B,) true lengths of a bucket-padded batch) are threaded into
+        every block's mixer."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -246,15 +299,24 @@ class LM(nn.Module):
         x = L.rmsnorm_apply(self.final_norm, x, cfg.norm_eps)
         return (x @ self.embed.t()).float()
 
+    def lane(self) -> TransferLane:
+        """The transfer lane OFFLOAD units copy through."""
+        if self.transfer_lane is None:
+            self.transfer_lane = TransferLane(self.device)
+        return self.transfer_lane
+
     def blocks_forward(self, x: torch.Tensor, actions, positions,
                        seq_lens=None) -> torch.Tensor:
         """Every block under the plan ``actions`` (one per unit); each
-        layer of a REMAT (or OFFLOAD) unit is checkpointed on its own."""
+        layer of a REMAT unit is checkpointed on its own, each layer of
+        an OFFLOAD unit sends its input to the host (``_OffloadLayer``;
+        as REMAT when ``offload_exec`` is False or grad is off)."""
         n = self.num_plan_units()
         acts = (as_actions(actions) if actions is not None
                 else (Action.KEEP,) * n)
         if len(acts) != n:
             raise ValueError(f"plan has {len(acts)} actions for {n} units")
+        chain = None
         for act, (s, e) in zip(acts, self.unit_bounds()):
             for i in range(s, e):
                 def one(xx, _blk=self.blocks[i], _g=self._is_global(i)):
@@ -263,7 +325,13 @@ class LM(nn.Module):
                                        layer_is_global=_g,
                                        impl=self.attn_impl,
                                        seq_lens=seq_lens)
-                if act in (Action.REMAT, Action.OFFLOAD):
+                if (act is Action.OFFLOAD and self.offload_exec
+                        and torch.is_grad_enabled()):
+                    if chain is None:
+                        chain = _OffloadChain(self.lane())
+                    x = _OffloadLayer.apply(x, one, chain,
+                                            *self.blocks[i].parameters())
+                elif act in (Action.REMAT, Action.OFFLOAD):
                     x = checkpoint(one, x, use_reentrant=False)
                 else:
                     x = one(x)
@@ -322,3 +390,14 @@ class LM(nn.Module):
                 units.append(PlanUnit(f"block{s}", u, self.blocks[s],
                                       unit_fn, signature=("block", flag)))
         return units
+
+
+def configure_offload(lm: LM, lane: Optional[TransferLane] = None) -> bool:
+    """Make ``lm`` execute OFFLOAD for real, through ``lane`` when given.
+    Returns whether OFFLOAD degrades to REMAT: never in the port (one
+    device needs no mesh probe; a failing copy raises instead), so the
+    launcher's fallback counter stays 0."""
+    lm.offload_exec = True
+    if lane is not None:
+        lm.transfer_lane = lane
+    return False

@@ -7,14 +7,32 @@ device):
      the true ``lengths`` ride along so attention masks (and the flash
      kernels skip) the padded tail, and padded positions carry zero
      loss weight.
-  2. ``planner.plan`` maps the bucket to a KEEP/REMAT action tuple.
+  2. ``planner.plan`` maps the bucket to a typed action tuple (KEEP /
+     REMAT / OFFLOAD / OFFLOAD_OPT).
   3. The step runs forward + backward under that plan and an AdamW
      update in place.  A plan with ``Plan.microbatch = k > 1`` runs as
      ``k`` accumulated microbatches (``train/accumulate.py``).  Step
-     functions are cached per (batch shapes, plan, k) like the
+     functions are cached per (batch shapes, typed actions, k) like the
      reference's jit cache, so ``StepStats.compile`` marks the first
      step of each key — and a plan the background solver swapped in
      builds a new step function for its bucket only.
+  4. OFFLOAD units send their input checkpoints to the host through the
+     trainer's ``TransferLane`` (``models/lm.py``).  A plan with
+     OFFLOAD_OPT units (unrolled mode; the planner does not offer them
+     in scan mode) runs as a split step: gradients first, then the
+     parked units' fp32 AdamW moments come back to the device on the
+     lane, the update runs, and the moments of the plan's OFFLOAD_OPT
+     units go back to pinned host memory, where they stay through the
+     next step's forward and backward.
+  5. ``prewarm`` plans the likeliest buckets before step 0 (eager
+     PyTorch has nothing to compile), so the first batch of each is a
+     plan-cache hit.
+
+Telemetry (``repro_torch.obs``): ``cache_stats`` is a ``StatsView``
+over the run's registry; each step traces ``plan``, ``build_step`` and
+``execute`` spans on the step track and emits a ``train_step`` event;
+the lane's exposed time and the simulator's price of the same bytes
+land in ``train_exposed_transfer_s`` / ``train_sim_transfer_s``.
 
 On CUDA each step records ``torch.cuda.max_memory_allocated`` next to
 the plan's predicted peak (fixed bytes + predicted activations - bytes
@@ -25,18 +43,24 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.actions import Action
 from repro_torch.core.cache import LRUCache
 from repro_torch.core.planner import PlannerBase
 from repro_torch.data.pipeline import pad_batch
+from repro_torch.launch.roofline import PCIE_BW
+from repro_torch.models.lm import configure_offload
+from repro_torch.obs import LabelView, StatsView, Telemetry, TRACK_STEP
 from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.train.accumulate import accumulated_grads
+from repro_torch.train.transfer import TransferLane
 
 MAX_CACHED_STEPS = 64     # step-function cache bound, as the reference's
+
 
 @dataclasses.dataclass
 class StepStats:
@@ -55,19 +79,69 @@ class StepStats:
     # torch.cuda.max_memory_allocated over the step (0 off CUDA)
     max_memory_bytes: int = 0
     microbatches: int = 1      # gradient-accumulation split of the step
+    offload_units: int = 0     # units whose input went to host memory
+    opt_offload_units: int = 0  # units whose optimizer moments are parked
+    # the plan had OFFLOAD units but ran them as REMAT (offload_exec off)
+    offload_degraded: bool = False
+    # host time this step spent blocked on the transfer lane, and the
+    # simulator's (1 - overlap) price of the bytes the lane moved
+    exposed_transfer_s: float = 0.0
+    sim_transfer_s: float = 0.0
 
 
 class Trainer:
     def __init__(self, lm, planner: PlannerBase,
-                 optimizer: Optional[AdamW] = None):
+                 optimizer: Optional[AdamW] = None,
+                 telemetry: Optional[Telemetry] = None):
         self.lm = lm
         self.planner = planner
+        # one registry per run: the planner re-homes its stats into it
+        self.telemetry = (telemetry if telemetry is not None
+                          else Telemetry.disabled())
+        planner.bind_telemetry(self.telemetry)
         self.optimizer = optimizer or AdamW()
         self.params = dict(lm.named_parameters())
+        # parameter names of each plan unit (its layers' trees), for
+        # moment parking
+        self._unit_names = [
+            [n for n in self.params
+             if any(n.startswith(f"blocks.{i}.") for i in range(s, e))]
+            for s, e in lm.unit_bounds()]
+        # the transfer lane, made when a plan first moves something; the
+        # parked-unit set records whose moments live on the host
+        self.transfer_lane: Optional[TransferLane] = None
+        self._parked: set = set()
         self._step_cache = LRUCache(MAX_CACHED_STEPS)
         self.history: list[StepStats] = []
-        self.cache_stats = {"compiles": 0, "jit_hits": 0, "evictions": 0,
-                            "bucket_steps": {}}
+        reg = self.telemetry.metrics
+        self._m_padded_tokens = reg.counter(
+            "train_bucket_padded_tokens",
+            "bucket-shape tokens actually computed over")
+        self._m_eff_tokens = reg.counter(
+            "train_bucket_tokens", "effective (unpadded) tokens")
+        self._g_bucket_k = reg.gauge(
+            "train_bucket_microbatch",
+            "largest gradient-accumulation split seen per bucket")
+        self._h_step_s = reg.histogram(
+            "train_step_time_s", "wall time per executed train step")
+        self.cache_stats = StatsView(
+            reg,
+            scalars={"compiles": "train_jit_compiles",
+                     "prewarm_compiles": "train_jit_prewarm_compiles",
+                     "jit_hits": "train_jit_hits",
+                     "evictions": "train_jit_evictions"},
+            labeled={"bucket_steps": ("train_bucket_steps", "bucket")},
+            composite={
+                "bucket_tokens": self._bucket_tokens_view,
+                "bucket_microbatch":
+                    lambda: LabelView(self._g_bucket_k, "bucket")})
+
+    def _bucket_tokens_view(self) -> dict:
+        """``{bucket: [padded_tokens, effective_tokens]}``."""
+        padded = LabelView(self._m_padded_tokens, "bucket")
+        eff = LabelView(self._m_eff_tokens, "bucket")
+        return {b: [padded.get(b, 0), eff.get(b, 0)]
+                for b in set(padded) | set(eff)}
 
     def _batch_key(self, batch) -> tuple:
         return tuple(sorted((k, tuple(v.shape), str(v.dtype))
@@ -89,27 +163,37 @@ class Trainer:
 
     def _build_step(self, actions, microbatch: int = 1):
         lm, opt, params = self.lm, self.optimizer, self.params
+        opt_units = tuple(u for u, a in enumerate(actions)
+                          if int(a) == int(Action.OFFLOAD_OPT))
 
         if microbatch > 1:
-            def train_step(opt_state: AdamWState, batch):
-                loss, metrics, grads = accumulated_grads(lm, batch,
-                                                         microbatch, actions)
-                opt_state = opt.update(grads, opt_state, params)
-                return opt_state, loss, metrics
-            return train_step
+            def grad_fn(batch):
+                return accumulated_grads(lm, batch, microbatch, actions)
+        else:
+            def grad_fn(batch):
+                loss, metrics = lm.loss(batch, actions)
+                loss.backward()
+                grads = {n: p.grad for n, p in params.items()}
+                for p in params.values():
+                    p.grad = None
+                return loss, metrics, grads
+
+        if opt_units and lm.cfg.remat_mode != "scan":
+            # OFFLOAD_OPT: the parked moments must be off the device
+            # while activations peak and on it only for the update, so
+            # the trainer runs the step in phases (_run_opt_split)
+            return ("opt_split", grad_fn, opt_units)
 
         def train_step(opt_state: AdamWState, batch):
-            loss, metrics = lm.loss(batch, actions)
-            loss.backward()
-            grads = {n: p.grad for n, p in params.items()}
+            loss, metrics, grads = grad_fn(batch)
             opt_state = opt.update(grads, opt_state, params)
-            for p in params.values():
-                p.grad = None
             return opt_state, loss, metrics
 
         return train_step
 
     def _step_key(self, actions, batch, microbatch: int = 1) -> tuple:
+        # the typed actions: two plans that remat the same units but
+        # offload or split differently get different step functions
         return (self._batch_key(batch), tuple(int(a) for a in actions),
                 int(microbatch))
 
@@ -125,40 +209,194 @@ class Trainer:
         self.cache_stats["jit_hits"] += 1
         return fn, False
 
+    # -- the transfer lane and optimizer-moment parking -----------------
+    def _lane(self) -> TransferLane:
+        """The run's lane (made on first use), shared with the model's
+        OFFLOAD units so both land in the trainer's telemetry."""
+        if self.transfer_lane is None:
+            self.transfer_lane = TransferLane(self.lm.device,
+                                              telemetry=self.telemetry)
+            configure_offload(self.lm, self.transfer_lane)
+        return self.transfer_lane
+
+    def _moment_get(self, tree: dict, u: int) -> dict:
+        """The moments of plan unit ``u``: ``{param name: tensor}``."""
+        return {n: tree[n] for n in self._unit_names[u]}
+
+    @staticmethod
+    def _moment_set(tree: dict, val: dict) -> dict:
+        out = dict(tree)
+        out.update(val)
+        return out
+
+    def _park_moments(self, opt_state: AdamWState,
+                      opt_units) -> AdamWState:
+        """Stream the fp32 AdamW m and v of every OFFLOAD_OPT unit to
+        pinned host memory and put the host buffers into the state, so
+        those bytes are off the device until the next update.  Every
+        copy starts before any is waited on."""
+        if not opt_units:
+            self._parked = set()
+            return opt_state
+        lane = self._lane()
+        m, v = opt_state.m, opt_state.v
+        pending = [(which, n, lane.offload(x))
+                   for u in opt_units
+                   for which, tree in (("m", m), ("v", v))
+                   for n, x in self._moment_get(tree, u).items()]
+        host = {"m": {}, "v": {}}
+        for which, n, h in pending:
+            host[which][n] = lane.host_value(h)
+        self._parked = set(opt_units)
+        return AdamWState(opt_state.step, self._moment_set(m, host["m"]),
+                          self._moment_set(v, host["v"]))
+
+    def _unpark_moments(self, opt_state: AdamWState) -> AdamWState:
+        """Bring every parked moment back to the device (called with
+        the backward already enqueued, so the uploads ride behind it)."""
+        if not self._parked:
+            return opt_state
+        lane = self._lane()
+        m, v = opt_state.m, opt_state.v
+        pending = [(which, n, lane.upload(x))
+                   for u in sorted(self._parked)
+                   for which, tree in (("m", m), ("v", v))
+                   for n, x in self._moment_get(tree, u).items()]
+        dev = {"m": {}, "v": {}}
+        for which, n, h in pending:
+            dev[which][n] = lane.fetch(h)
+        self._parked = set()
+        return AdamWState(opt_state.step, self._moment_set(m, dev["m"]),
+                          self._moment_set(v, dev["v"]))
+
+    def _run_opt_split(self, fn, opt_state: AdamWState, batch):
+        """One OFFLOAD_OPT step: gradients, the parked moments home, the
+        update, and the plan's units' moments back out."""
+        _tag, grad_fn, opt_units = fn
+        loss, metrics, grads = grad_fn(batch)
+        opt_state = self._unpark_moments(opt_state)
+        opt_state = self.optimizer.update(grads, opt_state, self.params)
+        del grads
+        opt_state = self._park_moments(opt_state, opt_units)
+        return opt_state, loss, metrics
+
+    # ------------------------------------------------------------------
+    def prewarm(self, seq_lens: Iterable[int], batch_size: int) -> int:
+        """Plan the given bucket seq-lens before step 0 and build their
+        step functions.  Eager PyTorch has nothing to compile, so the
+        gain is the plan: the first real batch of a prewarmed bucket is
+        a plan-cache hit (sheltered collections happen here, off the
+        step).  Each step function built bumps ``prewarm_compiles``
+        (the registry's ``train_jit_prewarm_compiles``); returns their
+        number."""
+        n = 0
+        for S in seq_lens:
+            raw = {"tokens": np.zeros((batch_size, int(S)), np.int32),
+                   "labels": np.zeros((batch_size, int(S)), np.int32),
+                   "weights": np.ones((batch_size, int(S)), np.float32)}
+            batch = self._prepare(raw)
+            actions, info = self.planner.plan(batch)
+            k = max(int(info.plan.microbatch), 1)
+            key = self._step_key(actions, batch, k)
+            if key in self._step_cache:
+                continue
+            self._step_cache[key] = self._build_step(actions, k)
+            self.cache_stats["prewarm_compiles"] += 1
+            self.cache_stats["evictions"] = self._step_cache.evictions
+            n += 1
+        return n
+
     def step(self, opt_state: AdamWState, batch):
         """One training step; returns ``(opt_state, loss)``."""
+        tel = self.telemetry
+        tracer = tel.tracer
         batch = self._prepare(batch)
         t0 = time.perf_counter()
-        actions, info = self.planner.plan(batch)
+        with tracer.span("plan", TRACK_STEP):
+            actions, info = self.planner.plan(batch)
         t_plan = time.perf_counter() - t0
         bucket = self.planner.bucket_key(batch)
-        k = max(int(info.plan.microbatch), 1)
+        plan = info.plan
+        k = max(int(plan.microbatch), 1)
+        t_c0 = time.perf_counter()
         fn, is_new = self._get_step_fn(actions, batch, k)
+        if is_new:
+            tracer.complete("build_step", t_c0, time.perf_counter() - t_c0,
+                            TRACK_STEP, args={"bucket": bucket}
+                            if tel.trace_on else None)
+        if plan.n_offload or plan.n_opt or self._parked:
+            self._lane()
+        if self.transfer_lane is not None:
+            self.transfer_lane.reset_stats()
         cuda = self.lm.device.type == "cuda"
         if cuda:
             torch.cuda.synchronize(self.lm.device)
             torch.cuda.reset_peak_memory_stats(self.lm.device)
         t1 = time.perf_counter()
-        opt_state, loss, metrics = fn(opt_state, batch)
-        loss = float(loss.detach())            # waits for the device
-        if cuda:
-            torch.cuda.synchronize(self.lm.device)
+        with tracer.span("execute", TRACK_STEP):
+            if isinstance(fn, tuple):
+                opt_state, loss, metrics = self._run_opt_split(
+                    fn, opt_state, batch)
+            else:
+                # a plan without OFFLOAD_OPT updates every moment
+                opt_state = self._unpark_moments(opt_state)
+                opt_state, loss, metrics = fn(opt_state, batch)
+            loss = float(loss.detach())            # waits for the device
+            if cuda:
+                torch.cuda.synchronize(self.lm.device)
         t_step = time.perf_counter() - t1
         peak = torch.cuda.max_memory_allocated(self.lm.device) if cuda else 0
-        plan = info.plan
         predicted = (float(self.planner.fixed_bytes or 0.0)
                      + plan.est_activation_bytes - plan.covered_bytes)
         B, S = batch["tokens"].shape
         # a non-divisor split computes over ceil(B/k)*k rows
         padded_tokens = int(-(-B // k) * k * S)
-        buckets = self.cache_stats["bucket_steps"]
-        buckets[bucket] = buckets.get(bucket, 0) + 1
+        eff_tokens = int(metrics["tokens"])
+        self.cache_stats.inc("bucket_steps", bucket=bucket)
+        self._m_padded_tokens.inc(padded_tokens, bucket=bucket)
+        self._m_eff_tokens.inc(eff_tokens, bucket=bucket)
+        self._g_bucket_k.set_max(k, bucket=bucket)
+        self._h_step_s.observe(t_step)
+        # what the lane measured against the simulator's price of the
+        # same bytes
+        exposed_s = sim_s = 0.0
+        if self.transfer_lane is not None:
+            xfer = self.transfer_lane.reset_stats()
+            exposed_s = float(xfer["exposed_s"])
+            moved = float(xfer["bytes_out"] + xfer["bytes_in"])
+            if moved:
+                rate = getattr(self.planner, "link_bytes_per_s", None)
+                pcie = rate() if rate is not None else PCIE_BW
+                ov = float(getattr(self.planner, "offload_overlap", 0.5))
+                sim_s = (1.0 - ov) * moved / pcie
+        if exposed_s or sim_s:
+            tel.metrics.counter("train_exposed_transfer_s").inc(exposed_s)
+            tel.metrics.counter("train_sim_transfer_s").inc(sim_s)
+        degraded = bool(plan.n_offload and not self.lm.offload_exec)
+        if degraded:
+            tel.metrics.counter("train_offload_degraded_steps").inc()
         self.history.append(StepStats(
-            loss, t_step, t_plan, is_new, plan.n_remat,
-            int(metrics["tokens"]), bucket, padded_tokens,
-            cache_hit=info.cache_hit, collected=info.collected,
-            predicted_peak_bytes=predicted, max_memory_bytes=int(peak),
-            microbatches=k))
+            loss, t_step, t_plan, is_new, plan.n_remat, eff_tokens, bucket,
+            padded_tokens, cache_hit=info.cache_hit,
+            collected=info.collected, predicted_peak_bytes=predicted,
+            max_memory_bytes=int(peak), microbatches=k,
+            offload_units=plan.n_offload, opt_offload_units=plan.n_opt,
+            offload_degraded=degraded, exposed_transfer_s=exposed_s,
+            sim_transfer_s=sim_s))
+        if tel.events_on:
+            tel.events.emit("train_step", step=len(self.history) - 1,
+                            bucket=bucket, loss=loss, k=k,
+                            compile=bool(is_new),
+                            plan_source=plan.source,
+                            cache_hit=bool(info.cache_hit),
+                            n_remat=int(plan.n_remat),
+                            n_offload=int(plan.n_offload),
+                            n_opt=int(plan.n_opt),
+                            offload_bytes=float(plan.offload_bytes),
+                            step_time_s=t_step, plan_time_s=t_plan,
+                            exposed_transfer_s=exposed_s,
+                            max_memory_bytes=int(peak),
+                            predicted_peak_bytes=predicted)
         return opt_state, loss
 
     def run(self, batches, opt_state: Optional[AdamWState] = None):
@@ -170,7 +408,7 @@ class Trainer:
 
     def summary(self) -> dict:
         """Throughput over warm steps (not the first of a (bucket, plan)
-        key), plan time, remat and padding counts."""
+        key), plan time, remat, offload and padding counts."""
         h = self.history
         if not h:
             return {}
@@ -178,23 +416,37 @@ class Trainer:
         warm_s = max(float(np.sum([s.step_time_s for s in warm])), 1e-9)
         eff = float(np.sum([s.tokens for s in warm]))
         padded = float(np.sum([s.padded_tokens for s in warm]))
+        stats = getattr(self.planner, "stats", {})
         return {
             "steps": len(h),
             "mean_step_s": (float(np.mean([s.step_time_s for s in warm]))
                             if warm else 0.0),
             "total_plan_s": float(np.sum([s.plan_time_s for s in h])),
             "compiles": int(sum(s.compile for s in h)),
+            "prewarm_compiles": int(self.cache_stats["prewarm_compiles"]),
             "jit_hits": int(self.cache_stats["jit_hits"]),
             "buckets": len(self.cache_stats["bucket_steps"]),
             "mean_remat_units": float(np.mean([s.remat_units for s in h])),
+            "mean_offload_units": float(np.mean([s.offload_units
+                                                 for s in h])),
+            "mean_opt_offload_units": float(np.mean([s.opt_offload_units
+                                                     for s in h])),
             "mean_microbatches": float(np.mean([s.microbatches
                                                 for s in h])),
+            # measured lane blocking against the simulator's price of
+            # the same traffic, and OFFLOAD steps that ran as REMAT
+            "exposed_transfer_s": float(np.sum([s.exposed_transfer_s
+                                                for s in h])),
+            "sim_transfer_s": float(np.sum([s.sim_transfer_s for s in h])),
+            "offload_degraded_steps": int(sum(s.offload_degraded
+                                              for s in h)),
+            "offload_fallbacks": int(stats.get("offload_fallbacks", 0)),
             "tokens_per_s": eff / warm_s if warm else 0.0,
             "padded_tokens_per_s": padded / warm_s if warm else 0.0,
             "pad_fraction": (1.0 - eff / max(padded, 1.0)) if warm else 0.0,
             "final_loss": h[-1].loss,
             # background-solver counters (0 without the solver tier)
-            **{key: int(getattr(self.planner, "stats", {}).get(key, 0))
+            **{key: int(stats.get(key, 0))
                for key in ("solves", "solver_swaps", "solver_wins",
                            "solver_timeouts")},
         }

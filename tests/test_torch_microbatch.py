@@ -225,10 +225,17 @@ def test_plan_key_reads_the_roofline_constants_when_called(models,
 
 
 def test_offload_is_refused_until_the_port_executes_it(models):
+    """The port executes OFFLOAD and OFFLOAD_OPT now, so both knobs are
+    accepted; what stays refused is the reference's: ``opt_offload``
+    without ``offload``, and ``offload`` without the cost-aware
+    selector."""
     lm = models[2]["xla"]
-    for kw in ({"offload": True}, {"opt_offload": True}):
-        with pytest.raises(ValueError, match="A13"):
-            MimosePlanner(lm, 1e12, **kw)
+    p = MimosePlanner(lm, 1e12, offload=True, opt_offload=True)
+    assert p.offload and p.opt_offload
+    with pytest.raises(ValueError, match="needs offload=True"):
+        MimosePlanner(lm, 1e12, opt_offload=True)
+    with pytest.raises(ValueError, match="cost_aware"):
+        MimosePlanner(lm, 1e12, offload=True, cost_aware=False)
 
 
 def test_mimose_picks_split_for_tight_budget(models):

@@ -114,7 +114,12 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     assert res.returncode == 0, res.stderr
     loaded = set(res.stdout.split())
     assert len(loaded) >= 20
-    # the planner's decision space is reached by the walk
+    # the planner's decision space, host offload and telemetry are
+    # reached by the walk
     assert {"repro_torch.core.simulator", "repro_torch.core.solver",
             "repro_torch.core.baselines", "repro_torch.train.accumulate",
-            "repro_torch.launch.calibrate"} <= loaded
+            "repro_torch.launch.calibrate", "repro_torch.train.transfer",
+            "repro_torch.launch.bench_offload_bw",
+            "repro_torch.launch.report", "repro_torch.obs",
+            "repro_torch.obs.metrics", "repro_torch.obs.events",
+            "repro_torch.obs.tracing"} <= loaded
