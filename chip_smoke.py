@@ -75,9 +75,35 @@ Phases (each raises on failure; the script then exits non-zero):
    kernels' timings (tensor-core and FMA kernel in turns);
 7. DMA path: ``ops.residual_dma_copy`` stages a residual stream and the
    logits, with launch counts read around it; the DMA kernel's timings;
+8. hymba path: K1-K3 against their plain versions at each of the
+   path's bucket shapes with its true lengths (B = 8, 25 / 5 heads, bf16,
+   window 1024 and 0); one loss of ``hymba_1p5b`` at full width, 2
+   layers, through the kernels against the plain path, and each layer's
+   mixer likewise beside two controls that must fail the same check (the
+   wrong kv head; the SSD half skipped); K4 at hymba's SSD shape
+   (bf16, P = 50, N = 16: the FMA kernel) against its plain version,
+   timed beside its bound; then full-width, full-depth ``hymba_1p5b``
+   (32 layers, bf16, scan mode: 8 units of 7 local layers and 1 global)
+   trains 8 steps under Mimose with ``--attn-impl flash``, launch counts
+   read around it: K1 and K4 = sum k (32 + recomputed layers), K2 = K3 =
+   sum 32 k;
+9. granite path: K1-K3 at each bucket shape (16 / 8 heads, bf16); one
+   loss of ``granite_moe_1b_a400m`` at full width, 2 layers, and each
+   layer's attention against the plain path, beside the wrong-kv-head
+   control; full-width,
+   full-depth granite (24 layers, 32 experts top-8, bf16, scan mode)
+   trains 8 steps the same way, with a finite ``aux > 0`` every step;
+   then one batch at 6 layers in 2 chunks under KEEP, REMAT and OFFLOAD
+   (deterministic algorithms on): loss, aux and gradients of REMAT and
+   OFFLOAD equal to KEEP's, bitwise or within ``OFFLOAD_TOL``;
+10. ``qwen3_1p7b`` at full width, 2 layers: one loss and each layer's
+   attention through the kernels (qk-norm, hd 128) against the plain
+   path, beside the wrong-kv-head control;
 
 then prints the card line, one ``{"kernels": [...]}`` JSON line (no new
-kernel on the offload path: it runs K1-K3), and, as
+kernel on the offload path: it runs K1-K3; K1-K3 launches are the bert,
+hymba and granite paths'; K4's are the mamba2 path's tensor-core
+kernel's, with the hymba path's FMA launches as ``hymba_launches``), and, as
 the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a CUDA device, and when the repository's ``src/`` is not beside it.
 """
@@ -111,6 +137,26 @@ BERT_ARGS = dict(arch="bert_base_paper", dataset="squad", batch_size=8,
                  steps=16, quantum=32)
 MAMBA_ARGS = dict(arch="mamba2_1p3b", dataset="squad", batch_size=8,
                   steps=16, quantum=32)
+# the MoE and hybrid paths: full width and depth, 8 steps (the squad
+# buckets 416, 416, 384, 448, 448, 448, 480, 448: three collections, a
+# predicted plan and cache hits)
+HYMBA_ARGS = dict(arch="hymba_1p5b", dataset="squad", batch_size=8,
+                  steps=8, quantum=32)
+GRANITE_ARGS = dict(arch="granite_moe_1b_a400m", dataset="squad",
+                    batch_size=8, steps=8, quantum=32)
+# profile groups after each family's own kernels: first match wins
+OTHER_GROUPS = [("gemm", ("gemm", "cutlass", "xmma", "sm90_")),
+                ("elementwise", ("elementwise",)), ("reductions", ("reduce",))]
+# one full-width bf16 loss through the kernels against the plain path at
+# 2 layers (check_model_at_depth), and each layer's mixer likewise
+# (check_mixers: relative Frobenius error over the valid rows).  Each
+# limit sits between the sound runs and the controls (the wrong kv head;
+# hymba's SSD half skipped), which must miss it in every run.  On an
+# NVIDIA H100 80GB HBM3 at 700 W: loss gaps 2.0e-6 to 1.22e-4 sound,
+# 4.0e-4 to 2.2e-3 under the controls; mixer errors 1.3e-3 to 3.5e-3
+# sound, 0.26 to 1.42 under the controls
+BF16_MODEL_RTOL = 2.5e-4
+MIXER_RTOL = 2e-2
 # share of the first batch's collected activation bytes the budget
 # leaves on top of the fixed bytes: the rest must be rematerialised
 BUDGET_ACT_SHARE = 0.6
@@ -160,6 +206,12 @@ REFERENCE_CASES = [
     (2, 96, 2, 2, 32, False, 0, "float32", True),
     (2, 160, 4, 2, 128, True, 0, "float32", True),
     (2, 160, 4, 2, 64, True, 0, "bfloat16", True),
+    # hymba's attention (25 query heads over 5 kv heads, an odd GQA group;
+    # window 1024 on its local layers, which bites at S = 2048), granite's
+    # (16 / 8) and the qwen3 / yi head dim 128, all bf16
+    (2, 2048, 25, 5, 64, True, 1024, "bfloat16", True),
+    (2, 512, 16, 8, 64, True, 0, "bfloat16", True),
+    (2, 512, 16, 8, 128, True, 0, "bfloat16", True),
 ]
 # |kernel - plain| <= atol + rtol * |plain|: fp32 sums in another order
 # (forward), the exp(s - lse) recombination (backward), one bf16
@@ -371,6 +423,21 @@ def lengths_by_bucket(batches):
     return out
 
 
+def flash_main_cases(args, batches):
+    """{case: the bucket's true lengths} for K1-K3 at each bucket of a
+    family's main-path ``batches``, at its attention's shape, once for
+    each window its layers run (0 on a global layer)."""
+    from repro_torch.models.registry import get_config
+    cfg = get_config(args["arch"])
+    W = cfg.sliding_window
+    windows = sorted(({W} if W else set())
+                     | ({0} if not W or cfg.global_interval else set()))
+    return {(args["batch_size"], S, cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim(), True, w, cfg.dtype, True): lens
+            for S, lens in sorted(lengths_by_bucket(batches).items())
+            for w in windows}
+
+
 def most_common_bucket(batches):
     counts = {}
     for b in batches:
@@ -444,6 +511,7 @@ def check_model(lm, batch, quantum, rtol):
             and abs(kernel - plain) <= rtol * abs(plain)):
         raise AssertionError(f"{lm.cfg.name}: full-width loss through the "
                              f"kernels and the plain path disagree")
+    return kernel, plain
 
 
 def run_main_path(args, budget_mb, extra=()):
@@ -469,13 +537,14 @@ def check_main_path(trainer, launches):
     """What a main path's run must show; raises otherwise."""
     h = trainer.history
     lm = trainer.lm
+    L = lm.cfg.num_layers
     n_units = lm.num_plan_units()
-    layers = [e - s for s, e in lm.unit_bounds()]
     losses = [s.loss for s in h]
-    # every layer runs its mixer kernel once in the forward; each layer
-    # of a REMAT unit once more in the backward's recompute (equal units)
-    fwd_per_step = [lm.cfg.num_layers + s.remat_units * layers[0]
-                    for s in h]
+    # every layer runs its mixers' kernels once in each microbatch's
+    # forward, and each layer of a REMAT unit once more in the backward's
+    # recompute; the backward kernels run once per layer
+    fwd = sum(s.microbatches * (L + s.recompute_layers) for s in h)
+    bwd = sum(s.microbatches * L for s in h)
     log(f"main path launches: {launches}")
     checks = {
         "losses finite": all(math.isfinite(x) for x in losses),
@@ -485,35 +554,49 @@ def check_main_path(trainer, launches):
                               for s in h),
         "plan-cache hit": any(s.cache_hit for s in h),
         "mixed KEEP/REMAT plan": any(0 < s.remat_units < n_units for s in h),
-        "equal units": len(set(layers)) == 1,
+    }
+    flash = {
+        "every flash kernel launched": all(launches[k] > 0
+                                           for k in FLASH_KERNELS),
+        f"K1 (tensor cores) = sum k ({L} + recomputed layers)":
+            launches["flash_fwd"] == fwd,
+        f"K2 = K3 (tensor cores) = sum {L} k": launches["flash_bwd_dq"]
+        == launches["flash_bwd_dkv"] == bwd,
+        "no FMA flash launches": all(launches[k] == 0
+                                     for k in FMA_OF.values()),
     }
     if lm.kind == "ssm":
         checks.update({
-            "ssd_scan (tensor cores) = sum(48 + 6 n_remat)":
-                launches["ssd_scan"] == sum(fwd_per_step),
+            f"ssd_scan (tensor cores) = sum k ({L} + recomputed layers)":
+                launches["ssd_scan"] == fwd,
             "no FMA ssd, flash or dma launches": all(
                 launches[k] == 0
                 for k in FLASH_KERNELS + list(FMA_OF.values())
                 + ["ssd_scan_fma", "dma_copy"]),
         })
-    else:
+    elif lm.kind == "hybrid":
+        checks.update(flash)
         checks.update({
-            "every flash kernel launched": all(launches[k] > 0
-                                               for k in FLASH_KERNELS),
-            "K1 (tensor cores) = sum(units + n_remat)":
-                launches["flash_fwd"] == sum(fwd_per_step),
-            "K2 = K3 (tensor cores) = units per step": launches["flash_bwd_dq"]
-            == launches["flash_bwd_dkv"] == n_units * len(h),
-            "no FMA flash launches": all(launches[k] == 0
-                                         for k in FMA_OF.values()),
-            "no ssd or dma launches": all(
-                launches[k] == 0
-                for k in ("ssd_scan", "ssd_scan_fma", "dma_copy")),
+            f"ssd_scan_fma (P = {lm.cfg.ssm_head_dim}) = sum k ({L} + "
+            f"recomputed layers)": launches["ssd_scan_fma"] == fwd,
+            "no tensor-core ssd or dma launches": all(
+                launches[k] == 0 for k in ("ssd_scan", "dma_copy")),
         })
+    else:
+        checks.update(flash)
+        checks["no ssd or dma launches"] = all(
+            launches[k] == 0 for k in ("ssd_scan", "ssd_scan_fma",
+                                       "dma_copy"))
+    if lm.kind == "moe":
+        checks["aux finite and > 0 every step"] = all(
+            math.isfinite(s.aux) and s.aux > 0 for s in h)
     log("main path checks: " + json.dumps(checks))
     if not all(checks.values()):
         raise AssertionError(f"main path checks failed: {checks}")
     summ = trainer.summary()
+    log(f"main path {lm.cfg.name}: per step loss / ce / aux "
+        + ", ".join(f"{s.loss:.4f} / {s.ce:.4f} / {s.aux:.5f}" for s in h)
+        + f"; recomputed layers {[s.recompute_layers for s in h]}")
     log(f"main path: tokens/s over warm steps {summ['tokens_per_s']:.1f} "
         f"(padded {summ['padded_tokens_per_s']:.1f}), mean warm step "
         f"{summ['mean_step_s'] * 1e3:.2f} ms, plan time "
@@ -803,11 +886,15 @@ def calibrate_on(trainer, batch, S, fa, ops, quantum):
     card = card_line()
     mb = calibrate.microbatch_overhead(trainer, batch)
     constants = {"PEAK_FLOPS": calibrate.peak_flops(),
+                 "PEAK_FLOPS_BF16": calibrate.peak_flops(
+                     *calibrate.BF16_SHAPE, dtype=torch.bfloat16),
                  "PCIE_BW": calibrate.pcie_bandwidth(),
                  "MICROBATCH_OVERHEAD_S": mb["overhead_s"]}
     log(f"planning constants on {card}: PEAK_FLOPS "
         f"{constants['PEAK_FLOPS']:.4e} FLOP/s (fp32 mm 3328x768x3072, TF32 "
-        f"off), PCIE_BW {constants['PCIE_BW']:.4e} B/s (pinned 256 MiB "
+        f"off), PEAK_FLOPS_BF16 {constants['PEAK_FLOPS_BF16']:.4e} FLOP/s "
+        f"(bf16 mm {'x'.join(map(str, calibrate.BF16_SHAPE))}), PCIE_BW "
+        f"{constants['PCIE_BW']:.4e} B/s (pinned 256 MiB "
         f"round trip, per direction), MICROBATCH_OVERHEAD_S "
         f"{constants['MICROBATCH_OVERHEAD_S']:.4e} s (bert S={S} warm "
         f"step k=2 minus k=1, difference of the medians; k=1 steps "
@@ -1771,6 +1858,25 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
     return out
 
 
+def _ssd_work(cfg, lens, x, dt, A, Bm, kvl, y):
+    """K4's work on these inputs: (FLOPs, bytes, rows run, ms at the bf16
+    tensor-core rate, ms at the memory rate).  FLOPs on the valid
+    positions (``_ssm_flops``' scan term); x, dt, B and C over the chunks
+    the kernel runs (ceil(len / Q) Q rows of each sequence; skipped
+    chunks are never read), A and the lengths once, y in full (skipped
+    rows are written as zeros)."""
+    from repro_torch.launch.roofline import ssd_scan_flops_per_position
+    Q, (H, P), N = cfg.ssm_chunk, x.shape[2:], Bm.shape[-1]
+    flops = sum(lens) * ssd_scan_flops_per_position(cfg)
+    rows = sum(-(-L // Q) * Q for L in lens)
+    nbytes = (rows * (H * P * x.element_size() + H * dt.element_size()
+                      + 2 * N * Bm.element_size())
+              + A.numel() * A.element_size() + kvl.numel() * kvl.element_size()
+              + y.numel() * y.element_size())
+    return (flops, nbytes, rows, flops / BF16_TC_FLOPS * 1e3,
+            nbytes / HBM_BYTES_PER_S * 1e3)
+
+
 def time_ssd(ssd, kb, cfg, S, lens):
     """K4 at the mamba2 main path's shape (B = len(lens), S padded to the
     chunk, H, P, N, Q of the config, bf16 x/B/C, fp32 dt, these
@@ -1782,7 +1888,6 @@ def time_ssd(ssd, kb, cfg, S, lens):
     the bf16 tensor-core rate, and its inputs over the chunks it runs and
     its output in full, each once; the bound at the fp32 CUDA-core rate
     of earlier runs is logged beside it."""
-    from repro_torch.launch.roofline import ssd_scan_flops_per_position
     from repro_torch.models.mamba2 import mamba2_dims, mask_dt, ssd_chunked
     B, Q, P = len(lens), cfg.ssm_chunk, cfg.ssm_head_dim
     _, H, N, _ = mamba2_dims(cfg)
@@ -1811,17 +1916,8 @@ def time_ssd(ssd, kb, cfg, S, lens):
     dy = torch.randn_like(x)
     ctx = SimpleNamespace(saved_tensors=(x, dt, A, Bm, Cm, kvl), chunk=Q)
     backward_ms = _time_ms(lambda: ssd.SSDScan.backward(ctx, dy), 5)
-    flops = sum(lens) * ssd_scan_flops_per_position(cfg)
-    # x, dt, B and C over the chunks the kernel runs (ceil(len / Q) Q
-    # rows of each sequence; skipped chunks are never read), A and the
-    # lengths once, y in full (skipped rows are written as zeros)
-    rows = sum(-(-L // Q) * Q for L in lens)
-    nbytes = (rows * (H * P * x.element_size() + H * dt.element_size()
-                      + 2 * N * Bm.element_size())
-              + A.numel() * A.element_size() + kvl.numel() * kvl.element_size()
-              + y.numel() * y.element_size())
-    t_ops, t_bytes = (flops / BF16_TC_FLOPS * 1e3,
-                      nbytes / HBM_BYTES_PER_S * 1e3)
+    flops, nbytes, rows, t_ops, t_bytes = _ssd_work(cfg, lens, x, dt, A, Bm,
+                                                    kvl, y)
     fp32_bound_ms = max(flops / FP32_FLOPS * 1e3, t_bytes)
     out = dict(ms=ms, plain_ms=plain_ms, library_ms=None, fma_ms=fma_ms,
                chunked_ms=chunked_ms, backward_ms=backward_ms,
@@ -1841,6 +1937,276 @@ def time_ssd(ssd, kb, cfg, S, lens):
         f"of earlier runs {fp32_bound_ms:.4f} ms), {flops / ms / 1e9:.2f} "
         f"TFLOP/s achieved (FMA kernel {flops / fma_ms / 1e9:.2f})")
     return out
+
+
+def check_ssd_hymba(ops, ssd, kb, cfg, S, lens):
+    """K4 at hymba's SSD shape (B = len(lens), S padded to the chunk, H =
+    64, P = 50, N = 16, Q = 64, bf16 x/B/C, fp32 dt, these lengths)
+    through ``ops.ssd_scan``: it must launch the FMA kernel once (the
+    tensor-core kernel takes P = 64 only) and agree with the plain
+    version within ``SSD_TOL``; then the kernel timed beside the plain
+    version, ``ssd_chunked`` and the bound (no library call)."""
+    from repro_torch.models.mamba2 import mamba2_dims, mask_dt, ssd_chunked
+    B, Q, P = len(lens), cfg.ssm_chunk, cfg.ssm_head_dim
+    _, H, N, _ = mamba2_dims(cfg)
+    Sp = -(-S // Q) * Q
+    x, dt, A, Bm, Cm = _ssd_inputs(B, Sp, H, P, N, "bfloat16", "float32",
+                                   seed=7)
+    kvl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = dict(ops.LAUNCHES)
+    y = ops.ssd_scan(x, dt, A, Bm, Cm, kvl, chunk=Q)
+    ran = _launched(ops, before)
+    n_launch = ops.LAUNCHES["ssd_scan_fma"] - before["ssd_scan_fma"]
+    y_p = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, kvl)
+    torch.cuda.synchronize()
+    err, over = _err(_ssd_valid(y, lens), _ssd_valid(y_p, lens),
+                     *SSD_TOL["bfloat16"])
+    log(f"ssd check hymba (B={B} S={Sp} H={H} P={P} N={N} Q={Q} bf16, dt "
+        f"fp32) lens={lens}: {ran} x{n_launch}, max abs err {err:.3e} "
+        f"(rtol, atol {SSD_TOL['bfloat16']})")
+    if ran != ["ssd_scan_fma"] or n_launch != 1 or over > 0:
+        raise AssertionError(f"K4 at hymba's shape: ran {ran} x{n_launch}, "
+                             f"tolerance miss {over:.3e}")
+    lib = ssd.library()
+    out = torch.empty_like(x)
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+            Cm.data_ptr(), kvl.data_ptr(), out.data_ptr(), B, Sp, H, P, N, Q,
+            1, 0, torch.cuda.current_stream().cuda_stream)
+    kb.raise_on(lib.ssd_scan_fma(*args), "ssd_scan_fma")
+    ms = _time_ms(lambda: lib.ssd_scan_fma(*args), 20)
+    plain_ms = _time_ms(lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm, kvl), 3)
+    chunked_ms = _time_ms(lambda: ssd_chunked(x, mask_dt(dt, kvl), A, Bm,
+                                              Cm, Q), 5)
+    flops, nbytes, rows, t_ops, t_bytes = _ssd_work(cfg, lens, x, dt, A, Bm,
+                                                    kvl, out)
+    fp32_ops = flops / FP32_FLOPS * 1e3
+    res = dict(ms=ms, plain_ms=plain_ms, chunked_ms=chunked_ms,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               max_abs_err=err)
+    log(f"timing ssd_scan_fma hymba B={B} S={Sp} H={H} P={P} N={N} Q={Q} "
+        f"bf16 (dt fp32): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"ssd_chunked {chunked_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}; {flops / 1e9:.3f} GFLOP at 989 TFLOP/s bf16 = "
+        f"{t_ops:.4f} ms, {nbytes / 1e6:.2f} MB ({rows} of {B * Sp} rows "
+        f"run) at 3.35 TB/s = {t_bytes:.4f} ms; the FMA kernel's own "
+        f"ceiling, 67 TFLOP/s fp32: {max(fp32_ops, t_bytes):.4f} ms, the "
+        f"kernel tiles P = {P} at {(P + 3) // 4 * 4}), "
+        f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
+    return res
+
+
+def check_model_at_depth(args, batch, rtol, layers=2):
+    """``check_model`` and ``check_mixers`` on a full-width
+    ``args["arch"]`` cut to ``layers`` layers (its own seeded weights),
+    freed after; the loss under each control of ``_controls`` must miss
+    ``rtol`` too, so the loss check is shown able to fail."""
+    import dataclasses
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import get_config
+    cfg = dataclasses.replace(get_config(args["arch"]), num_layers=layers)
+    lm = LM(cfg, attn_impl="flash", device="cuda")
+    kernel, plain = check_model(lm, batch, args["quantum"], rtol)
+    gaps = {n: abs(v - plain) / abs(plain) for n, v in check_mixers(
+        lm, batch, args["quantum"], MIXER_RTOL).items()}
+    log(f"loss check {cfg.name}: |kernels - plain| / |plain| "
+        f"{abs(kernel - plain) / abs(plain):.3e}; under the controls "
+        + ", ".join(f"{n} {g:.3e}" for n, g in gaps.items())
+        + f" (limit {rtol})")
+    blind = [n for n, g in gaps.items() if g <= rtol]
+    if blind:
+        raise AssertionError(f"{cfg.name}: the loss check does not tell "
+                             f"the controls {blind} from the kernels")
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_plans_equal_keep(args, batch, layers=6, chunks=2):
+    """The MoE's auxiliary loss through checkpointing and the transfer
+    lane: full-width ``args["arch"]`` at ``layers`` layers in ``chunks``
+    scan chunks, one batch under all-KEEP, all-REMAT and all-OFFLOAD
+    (deterministic algorithms on); REMAT's and OFFLOAD's loss, aux and
+    every gradient equal KEEP's, bitwise or within ``OFFLOAD_TOL``, and
+    the lane moved every layer's input out and back."""
+    import dataclasses
+    from repro_torch.actions import Action
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import get_config
+    cfg = dataclasses.replace(get_config(args["arch"]), num_layers=layers,
+                              scan_chunks=chunks)
+    lm = LM(cfg, attn_impl="flash", device="cuda")
+    b = _device_batch(batch, args["quantum"])
+    B, S = b["tokens"].shape
+    out = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for act in (Action.KEEP, Action.REMAT, Action.OFFLOAD):
+            loss, m = lm.loss(b, (act,) * lm.num_plan_units())
+            loss.backward()
+            torch.cuda.synchronize()
+            out[act.name] = (loss.detach().clone(), m["aux"].detach().clone(),
+                             {n: p.grad.clone()
+                              for n, p in lm.named_parameters()})
+            lm.zero_grad(set_to_none=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    lane = lm.transfer_lane.reset_stats()
+    keep = out["KEEP"]
+    res = {"aux": float(keep[1]), "lane_bytes_out": int(lane["bytes_out"])}
+    for name in ("REMAT", "OFFLOAD"):
+        got = out[name]
+        e_loss = max(_same_or_close(f"{name} loss", got[0], keep[0],
+                                    OFFLOAD_TOL["loss"]),
+                     _same_or_close(f"{name} aux", got[1], keep[1],
+                                    OFFLOAD_TOL["loss"]))
+        e_grad = max(_same_or_close(f"{name} grad {n}", g, keep[2][n],
+                                    OFFLOAD_TOL["grads"])
+                     for n, g in got[2].items())
+        res[name] = {"bitwise": e_loss == 0.0 and e_grad == 0.0,
+                     "loss_err": e_loss, "grad_err": e_grad}
+    want = (layers * B * S * cfg.d_model
+            * torch.empty((), dtype=lm.dtype).element_size())
+    log(f"plan equality {cfg.name} ({layers} layers in {chunks} chunks, "
+        f"B={B} S={S}): loss {float(keep[0]):.7f}, aux {float(keep[1]):.7f} "
+        f"under KEEP; REMAT {res['REMAT']}, OFFLOAD {res['OFFLOAD']} "
+        f"against KEEP (tolerances {OFFLOAD_TOL}); lane out "
+        f"{lane['bytes_out'] / 2**20:.2f} MiB, in "
+        f"{lane['bytes_in'] / 2**20:.2f} MiB (the layers' inputs "
+        f"{want / 2**20:.2f} MiB)")
+    if not (keep[1] > 0 and torch.isfinite(keep[1])):
+        raise AssertionError(f"aux is not finite and > 0: {float(keep[1])}")
+    if lane["bytes_out"] != want or lane["bytes_in"] != want:
+        raise AssertionError("OFFLOAD did not move every layer's input")
+    del lm, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _rel(a, b, lens):
+    """|a - b|_F / |b|_F over the valid rows of (B, S, d) outputs."""
+    a = torch.cat([a[i, :L] for i, L in enumerate(lens)]).float()
+    b = torch.cat([b[i, :L] for i, L in enumerate(lens)]).float()
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError("mixer output is not finite")
+    return float((a - b).norm() / b.norm())
+
+
+def _controls(lm, i):
+    """{name: [(tensor, its control value)]} for layer ``i``: the kv heads
+    rolled by one (each query head reads the wrong kv head), and for
+    the hybrid mixer its SSD half skipped (``ssm_scale`` 0)."""
+    blk = lm.blocks[i]
+    attn = blk["mixer"]["attn"] if lm.kind == "hybrid" else blk["attn"]
+    hd = lm.cfg.resolved_head_dim()
+    out = {"kv heads rolled": [(attn[w], torch.roll(attn[w], hd, dims=1))
+                               for w in ("wk", "wv")]}
+    if lm.kind == "hybrid":
+        scale = blk["mixer"]["ssm_scale"]
+        out["SSD half skipped"] = [(scale, torch.zeros_like(scale))]
+    return out
+
+
+class _swapped:
+    """Context: each tensor of ``pairs`` holds its control value."""
+
+    def __init__(self, pairs):
+        self.pairs = pairs
+
+    def __enter__(self):
+        self.saved = [t.detach().clone() for t, _ in self.pairs]
+        with torch.no_grad():
+            for t, v in self.pairs:
+                t.copy_(v)
+
+    def __exit__(self, *exc):
+        with torch.no_grad():
+            for (t, _), v in zip(self.pairs, self.saved):
+                t.copy_(v)
+
+
+def check_mixers(lm, batch, quantum, rtol):
+    """Each layer's mixer (attention; hymba's attention and SSD halves)
+    through the kernels against the plain path, on the plain path's
+    residual stream, at ``_rel`` <= ``rtol``; and each control of
+    ``_controls`` through the kernels, which must land above ``rtol`` in
+    every layer, so the check is shown able to fail.  Returns the loss
+    through the kernels under each control (all layers swapped)."""
+    from repro_torch.models import hymba as HY
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import block_apply
+    cfg = lm.cfg
+    b = _device_batch(batch, quantum)
+    lens = [int(x) for x in b["lengths"]]
+    B, S = b["tokens"].shape
+    positions = torch.arange(S, device="cuda").expand(B, S)
+    seq_lens = b["lengths"].to(torch.int32)
+
+    def mixer(i, h, impl):
+        blk, g = lm.blocks[i], lm._is_global(i)
+        if lm.kind == "hybrid":
+            return HY.hymba_apply(blk["mixer"], cfg, h, positions=positions,
+                                  layer_is_global=g, impl=impl,
+                                  seq_lens=seq_lens)
+        return L.attention_apply(blk["attn"], cfg, h, positions=positions,
+                                 layer_is_global=g, impl=impl,
+                                 kv_len=seq_lens)
+    sound, ctrl = [], {}
+    with torch.no_grad():
+        x = lm.embed[b["tokens"]]
+        for i in range(cfg.num_layers):
+            h = L.rmsnorm_apply(lm.blocks[i]["norm1"], x, cfg.norm_eps)
+            plain = mixer(i, h, "xla")
+            sound.append(_rel(mixer(i, h, "flash"), plain, lens))
+            for name, pairs in _controls(lm, i).items():
+                with _swapped(pairs):
+                    ctrl.setdefault(name, []).append(
+                        _rel(mixer(i, h, "flash"), plain, lens))
+            x, _ = block_apply(lm.blocks[i], cfg, x, lm.kind,
+                               positions=positions,
+                               layer_is_global=lm._is_global(i),
+                               impl="xla", seq_lens=seq_lens)
+        impl, lm.attn_impl = lm.attn_impl, "flash"
+        losses = {}
+        for name in ctrl:
+            pairs = [p for i in range(cfg.num_layers)
+                     for p in _controls(lm, i)[name]]
+            with _swapped(pairs):
+                losses[name] = float(lm.loss(b)[0])
+        lm.attn_impl = impl
+    torch.cuda.synchronize()
+    log(f"mixer check {cfg.name} (B={B} S={S}, {cfg.num_layers} layers): "
+        f"|kernel - plain| / |plain| per layer "
+        f"{[f'{e:.3e}' for e in sound]} (limit {rtol}); controls through "
+        f"the kernels: " + "; ".join(
+            f"{n} {[f'{e:.3e}' for e in v]}, loss {losses[n]:.6f}"
+            for n, v in ctrl.items()))
+    if max(sound) > rtol:
+        raise AssertionError(f"{cfg.name}: a mixer through the kernels "
+                             f"disagrees with the plain path")
+    blind = [n for n, v in ctrl.items() if min(v) <= rtol]
+    if blind:
+        raise AssertionError(f"{cfg.name}: the mixer check does not tell "
+                             f"the controls {blind} from the kernels")
+    return losses
+
+
+def run_family_path(args, batches, profile_groups, rtol):
+    """One family's path on its main-path ``batches``: ``check_model`` at
+    2 layers, then the main path's run with launch counts read around
+    it, one profiled warm step and the memory phase; returns the
+    launches."""
+    check_model_at_depth(args, batches[0], rtol)
+    budget_mb = derive_budget_mb(args, batches[0])
+    trainer, launches = run_main_path(args, budget_mb)
+    _, batch = most_common_bucket(batches)
+    profile_step(trainer, batch, profile_groups)
+    memory_phase(trainer, batch)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def time_dma(dma, kb, shape, chunk_elems=1 << 15):
@@ -1932,9 +2298,7 @@ def main() -> int:
     t0 = time.perf_counter()
     batches = main_path_batches(BERT_ARGS)
     by_bucket = lengths_by_bucket(batches)
-    main_cases = {(BERT_ARGS["batch_size"], S, 12, 12, 64, True, 0,
-                   "float32", True): lens
-                  for S, lens in sorted(by_bucket.items())}
+    main_cases = flash_main_cases(BERT_ARGS, batches)
     errs.update(check_kernels(fa, ops, REFERENCE_CASES + list(main_cases),
                               main_cases))
     log(f"flash kernel checks passed; max abs error at the main path's "
@@ -2011,6 +2375,49 @@ def main() -> int:
     torch.cuda.empty_cache()
     timings["dma_copy"] = time_dma(dma, kb, logits_shape)
 
+    # -- hymba path: the hybrid family, K1-K4 ---------------------------
+    t0 = time.perf_counter()
+    hcfg = get_config(HYMBA_ARGS["arch"])
+    h_batches = main_path_batches(HYMBA_ARGS)
+    h_cases = flash_main_cases(HYMBA_ARGS, h_batches)
+    family_errs = {"hymba": check_kernels(fa, ops, list(h_cases), h_cases)}
+    log(f"flash kernel checks at the hymba path's shapes passed; max abs "
+        f"error {family_errs['hymba']}")
+    S_h = most_common_bucket(h_batches)[0]
+    hymba_k4 = check_ssd_hymba(ops, ssd, kb, hcfg, S_h,
+                               lengths_by_bucket(h_batches)[S_h])
+    h_launches = run_family_path(
+        HYMBA_ARGS, h_batches, [("flash kernels", ("flash_",)),
+                     ("ssd_scan kernel", ("ssd_scan",))] + OTHER_GROUPS,
+        BF16_MODEL_RTOL)
+    log(f"hymba path: {time.perf_counter() - t0:.1f} s")
+
+    # -- granite path: the MoE family, K1-K3 ----------------------------
+    t0 = time.perf_counter()
+    g_batches = main_path_batches(GRANITE_ARGS)
+    g_cases = flash_main_cases(GRANITE_ARGS, g_batches)
+    family_errs["granite"] = check_kernels(fa, ops, list(g_cases), g_cases)
+    log(f"flash kernel checks at the granite path's shapes passed; max abs "
+        f"error {family_errs['granite']}")
+    g_launches = run_family_path(
+        GRANITE_ARGS, g_batches, [("flash kernels", ("flash_",)),
+                       ("cumsum (MoE slots)", ("scan_outer_dim",))]
+        + OTHER_GROUPS, BF16_MODEL_RTOL)
+    check_plans_equal_keep(GRANITE_ARGS, g_batches[0])
+    log(f"granite path: {time.perf_counter() - t0:.1f} s")
+
+    # -- qwen3: qk-norm and head dim 128 through the kernels -------------
+    t0 = time.perf_counter()
+    q_args = dict(arch="qwen3_1p7b", dataset="squad", batch_size=8,
+                  steps=1, quantum=32)
+    check_model_at_depth(q_args, main_path_batches(q_args)[0],
+                         BF16_MODEL_RTOL)
+    log(f"qwen3 check: {time.perf_counter() - t0:.1f} s")
+
+    for name in FLASH_KERNELS:
+        launches[name] += h_launches[name] + g_launches[name]
+        errs[name] = max([errs[name]] + [e[name]
+                                         for e in family_errs.values()])
     kernels = []
     for name, source, replaces in KERNELS:
         t = timings[name]
@@ -2022,6 +2429,16 @@ def main() -> int:
         for extra in ("fma_ms", "chunked_ms"):
             if extra in t:
                 row[extra] = t[extra]
+        if name in FLASH_KERNELS:
+            # max_abs_err is over every main path's shapes; each bf16
+            # family's part of it
+            row.update({f"{f}_max_abs_err": e[name]
+                        for f, e in family_errs.items()})
+        if name == "ssd_scan":
+            # the hymba path's instance (the FMA kernel at P = 50)
+            row.update({f"hymba_{k}": hymba_k4[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")})
+            row["hymba_launches"] = h_launches["ssd_scan_fma"]
         kernels.append(row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -2,9 +2,12 @@
 port's tensors, through numpy.
 
 The reference keeps parameters as nested dicts and lists of arrays
-(``LM.init``: ``embed``, ``final_norm``, ``blocks[i].{norm1, attn.{wq,
-wk, wv, wo}, norm2, mlp.{wi, wo}}``).  The port's ``LM`` uses the same
-tree and layout, so a path ``blocks/3/attn/wq`` is the state-dict key
+(``LM.init``: ``embed``, ``final_norm``, ``lm_head`` when untied,
+``blocks[i].{norm1, attn.{wq, wk, wv, wo, q_norm, k_norm}, norm2, mlp |
+moe}``, hymba's ``mixer.{attn, ssm, attn_scale, ssm_scale}`` with 0-d
+scales, the MoE's experts on a leading ``(E, ...)`` axis).  The port's
+``LM`` uses the same tree and layout, so a path ``blocks/3/attn/wq`` is
+the state-dict key
 ``blocks.3.attn.wq`` and the values copy without a transpose.  In scan
 mode the reference stacks the layers instead: ``blocks`` is a dict of
 arrays with a leading layer axis; they are unstacked into

@@ -67,7 +67,8 @@ from repro_torch.core.scheduler import (Plan, greedy_plan,
 from repro_torch.core.solver import BackgroundSolver, SolveRequest
 from repro_torch.data.pipeline import bucket_length
 from repro_torch.launch.roofline import (MICROBATCH_OVERHEAD_S, PCIE_BW,
-                                         PEAK_FLOPS, plan_unit_flops)
+                                         PEAK_FLOPS, plan_unit_flops,
+                                         recompute_scale)
 from repro_torch.obs import StatsView, Telemetry, TRACK_PLANNER
 
 # the reference's defaults, fixed here: estimator degree (paper §4.3),
@@ -258,10 +259,15 @@ class PlannerBase:
                 self.accum_overhead_s())
 
     def planning_flops(self, flops):
-        """The recompute-cost vector in the frame of the byte vectors.
-        On one device both are global, so it is ``flops`` itself; the
-        reference divides by the mesh's device count here (A19)."""
-        return flops
+        """The recompute-cost vector the simulator and scheduler divide
+        by ``PEAK_FLOPS``.  On one device FLOPs and bytes are both
+        global (the reference divides by the mesh's device count here,
+        A19); a bf16 model's recompute runs at the bf16 GEMM rate, so
+        its FLOPs are scaled by ``recompute_scale`` (fp32: unchanged)."""
+        scale = recompute_scale(self.lm.cfg.dtype)
+        if flops is None or scale == 1.0:
+            return flops
+        return np.asarray(flops, dtype=np.float64) * scale
 
     # -- shared adaptive-microbatching machinery -------------------------
     def candidate_microbatches(self, batch) -> list:

@@ -71,12 +71,18 @@
 //
 // ssd_scan_fma_kernel, the fp32 FMA kernel: every other case the
 // wrapper's dispatch rule sends it (fp32 x, B, C; small P, N or Q, as in
-// the reference's SSD cases and the reduced mamba2).  One CTA of 256
-// threads owns one (b, h) and walks its chunks; the state, the chunk's x,
-// B, C (staged in fp32) and the Q x Q weight tile live in shared memory;
-// each product is a 4 x 4 register tile per thread over shared operands
-// padded by one float.  Its ceiling is the 67 TFLOP/s fp32 rate, and it
-// recomputes C B^T for every head.
+// the reference's SSD cases and the reduced mamba2; hymba's P = 50,
+// N = 16 in bf16).  One CTA of 256 threads owns one (b, h) and walks its
+// chunks; the state, the chunk's x, B, C (staged in fp32) and the Q x Q
+// weight tile live in shared memory; each product is a 4 x 4 register
+// tile per thread over shared operands padded by one float.  Its ceiling
+// is the 67 TFLOP/s fp32 rate, and it recomputes C B^T for every head.
+// A head dim P that is not a multiple of 4 (hymba's 50) is tiled at
+// P4 = P rounded up to 4: the staged x has P4 columns whose last P4 - P
+// stay zero, so the padded state rows stay zero and the padded y columns
+// are never stored (4 % more work at P = 50).  x is read element by
+// element, so a row of P bf16 values (100 bytes at P = 50) needs no
+// alignment.
 
 #include <cstddef>
 #include <cstdint>
@@ -445,8 +451,8 @@ __device__ __forceinline__ void mma4x4(float (&acc)[4][4], int tm, int sm, int t
 }
 
 __host__ __device__ constexpr size_t smem_floats(int P, int N, int Q) {
-  return (size_t)P * (N + 1)        // state
-         + (size_t)Q * (P + 1)      // x
+  return (size_t)((P + 3) & ~3) * (N + 1)      // state
+         + (size_t)Q * (((P + 3) & ~3) + 1)    // x
          + 2 * (size_t)Q * (N + 1)  // B, C
          + (size_t)Q * (Q + 1)      // weights
          + 2 * (size_t)Q;           // dt, la
@@ -459,10 +465,11 @@ ssd_scan_fma_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
                     const T* __restrict__ Cm, const int* __restrict__ kv_len,
                     T* __restrict__ y, int S, int H, int P, int N, int Q) {
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int LP = P + 1, LN = N + 1, LQ = Q + 1;
+  const int P4 = (P + 3) & ~3;   // P tiled in 4s; columns >= P stay zero
+  const int LP = P4 + 1, LN = N + 1, LQ = Q + 1;
   extern __shared__ float smem[];
-  float* st = smem;              // (P, N) state, row stride LN
-  float* xs = st + P * LN;       // (Q, P) x of the chunk, row stride LP
+  float* st = smem;              // (P4, N) state, row stride LN
+  float* xs = st + P4 * LN;      // (Q, P4) x of the chunk, row stride LP
   float* bs = xs + Q * LP;       // (Q, N) B of the chunk
   float* cs = bs + Q * LN;       // (Q, N) C of the chunk
   float* w = cs + Q * LN;        // (Q, Q) C B^T o L o dt
@@ -473,9 +480,11 @@ ssd_scan_fma_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
   const int n_chunks = S / Q;
   const int n_valid = (kvl + Q - 1) / Q;
   const float a_h = A[h];
-  const int tq = Q / 4, tp = P / 4, tn4 = N / 4;
+  const int tq = Q / 4, tp = P4 / 4, tn4 = N / 4;
 
-  for (int i = tid; i < P * LN; i += NT) st[i] = 0.f;
+  for (int i = tid; i < P4 * LN; i += NT) st[i] = 0.f;
+  for (int i = tid; i < Q * LP; i += NT) xs[i] = 0.f;
+  __syncthreads();             // the zeroed columns >= P before any load
 
   for (int c = 0; c < n_valid; ++c) {
     const int s0 = c * Q;
@@ -540,12 +549,13 @@ ssd_scan_fma_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int r = tm + tq * i, p = tn + tp * j;
-          y[((size_t)(b * S + s0 + r) * H + h) * P + p] = from_f<T>(acc[i][j]);
+          if (p < P) y[((size_t)(b * S + s0 + r) * H + h) * P + p] = from_f<T>(acc[i][j]);
         }
     }
     __syncthreads();
 
-    // x_j <- x_j exp(la_end - la_j) dt_j (x is not read again this chunk)
+    // x_j <- x_j exp(la_end - la_j) dt_j (x is not read again this chunk;
+    // exp(la_end - la_j) <= 1, so the zero columns stay zero)
     for (int idx = tid; idx < Q * P; idx += NT) {
       const int i = idx / P, p = idx - i * P;
       xs[i * LP + p] *= expf(la_end - la[i]) * dts[i];
@@ -626,13 +636,13 @@ extern "C" int ssd_scan(const void* x, const void* dt, const void* A, const void
   return (int)err;
 }
 
-// The fp32 FMA kernel: x, B, C and dt in float32 or bfloat16; P, N, Q
-// multiples of 4 whose tiles fit in shared memory.
+// The fp32 FMA kernel: x, B, C and dt in float32 or bfloat16; any P >= 1;
+// N and Q multiples of 4; the tiles fit in shared memory.
 extern "C" int ssd_scan_fma(const void* x, const void* dt, const void* A, const void* Bm,
                             const void* Cm, const void* kv_len, void* y, int B, int S,
                             int H, int P, int N, int Q, int x_dtype, int dt_dtype,
                             void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || Q <= 0 || S % Q || P % 4 || N % 4 || Q % 4)
+  if (B <= 0 || H <= 0 || S <= 0 || Q <= 0 || P <= 0 || S % Q || N % 4 || Q % 4)
     return (int)cudaErrorInvalidValue;
   if (simt::smem_floats(P, N, Q) * sizeof(float) > 232448) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -25,7 +25,7 @@ sequential recurrence); a ``meta`` tensor gets a ``meta`` output.
 Which kernel (``uses_tensor_cores``): the tensor-core kernel takes bf16
 x, B and C with P = 64, chunk 64, N = 128 (the full mamba2 config's)
 and H a multiple of ``TC_HEAD_GROUP``; every other case goes to the
-fp32 FMA kernel.  Each kernel has its own launch count, and
+fp32 FMA kernel (hymba's bf16 P = 50, N = 16 among them).  Each kernel has its own launch count, and
 each entry point raises on a case it does not take: neither hands a call
 to the other.
 
@@ -49,8 +49,9 @@ from repro_torch.models.mamba2 import mask_dt, ssd_chunked
 _SRC = build.CSRC / "ssd_scan.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # head dim P, state size N and chunk length Q the FMA kernel takes: the
-# reference's SSD test cases, the reduced and the full mamba2 configs
-HEAD_DIMS = (16, 32, 64)
+# reference's SSD test cases, the reduced and the full mamba2 configs,
+# and hymba's SSD heads (P = 50, N = 16: the kernel tiles P at 52)
+HEAD_DIMS = (16, 32, 50, 64)
 STATE_SIZES = (8, 16, 32, 128)
 CHUNKS = (16, 32, 64)
 # what the tensor-core kernel takes (csrc/ssd_scan.cu): bf16 x, B, C;

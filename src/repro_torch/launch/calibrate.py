@@ -1,9 +1,11 @@
-"""Measure the three planning constants of ``launch/roofline.py`` on a
-CUDA device.
+"""Measure the planning constants of ``launch/roofline.py`` on a CUDA
+device.
 
-* ``peak_flops`` — the fp32 GEMM rate with TF32 off, as the bert path
-  runs, at a given (m, k, n) (the bert MLP's 3328 x 768 x 3072 by
-  default): 2 m k n over the mean time of a ``torch.mm``.
+* ``peak_flops`` — a GEMM rate at a given (m, k, n) and dtype: 2 m k n
+  over the mean time of a ``torch.mm``.  ``PEAK_FLOPS`` is the fp32 rate
+  with TF32 off, as the bert path runs, at the bert MLP's 3328 x 768 x
+  3072 (the default); ``PEAK_FLOPS_BF16`` the bf16 rate at the hymba
+  MLP's 3584 x 1600 x 5504 (``BF16_SHAPE``).
 * ``pcie_bandwidth`` — one pinned host -> device and device -> host
   round trip of ``nbytes``: bytes per direction over the round trip's
   time per direction, the median of ``reps`` round trips.
@@ -14,7 +16,7 @@ CUDA device.
   kernel launches (``device_rows``), to tell device time from host
   time.
 
-``chip_smoke.py`` runs all three and prints them beside the card's name
+``chip_smoke.py`` runs them all and prints them beside the card's name
 and power limit.
 """
 from __future__ import annotations
@@ -40,16 +42,21 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# (m, k, n) of PEAK_FLOPS_BF16: the hymba MLP at B = 8, S = 448
+BF16_SHAPE = (3584, 1600, 5504)
+
+
 def peak_flops(m: int = 3328, k: int = 768, n: int = 3072,
-               reps: int = 50) -> float:
-    """FLOP/s of an fp32 ``torch.mm`` (m, k) x (k, n) with TF32 off."""
+               reps: int = 50, dtype=torch.float32) -> float:
+    """FLOP/s of a ``torch.mm`` (m, k) x (k, n) in ``dtype``, with TF32
+    off."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         gen = torch.Generator(device="cuda").manual_seed(0)
-        a = torch.randn((m, k), generator=gen, device="cuda")
-        b = torch.randn((k, n), generator=gen, device="cuda")
-        c = torch.empty((m, n), device="cuda")
+        a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+        b = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+        c = torch.empty((m, n), device="cuda", dtype=dtype)
         ms = _cuda_ms(lambda: torch.mm(a, b, out=c), reps)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev

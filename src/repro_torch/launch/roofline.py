@@ -1,13 +1,16 @@
 """Planning constants of the H100 and the per-plan-unit analytic cost
-model (copied from the reference's ``launch/roofline.py``, dense and
-ssm kinds).
+model (copied from the reference's ``launch/roofline.py``, for the
+decoder-only kinds: dense, moe, ssm, hybrid).
 
-The simulator, scheduler, solver and planners bind the three constants
-below at import, as the reference binds its own.  They price a plan's
+The simulator, scheduler, solver and planners bind the constants below
+at import, as the reference binds its own.  They price a plan's
 overhead in seconds: recompute FLOPs over ``PEAK_FLOPS``, host traffic
 over ``PCIE_BW``, and ``(k - 1) x MICROBATCH_OVERHEAD_S`` for a k-way
-gradient-accumulation split.  Each was measured by
-``repro_torch.launch.calibrate`` (run by ``chip_smoke.py``).
+gradient-accumulation split.  A model's recompute runs at the GEMM rate
+of its dtype, so a planner hands the simulator FLOPs scaled by
+``recompute_scale(dtype)`` = ``PEAK_FLOPS`` over that rate (1 for fp32,
+``PEAK_FLOPS / PEAK_FLOPS_BF16`` for bf16).  Each constant was measured
+by ``repro_torch.launch.calibrate`` (run by ``chip_smoke.py``).
 
 Forward FLOPs of one schedulable unit at a given batch geometry.
 Rematerialising a unit re-runs exactly this forward, so these numbers
@@ -24,6 +27,12 @@ import numpy as np
 # fp32 GEMM rate with TF32 off (as the bert path runs), torch.mm at the
 # bert MLP shape 3328 x 768 x 3072 (the data sheet's fp32 peak: 67e12)
 PEAK_FLOPS = 4.4837e13
+# bf16 GEMM rate, torch.mm at the hymba MLP shape 3584 x 1600 x 5504 (the
+# data sheet's dense bf16 tensor-core peak: 989e12); it prices the
+# recompute of bf16 models (mamba2, granite, hymba).  Measured by
+# chip_smoke.py (launch/calibrate.py) on an NVIDIA H100 80GB HBM3,
+# 700.00 W: the run PERF.md calls PR 18 H2.
+PEAK_FLOPS_BF16 = 6.7403e14
 # one pinned host <-> device round trip of 256 MiB, bytes per direction
 # over the round trip's time per direction
 PCIE_BW = 5.4387e10
@@ -52,11 +61,20 @@ def _attention_flops(cfg, B: int, S: int, *, is_global: bool = True) -> float:
     return proj + 4.0 * B * cfg.num_heads * hd * pairs
 
 
-def _mlp_flops(cfg, B: int, S: int) -> float:
-    if not cfg.d_ff:
+def _mlp_flops(cfg, B: int, S: int, d_ff: int = 0) -> float:
+    ff = d_ff or cfg.d_ff
+    if not ff:
         return 0.0
     mult = 3.0 if cfg.mlp_act == "swiglu" else 2.0
-    return 2.0 * B * S * cfg.d_model * cfg.d_ff * mult
+    return 2.0 * B * S * cfg.d_model * ff * mult
+
+
+def _moe_flops(cfg, B: int, S: int) -> float:
+    router = 2.0 * B * S * cfg.d_model * cfg.num_experts
+    experts = cfg.experts_per_token * _mlp_flops(cfg, B, S, cfg.moe_d_ff)
+    shared = (_mlp_flops(cfg, B, S, cfg.shared_expert_d_ff)
+              if cfg.shared_expert_d_ff else 0.0)
+    return router + experts + shared
 
 
 def _ssm_flops(cfg, B: int, S: int) -> float:
@@ -94,9 +112,26 @@ def unit_fwd_flops(cfg, kind: str, *, batch: int, seq: int, layers: int = 1,
     elif kind == "dense":
         per = (_attention_flops(cfg, B, S, is_global=is_global)
                + _mlp_flops(cfg, B, S))
+    elif kind == "moe":
+        per = (_attention_flops(cfg, B, S, is_global=is_global)
+               + _moe_flops(cfg, B, S))
+    elif kind == "hybrid":
+        per = (_attention_flops(cfg, B, S, is_global=is_global)
+               + _ssm_flops(cfg, B, S) + _mlp_flops(cfg, B, S))
     else:
         raise NotImplementedError(f"unit kind {kind!r} is not ported")
     return float(layers) * per
+
+
+def recompute_scale(dtype) -> float:
+    """``PEAK_FLOPS`` over the GEMM rate of ``dtype`` (a torch dtype or
+    its name): what a FLOPs vector is multiplied by so that dividing it
+    by ``PEAK_FLOPS`` prices the recompute at the model's own rate.
+    Reads the constants when called."""
+    name = str(dtype).replace("torch.", "")
+    if name in ("bfloat16", "float16"):
+        return PEAK_FLOPS / PEAK_FLOPS_BF16
+    return 1.0
 
 
 def plan_unit_flops(lm, batch) -> np.ndarray:

@@ -2,8 +2,10 @@
 path.
 
 Runs on CUDA unless ``--device cpu`` is given (and raises when no GPU is
-present).  On the H100, with the hand-written kernels (flash attention
-for ``bert_base_paper``, the SSD chunk scan for ``mamba2_1p3b``):
+present).  ``--arch`` takes a registered id or its dashed name
+(``models/registry.py``).  On the H100, with the hand-written kernels
+(flash attention for the attention families, the SSD chunk scan for
+``mamba2_1p3b``, both for the hybrid ``hymba_1p5b``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch bert_base_paper \\
         --dataset squad --planner mimose --attn-impl flash --budget-mb 3000 \\
@@ -11,6 +13,12 @@ for ``bert_base_paper``, the SSD chunk scan for ``mamba2_1p3b``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_1p3b \\
         --dataset squad --planner mimose --attn-impl flash --budget-mb 30000 \\
         --steps 16 --batch-size 8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba_1p5b \\
+        --dataset squad --planner mimose --attn-impl flash --budget-mb 25000 \\
+        --steps 8 --batch-size 8
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch granite-moe-1b-a400m --dataset squad --planner mimose \\
+        --attn-impl flash --budget-mb 19500 --steps 8 --batch-size 8
 
 CPU demo at reduced scale, and the planner's decision space (the
 Sublinear and DTR baselines, no checkpointing, adaptive microbatching
@@ -18,6 +26,10 @@ and the background solver):
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
         --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+        --arch hymba_1p5b --attn-impl flash --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+        --arch granite_moe_1b_a400m --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
         --steps 3 --planner dtr --budget-mb 120
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
@@ -49,7 +61,8 @@ from repro_torch.data.pipeline import (DISTRIBUTIONS, bucket_length,
 from repro_torch.launch.report import engine_report
 from repro_torch.launch.roofline import PCIE_BW
 from repro_torch.models.lm import LM, configure_offload
-from repro_torch.models.registry import get_config
+from repro_torch.models.registry import (ARCH_IDS, REDUCED_ONLY,
+                                         canonical, get_config)
 from repro_torch.obs import build_telemetry, flush_telemetry
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.train.trainer import Trainer
@@ -58,7 +71,9 @@ from repro_torch.train.transfer import calibrated_pcie_gbps
 
 def main(argv=None) -> Trainer:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="bert_base_paper")
+    ap.add_argument("--arch", default="bert_base_paper",
+                    help=f"a registered id or its dashed name: "
+                         f"{', '.join(ARCH_IDS)}")
     ap.add_argument("--dataset", default="swag", choices=list(DISTRIBUTIONS))
     ap.add_argument("--planner", default="mimose",
                     choices=["mimose", "sublinear", "dtr", "none"])
@@ -137,6 +152,9 @@ def main(argv=None) -> Trainer:
         args.pcie_gbps = calibrated_pcie_gbps(PCIE_BW / 1e9)
 
     cfg = get_config(args.arch)
+    if canonical(args.arch) in REDUCED_ONLY and not args.reduced:
+        ap.error(f"--arch {args.arch} trains only with --reduced "
+                 f"({REDUCED_ONLY[canonical(args.arch)]})")
     if args.reduced:
         # an attention-free config keeps d_ff = 0 (no MLPs), and scan
         # mode keeps two chunks
@@ -196,7 +214,8 @@ def main(argv=None) -> Trainer:
         st = trainer.history[-1]
         source = ("hit" if st.cache_hit else
                   "collected" if st.collected else "predicted")
-        print(f"step {i:4d} loss {loss:.4f} S={batch['tokens'].shape[1]} "
+        print(f"step {i:4d} loss {loss:.4f} (ce {st.ce:.4f} aux "
+              f"{st.aux:.4f}) S={batch['tokens'].shape[1]} "
               f"bucket={st.bucket} remat={st.remat_units} "
               f"offload={st.offload_units} opt_offload="
               f"{st.opt_offload_units} k={st.microbatches} plan={source} "

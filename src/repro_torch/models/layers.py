@@ -1,9 +1,12 @@
-"""Core layers of the dense family: plain functions on tensors.
+"""Core layers shared by the model families: plain functions on tensors.
 
 Counterpart of the reference's ``models/layers.py``.  Parameters are
 dict-like (``nn.ParameterDict`` or plain dicts of tensors) in the
 reference's layout: dense weights stored ``(d_in, d_out)`` and applied
-as ``x @ w``.  All shapes follow ``(batch, seq, d_model)``.
+as ``x @ w``.  All shapes follow ``(batch, seq, d_model)``.  Attention
+takes GQA, RoPE, causal / sliding-window / per-layer local-global masks
+and qk-norm; the plain path of a local layer runs the banded
+``sdpa_banded_local`` where the reference does.
 """
 from __future__ import annotations
 
@@ -39,10 +42,14 @@ def rmsnorm_init(d: int, dtype) -> dict:
 
 def attention_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim()
-    return {"wq": dense_init(gen, d, cfg.num_heads * hd, dtype),
-            "wk": dense_init(gen, d, cfg.num_kv_heads * hd, dtype),
-            "wv": dense_init(gen, d, cfg.num_kv_heads * hd, dtype),
-            "wo": dense_init(gen, cfg.num_heads * hd, d, dtype)}
+    p = {"wq": dense_init(gen, d, cfg.num_heads * hd, dtype),
+         "wk": dense_init(gen, d, cfg.num_kv_heads * hd, dtype),
+         "wv": dense_init(gen, d, cfg.num_kv_heads * hd, dtype),
+         "wo": dense_init(gen, cfg.num_heads * hd, d, dtype)}
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, dtype)
+        p["k_norm"] = rmsnorm_init(hd, dtype)
+    return p
 
 
 def mlp_init(gen: torch.Generator, d: int, ff: int, act: str,
@@ -98,6 +105,41 @@ def build_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
     return causal & ((q_pos[..., :, None] - k_pos[..., None, :]) < window)
 
 
+def sdpa_banded_local(q, k, v, window: int) -> torch.Tensor:
+    """Causal sliding-window attention with O(S * 2W) score tiles.
+
+    q: (B, S, H, hd); k, v: (B, S, Hkv, hd); S % window == 0 and
+    S >= 2 * window.  Each block of W queries attends its own key block
+    and the previous one (zeros before block 0) under the causal window
+    mask, so the far-past columns are never materialised.
+    """
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    group = H // Hkv
+    W = window
+    nb = S // W
+    qb = q.reshape(B, nb, W, Hkv, group, hd)
+    kb = k.reshape(B, nb, W, Hkv, hd)
+    vb = v.reshape(B, nb, W, Hkv, hd)
+    kprev = F.pad(kb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :nb]
+    vprev = F.pad(vb, (0, 0, 0, 0, 0, 0, 1, 0))[:, :nb]
+    k2 = torch.cat([kprev, kb], dim=2)                 # (B, nb, 2W, Hkv, hd)
+    v2 = torch.cat([vprev, vb], dim=2)
+    logits = torch.einsum("bnqkgh,bnskh->bnkgqs", qb.float(),
+                          k2.float()) / math.sqrt(hd)
+    # query a of a block sees key b - W relative to the block's start
+    a = torch.arange(W, device=q.device)[:, None]
+    b = torch.arange(2 * W, device=q.device)[None, :] - W
+    mask = (a >= b) & ((a - b) < W)                    # causal + window
+    mask0 = mask & (b >= 0)                            # block 0: no prev
+    first = torch.arange(nb, device=q.device)[:, None, None] == 0
+    m = torch.where(first, mask0[None], mask[None])    # (nb, W, 2W)
+    logits = logits.masked_fill(~m[None, :, None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bnkgqs,bnskh->bnqkgh", probs.to(v.dtype), v2)
+    return out.reshape(B, S, H, hd)
+
+
 def sdpa_reference(q, k, v, mask) -> torch.Tensor:
     """Plain attention with GQA.  q: (B, Sq, H, hd); k, v: (B, Sk, Hkv, hd);
     mask broadcastable to (B, Sq, Sk) boolean; masked scores are set to
@@ -124,13 +166,20 @@ def attention_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
     ``kv_len``: optional (B,) int32 true lengths of a bucket-padded
     batch — padded keys are masked out (and skipped tile-wise by the
     flash kernels).  ``impl="flash"`` runs the hand-written kernels;
-    ``"xla"`` (the reference's name) runs ``sdpa_reference``.
+    ``"xla"`` (the reference's name) runs ``sdpa_reference``, or on a
+    local layer with ``S % W == 0`` and ``S >= 2 W`` the banded
+    ``sdpa_banded_local`` (with or without ``kv_len``, as the reference:
+    the band is causal and padding a suffix, so a valid query only sees
+    valid keys).
     """
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
     k = (x @ params["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
     v = (x @ params["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -140,6 +189,8 @@ def attention_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
         from repro_torch.kernels import ops as kernel_ops
         out = kernel_ops.flash_attention(q, k, v, kv_len, causal=True,
                                          window=W if is_local else 0)
+    elif impl == "xla" and is_local and S % W == 0 and S >= 2 * W:
+        out = sdpa_banded_local(q, k, v, W)
     elif impl == "xla":
         mask = build_mask(positions, positions, W, layer_is_global)
         if kv_len is not None:

@@ -1,8 +1,10 @@
 """The language-model shell: embedding -> N plannable blocks -> final
-norm -> tied lm head.
+norm -> lm head (tied to the embedding, or its own ``lm_head``).
 
-Counterpart of the reference's ``models/lm.py`` for the dense and ssm
-(Mamba2) families, in unrolled or scan mode.  The Mimose planner sees
+Counterpart of the reference's ``models/lm.py`` for the decoder-only
+families -- dense (qk-norm and sliding-window layers included), ssm
+(Mamba2), moe and hybrid (Hymba) -- in unrolled or scan mode.  Families
+differ only in what a block contains.  The Mimose planner sees
 the model as an ordered list of plan units and decides which to
 rematerialise: one unit per block in unrolled mode, one per chunk of
 consecutive layers in scan mode (``scan_chunks`` chunks, the reference's
@@ -16,13 +18,17 @@ one — and a rematerialised layer's forward runs again in the backward.
     units = lm.plan_units(batch)          # for the Mimose collector
 
 Parameters keep the reference's tree and layout (``embed``,
-``final_norm.scale``, ``blocks.<i>.{norm1, attn.{wq,wk,wv,wo}, norm2,
-mlp.{wi,wo}}`` or ``blocks.<i>.{norm1, ssm.{in_proj, conv_w, ...}}``,
-dense weights ``(d_in, d_out)``), one entry per layer in both modes, so
+``final_norm.scale``, ``lm_head`` when untied, ``blocks.<i>.{norm1,
+attn.{wq,wk,wv,wo[,q_norm,k_norm]}, norm2, mlp | moe}``,
+``blocks.<i>.{norm1, ssm.{in_proj, conv_w, ...}}`` or ``blocks.<i>.{norm1,
+mixer.{attn, ssm, attn_scale, ssm_scale}, norm2, mlp}``, dense weights
+``(d_in, d_out)``), one entry per layer in both modes, so
 ``repro_torch.bridge`` converts the reference's parameters with a plain
 copy (unstacking the scan mode's layer axis).  ``attn_impl="flash"``
-selects the hand-written kernels of every mixer: flash attention, or
-the SSD chunk scan.
+selects the hand-written kernels of every mixer: flash attention, the
+SSD chunk scan, or both (hybrid).  A block returns its auxiliary loss
+beside its output (the MoE load-balance loss; ``None`` for the other
+kinds, the reference's zeros), and the loss is ``ce + aux``.
 """
 from __future__ import annotations
 
@@ -36,13 +42,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.actions import Action, as_actions
 from repro_torch.config import ModelConfig
+from repro_torch.models import hymba as HY
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MOE
 from repro_torch.train.transfer import TransferLane
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-FAMILIES = ("dense", "ssm")      # the block kind is the family
+FAMILIES = ("dense", "ssm", "moe", "hybrid")   # the block kind is the family
 
 
 def resolve_device(device) -> torch.device:
@@ -71,6 +79,9 @@ class ParamTree(nn.Module):
     def __getitem__(self, key: str):
         return getattr(self, key)
 
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
     def items(self):
         yield from self._parameters.items()
         yield from self._modules.items()
@@ -83,42 +94,57 @@ class ParamTree(nn.Module):
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                dtype) -> dict:
     d = cfg.d_model
+    p = {"norm1": L.rmsnorm_init(d, dtype)}
     if kind == "ssm":
-        p = {"norm1": L.rmsnorm_init(d, dtype),
-             "ssm": M.mamba2_init(gen, cfg, dtype)}
+        p["ssm"] = M.mamba2_init(gen, cfg, dtype)
         if cfg.d_ff:
             p["norm2"] = L.rmsnorm_init(d, dtype)
             p["mlp"] = L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dtype)
         return p
-    mlp = L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dtype)
-    return {"norm1": L.rmsnorm_init(d, dtype),
-            "attn": L.attention_init(gen, cfg, dtype),
-            "norm2": L.rmsnorm_init(d, dtype),
-            "mlp": mlp}
+    # the feed-forward part is drawn before the mixer, so a seed gives
+    # the dense models the weights it gave them before the other kinds
+    ffn = (MOE.moe_init(gen, cfg, dtype) if kind == "moe"
+           else L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_act, dtype))
+    if kind == "hybrid":
+        p["mixer"] = HY.hymba_init(gen, cfg, dtype)
+    else:
+        p["attn"] = L.attention_init(gen, cfg, dtype)
+    p["norm2"] = L.rmsnorm_init(d, dtype)
+    p["moe" if kind == "moe" else "mlp"] = ffn
+    return p
 
 
 def block_apply(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
                 positions: torch.Tensor, layer_is_global: bool = True,
                 impl: str = "xla",
-                seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One block: pre-norm mixer (attention, or the Mamba2 mixer for
-    ``kind="ssm"``) and MLP, both residual; an ssm block without
-    ``d_ff`` has no MLP."""
+                seq_lens: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block: pre-norm mixer (attention; the Mamba2 mixer for
+    ``kind="ssm"``; attention and Mamba2 in parallel for ``"hybrid"``)
+    and MLP (the MoE for ``"moe"``), both residual; an ssm block without
+    ``d_ff`` has no MLP.  Returns ``(x, aux)``: the MoE's load-balance
+    loss, or None."""
     eps = cfg.norm_eps
     h = L.rmsnorm_apply(params["norm1"], x, eps)
     if kind == "ssm":
         x = x + M.mamba2_apply(params["ssm"], cfg, h, seq_lens=seq_lens,
                                impl=impl)
         if not cfg.d_ff:
-            return x
+            return x, None
+    elif kind == "hybrid":
+        x = x + HY.hymba_apply(params["mixer"], cfg, h, positions=positions,
+                               layer_is_global=layer_is_global, impl=impl,
+                               seq_lens=seq_lens)
     else:
         x = x + L.attention_apply(params["attn"], cfg, h,
                                   positions=positions,
                                   layer_is_global=layer_is_global,
                                   impl=impl, kv_len=seq_lens)
-    return x + L.mlp_apply(params["mlp"],
-                           L.rmsnorm_apply(params["norm2"], x, eps),
-                           cfg.mlp_act)
+    h2 = L.rmsnorm_apply(params["norm2"], x, eps)
+    if kind == "moe":
+        out, aux = MOE.moe_apply(params["moe"], cfg, h2)
+        return x + out, aux
+    return x + L.mlp_apply(params["mlp"], h2, cfg.mlp_act), None
 
 
 class _OffloadChain:
@@ -144,27 +170,32 @@ class _OffloadChain:
 class _OffloadLayer(torch.autograd.Function):
     """One layer whose input checkpoint goes to host memory.  Inputs:
     ``(x, fn, chain, *params)``: ``fn(x)`` runs the layer on its
-    parameters ``params`` (passed so autograd routes their gradients)."""
+    parameters ``params`` (passed so autograd routes their gradients)
+    and returns ``(y, aux)``.  Outputs ``y``, or ``(y, aux)`` when the
+    layer has an auxiliary loss; the backward takes the incoming
+    gradient of each."""
 
     @staticmethod
     def forward(ctx, x, fn, chain, *params):
         ctx.fn, ctx.chain = fn, chain
         ctx.index = len(chain.handles)
         chain.handles.append(chain.lane.offload(x))
-        ctx.n_params = len(params)
         ctx.params = params
-        return fn(x)                 # forward of a Function: no grad
+        y, aux = fn(x)               # forward of a Function: no grad
+        ctx.has_aux = aux is not None
+        return (y, aux) if ctx.has_aux else y
 
     @staticmethod
-    def backward(ctx, grad_out):
+    def backward(ctx, *grad_outs):
         chain, i = ctx.chain, ctx.index
         x = chain.fetch(i)
         chain.prefetch(i - 1)        # the next input the backward needs
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
-            y = ctx.fn(xx)
-            grads = torch.autograd.grad(y, (xx,) + tuple(ctx.params),
-                                        grad_out, allow_unused=True)
+            y, aux = ctx.fn(xx)
+            outs = (y, aux) if ctx.has_aux else (y,)
+            grads = torch.autograd.grad(outs, (xx,) + tuple(ctx.params),
+                                        grad_outs, allow_unused=True)
         return (grads[0], None, None) + tuple(grads[1:])
 
 
@@ -174,7 +205,9 @@ class PlanUnit:
     name: str
     index: int                     # forward timestamp order
     params: Any                    # the block's tree, or a list of them
-    apply: Callable[[Any, torch.Tensor], torch.Tensor]   # fn(params, x) -> x
+    # fn(params, x) -> x (the auxiliary loss is dropped, as the
+    # reference's units do)
+    apply: Callable[[Any, torch.Tensor], torch.Tensor]
     # behavioural statics baked into ``apply``: two units with equal
     # signature and equal param/input shapes save identical residuals,
     # so the collector traces only one of them
@@ -184,18 +217,17 @@ class PlanUnit:
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
         "family": cfg.family not in FAMILIES,
-        "qk_norm": cfg.qk_norm,
         "mrope": cfg.mrope,
         "encoder_layers": cfg.encoder_layers > 0,
         "vision_tokens": cfg.vision_tokens > 0,
         "remat_mode": cfg.remat_mode not in ("unrolled", "scan"),
-        "tie_embeddings": not cfg.tie_embeddings,
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense and ssm tied-embedding "
-            f"models, unrolled or in scan mode; unsupported settings: {bad}")
+            f"{cfg.name}: the port runs the decoder-only families "
+            f"{FAMILIES}, unrolled or in scan mode; unsupported settings: "
+            f"{bad}")
 
 
 class LM(nn.Module):
@@ -218,10 +250,13 @@ class LM(nn.Module):
         with torch.device("meta" if device.type == "meta" else "cpu"):
             embed = L.embed_init(gen, cfg.vocab_size, cfg.d_model, dt)
             final_norm = L.rmsnorm_init(cfg.d_model, dt)
+            lm_head = (None if cfg.tie_embeddings else
+                       L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt))
             blocks = [block_init(gen, cfg, self.kind, dt)
                       for _ in range(cfg.num_layers)]
         self.embed = nn.Parameter(embed)
         self.final_norm = ParamTree(final_norm)
+        self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
         self.blocks = nn.ModuleList(ParamTree(b) for b in blocks)
         self.to(device)
         # OFFLOAD execution: True runs it for real (the only mode on
@@ -280,11 +315,18 @@ class LM(nn.Module):
     # -- forward -----------------------------------------------------------
     def forward(self, batch: Dict[str, torch.Tensor],
                 actions=None) -> torch.Tensor:
-        """Logits (B, S, V) in fp32.  ``actions``: per-unit plan (bools or
-        ``Action``); every layer of a REMAT unit is checkpointed, every
-        layer input of an OFFLOAD unit goes to host memory.  ``lengths``
-        ((B,) true lengths of a bucket-padded batch) are threaded into
-        every block's mixer."""
+        """Logits (B, S, V) in fp32 (``forward_aux`` also returns the
+        auxiliary loss)."""
+        return self.forward_aux(batch, actions)[0]
+
+    def forward_aux(self, batch: Dict[str, torch.Tensor], actions=None
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(logits (B, S, V) in fp32, the blocks' summed auxiliary loss or
+        None).  ``actions``: per-unit plan (bools or ``Action``); every
+        layer of a REMAT unit is checkpointed, every layer input of an
+        OFFLOAD unit goes to host memory.  ``lengths`` ((B,) true
+        lengths of a bucket-padded batch) are threaded into every
+        block's mixer."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -295,9 +337,10 @@ class LM(nn.Module):
         seq_lens = batch.get("lengths")
         if seq_lens is not None:
             seq_lens = seq_lens.to(device=x.device, dtype=torch.int32)
-        x = self.blocks_forward(x, actions, positions, seq_lens)
+        x, aux = self.blocks_forward(x, actions, positions, seq_lens)
         x = L.rmsnorm_apply(self.final_norm, x, cfg.norm_eps)
-        return (x @ self.embed.t()).float()
+        head = self.embed.t() if self.lm_head is None else self.lm_head
+        return (x @ head).float(), aux
 
     def lane(self) -> TransferLane:
         """The transfer lane OFFLOAD units copy through."""
@@ -306,17 +349,20 @@ class LM(nn.Module):
         return self.transfer_lane
 
     def blocks_forward(self, x: torch.Tensor, actions, positions,
-                       seq_lens=None) -> torch.Tensor:
+                       seq_lens=None
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Every block under the plan ``actions`` (one per unit); each
         layer of a REMAT unit is checkpointed on its own, each layer of
         an OFFLOAD unit sends its input to the host (``_OffloadLayer``;
-        as REMAT when ``offload_exec`` is False or grad is off)."""
+        as REMAT when ``offload_exec`` is False or grad is off).
+        Returns the last block's output and the summed auxiliary loss
+        (None when no block has one)."""
         n = self.num_plan_units()
         acts = (as_actions(actions) if actions is not None
                 else (Action.KEEP,) * n)
         if len(acts) != n:
             raise ValueError(f"plan has {len(acts)} actions for {n} units")
-        chain = None
+        chain = aux = None
         for act, (s, e) in zip(acts, self.unit_bounds()):
             for i in range(s, e):
                 def one(xx, _blk=self.blocks[i], _g=self._is_global(i)):
@@ -329,19 +375,24 @@ class LM(nn.Module):
                         and torch.is_grad_enabled()):
                     if chain is None:
                         chain = _OffloadChain(self.lane())
-                    x = _OffloadLayer.apply(x, one, chain,
-                                            *self.blocks[i].parameters())
+                    out = _OffloadLayer.apply(x, one, chain,
+                                              *self.blocks[i].parameters())
+                    x, a = out if isinstance(out, tuple) else (out, None)
                 elif act in (Action.REMAT, Action.OFFLOAD):
-                    x = checkpoint(one, x, use_reentrant=False)
+                    x, a = checkpoint(one, x, use_reentrant=False)
                 else:
-                    x = one(x)
-        return x
+                    x, a = one(x)
+                if a is not None:
+                    aux = a if aux is None else aux + a
+        return x, aux
 
     def loss(self, batch: Dict[str, torch.Tensor],
              actions=None) -> Tuple[torch.Tensor, dict]:
-        """Weighted mean of (logsumexp - label logit) over
-        ``max(sum(weights), 1)``."""
-        logits = self.forward(batch, actions)
+        """``ce + aux``: ce the weighted mean of (logsumexp - label logit)
+        over ``max(sum(weights), 1)``, aux the blocks' summed auxiliary
+        loss (0 for families without one).  Metrics: ``ce``, ``aux``,
+        ``tokens``."""
+        logits, aux = self.forward_aux(batch, actions)
         labels = batch["labels"].long()
         weights = batch.get("weights")
         if weights is None:
@@ -350,7 +401,10 @@ class LM(nn.Module):
         label_logit = logits.gather(-1, labels[..., None])[..., 0]
         total_w = weights.float().sum().clamp_min(1.0)
         ce = ((lse - label_logit) * weights).sum() / total_w
-        return ce, {"ce": ce, "tokens": total_w}
+        if aux is None:
+            return ce, {"ce": ce, "aux": torch.zeros_like(ce),
+                        "tokens": total_w}
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": total_w}
 
     # -- plan units ----------------------------------------------------------
     def num_plan_units(self) -> int:
@@ -379,8 +433,9 @@ class LM(nn.Module):
                 B, S = xx.shape[:2]
                 pos = torch.arange(S, device=xx.device).expand(B, S)
                 for lp in (p if scan else [p]):
-                    xx = block_apply(lp, cfg, xx, self.kind, positions=pos,
-                                     layer_is_global=_g, impl=self.attn_impl)
+                    xx, _ = block_apply(lp, cfg, xx, self.kind,
+                                        positions=pos, layer_is_global=_g,
+                                        impl=self.attn_impl)
                 return xx
             if scan:
                 units.append(PlanUnit(f"chunk{u}[{s}:{e}]", u,

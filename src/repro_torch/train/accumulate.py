@@ -19,6 +19,12 @@ executes it:
   and weighting each microbatch's mean by its token count recovers it.
   Each microbatch's backward completes before the next forward, so
   activation liveness is bounded by ONE microbatch.
+
+The cross-entropy keeps that exactness for every family.  The MoE
+load-balance loss is a nonlinear statistic of the router's
+probabilities, so the k-way step carries the token-weighted mean of the
+per-microbatch aux, as the reference does: it balances the experts per
+microbatch, not per mini-batch (an all-pad microbatch adds nothing).
 """
 from __future__ import annotations
 
@@ -64,7 +70,10 @@ def accumulated_grads(lm, batch: Dict[str, torch.Tensor], k: int,
 
     Returns ``(loss, metrics, grads)`` — ``grads`` by parameter name, in
     the parameters' dtypes — matching the full-batch loss and
-    gradients to fp32 allclose.  Each microbatch adds its unnormalised
+    gradients to fp32 allclose (families without an aux loss; with one,
+    ``metrics["aux"]`` is the token-weighted mean of the microbatches'
+    aux and ``metrics["ce"]`` is ``loss - aux``).  Each microbatch adds
+    its unnormalised
     quantities (``loss_i * t_i`` recovers its nll sum whatever the
     loss's weight clamp, ``grads_i * t_i`` likewise) to fp32
     accumulators, with ``t_i`` the loss's token count, or 0 for an
@@ -77,7 +86,7 @@ def accumulated_grads(lm, batch: Dict[str, torch.Tensor], k: int,
     names = list(params)
     g_acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
              for n, p in params.items()}
-    l_acc = w_acc = None
+    l_acc = a_acc = w_acc = None
     for i in range(k):
         mb = {key: v[i] for key, v in mbs.items()}
         loss, metrics = lm.loss(mb, actions)
@@ -92,9 +101,12 @@ def accumulated_grads(lm, batch: Dict[str, torch.Tensor], k: int,
             if g is not None:
                 g_acc[n].addcmul_(g.float(), t)
         term = loss.detach().float() * t
+        a_term = metrics["aux"].detach().float() * t
         l_acc = term if l_acc is None else l_acc + term
+        a_acc = a_term if a_acc is None else a_acc + a_term
         w_acc = w_raw if w_acc is None else w_acc + w_raw
     denom = w_acc.clamp_min(1.0)
     grads = {n: (g_acc[n] / denom).to(params[n].dtype) for n in names}
     loss = l_acc / denom
-    return loss, {"ce": loss, "tokens": denom}, grads
+    aux = a_acc / denom
+    return loss, {"ce": loss - aux, "aux": aux, "tokens": denom}, grads

@@ -87,6 +87,13 @@ class StepStats:
     # simulator's (1 - overlap) price of the bytes the lane moved
     exposed_transfer_s: float = 0.0
     sim_transfer_s: float = 0.0
+    # the loss's parts: cross entropy and the auxiliary (MoE
+    # load-balance) loss, 0 for families without one
+    ce: float = 0.0
+    aux: float = 0.0
+    # layers whose forward runs again in the backward (every layer of a
+    # REMAT or OFFLOAD unit), per microbatch
+    recompute_layers: int = 0
 
 
 class Trainer:
@@ -382,7 +389,11 @@ class Trainer:
             max_memory_bytes=int(peak), microbatches=k,
             offload_units=plan.n_offload, opt_offload_units=plan.n_opt,
             offload_degraded=degraded, exposed_transfer_s=exposed_s,
-            sim_transfer_s=sim_s))
+            sim_transfer_s=sim_s, ce=float(metrics["ce"].detach()),
+            aux=float(metrics["aux"].detach()),
+            recompute_layers=sum(
+                e - s for a, (s, e) in zip(actions, self.lm.unit_bounds())
+                if int(a) in (int(Action.REMAT), int(Action.OFFLOAD)))))
         if tel.events_on:
             tel.events.emit("train_step", step=len(self.history) - 1,
                             bucket=bucket, loss=loss, k=k,
@@ -445,6 +456,8 @@ class Trainer:
             "padded_tokens_per_s": padded / warm_s if warm else 0.0,
             "pad_fraction": (1.0 - eff / max(padded, 1.0)) if warm else 0.0,
             "final_loss": h[-1].loss,
+            "final_ce": h[-1].ce,
+            "final_aux": h[-1].aux,
             # background-solver counters (0 without the solver tier)
             **{key: int(stats.get(key, 0))
                for key in ("solves", "solver_swaps", "solver_wins",

@@ -575,6 +575,56 @@ def test_chip_smoke_split_check_tells_split_from_no_split(split):
     assert passes == split, share
 
 
+@pytest.mark.parametrize("family,heads,windows", [
+    ("HYMBA_ARGS", (25, 5), [0, 1024]), ("GRANITE_ARGS", (16, 8), [0])])
+def test_chip_smoke_flash_main_cases_cover_each_bucket(family, heads,
+                                                      windows):
+    """``chip_smoke.py`` holds K1-K3 at every bucket of the hymba and
+    granite main paths, with that bucket's true lengths, at the family's
+    heads, bf16, once for each window its layers run."""
+    smoke = _chip_smoke()
+    args = getattr(smoke, family)
+    batches = smoke.main_path_batches(args)
+    cases = smoke.flash_main_cases(args, batches)
+    by_bucket = smoke.lengths_by_bucket(batches)
+    want = {(8, S, *heads, 64, True, w, "bfloat16", True): lens
+            for S, lens in by_bucket.items() for w in windows}
+    assert cases == want
+    assert len(by_bucket) > 1
+
+
+def test_chip_smoke_controls_change_the_mixer_and_are_undone():
+    """The controls of ``chip_smoke.py``'s mixer check (the wrong kv
+    head; hymba's SSD half skipped), on a reduced hymba through the plain
+    path: each moves the mixer's output far past ``MIXER_RTOL`` while it
+    holds, and leaves every parameter as it was after."""
+    from repro_torch.models import hymba as HY
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import get_config
+    smoke = _chip_smoke()
+    lm = LM(get_config("hymba_1p5b").reduced(dtype="float32"),
+            device="cpu")
+    before = {n: p.detach().clone() for n, p in lm.named_parameters()}
+    B, S = 2, 32
+    h = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (B, S, lm.cfg.d_model)).astype(np.float32))
+    positions = torch.arange(S).expand(B, S)
+
+    def mixer():
+        with torch.no_grad():
+            return HY.hymba_apply(lm.blocks[0]["mixer"], lm.cfg, h,
+                                  positions=positions)
+    sound = mixer()
+    controls = smoke._controls(lm, 0)
+    assert set(controls) == {"kv heads rolled", "SSD half skipped"}
+    for pairs in controls.values():
+        with smoke._swapped(pairs):
+            assert smoke._rel(mixer(), sound, [S] * B) > 5 * smoke.MIXER_RTOL
+        assert torch.equal(mixer(), sound)
+    for n, p in lm.named_parameters():
+        assert torch.equal(p, before[n]), n
+
+
 # ---------------------------------------------------------------------------
 # the DMA copy (K5)
 # ---------------------------------------------------------------------------
@@ -674,6 +724,9 @@ SSD_ROUTES = [
     ((2, 64, 4, 16, 16, 16, "bfloat16", "float32"), "ssd_scan_fma"),
     ((1, 128, 6, 64, 128, 64, "bfloat16", "float32"), "ssd_scan_fma"),
     ((1, 128, 4, 64, 128, 32, "bfloat16", "float32"), "ssd_scan_fma"),
+    # hymba's SSD heads: P = 50, N = 16
+    ((2, 128, 8, 50, 16, 64, "bfloat16", "float32"), "ssd_scan_fma"),
+    ((1, 64, 4, 50, 16, 64, "float32", "float32"), "ssd_scan_fma"),
 ]
 
 

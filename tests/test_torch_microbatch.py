@@ -159,6 +159,63 @@ def test_all_pad_microbatch_contributes_nothing(models):
 
 
 # ---------------------------------------------------------------------------
+# the MoE's auxiliary loss under accumulation (reduced granite)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def moe_models():
+    over = dict(dtype="float32")
+    jlm = build_model(jax_get_config("granite_moe_1b_a400m").reduced(**over))
+    params = jlm.init(jax.random.PRNGKey(1))
+    lm = LM(get_config("granite_moe_1b_a400m").reduced(**over),
+            device="cpu")
+    bridge.load_tree(lm, params)
+    return jlm, params, lm
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_moe_accumulated_grads_match_reference(moe_models, k):
+    """The k-way step's loss, ce, aux and every gradient against the
+    reference's ``accumulated_grads`` (aux: the token-weighted mean of
+    the microbatches'; k = 3 adds a pad row of length 0)."""
+    jlm, params, lm = moe_models
+    batch = _ragged(8, 48, 512, seed=3)
+    jl, jm, jg = jax.jit(lambda p, b: jax_accumulated(jlm, p, b, k))(
+        params, {key: jnp.asarray(v) for key, v in batch.items()})
+    loss, metrics, grads = accumulated_grads(lm, _torch(batch), k)
+    np.testing.assert_allclose(float(loss), float(jl), **LOSS_TOL)
+    for key in ("ce", "aux"):
+        np.testing.assert_allclose(float(metrics[key]), float(jm[key]),
+                                   err_msg=key, **LOSS_TOL)
+    want = bridge.state_dict_from_tree(jg)
+    assert set(grads) == set(want)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(),
+                                   err_msg=name, **GRAD_TOL)
+
+
+def test_moe_split_keeps_ce_and_weights_aux_by_tokens(moe_models):
+    """k = 2 against k = 1: the cross entropy is the full batch's (to
+    the loss tolerance), and aux is the token-weighted mean of the two
+    microbatches' own aux, not the full batch's."""
+    _, _, lm = moe_models
+    batch = _torch(_ragged(8, 48, 512, seed=7))
+    with torch.no_grad():
+        full, m1 = lm.loss(batch)
+        halves = split_batch(batch, 2)
+        parts = [lm.loss({key: v[i] for key, v in halves.items()})[1]
+                 for i in range(2)]
+    _, m2, _ = accumulated_grads(lm, batch, 2)
+    np.testing.assert_allclose(float(m2["ce"]), float(m1["ce"]),
+                               **LOSS_TOL)
+    tok = [float(m["tokens"]) for m in parts]
+    want_aux = sum(float(m["aux"]) * t for m, t in zip(parts, tok)) \
+        / sum(tok)
+    np.testing.assert_allclose(float(m2["aux"]), want_aux, **LOSS_TOL)
+    assert abs(float(m2["aux"]) - float(m1["aux"])) > 1e-6
+
+
+# ---------------------------------------------------------------------------
 # planner threading
 # ---------------------------------------------------------------------------
 

@@ -13,6 +13,8 @@ permuted copy ``einsum`` makes of it, and one GELU input.  So the byte
 vector is held to [0.35, 0.75] of the reference's, and both grow the
 same way (superlinear in S).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,8 @@ from repro_torch.core.estimator import PolyEstimator
 from repro_torch.core.planner import (MimosePlanner, NonePlanner,
                                       fixed_train_bytes)
 from repro_torch.core.scheduler import greedy_plan
+from repro_torch.core.simulator import simulate
+from repro_torch.launch import roofline
 from repro_torch.models.lm import LM
 from repro_torch.models.registry import get_config
 
@@ -142,6 +146,21 @@ def test_collector_bytes_within_tolerance_of_reference():
                       <= ours.activation_vector())
 
 
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "hymba_1p5b"])
+def test_collector_new_families_match_reference_flops_and_outputs(arch):
+    """The moe and hybrid units: FLOPs and output bytes equal to the
+    reference's; residual bytes positive and below the reference's (the
+    ratio is data, ROADMAP §C: ``tests/torch_collector_ratios.py``)."""
+    from torch_collector_ratios import collections
+    for S, (ours, ref) in collections(arch, "xla").items():
+        np.testing.assert_array_equal(ours.flops_vector(),
+                                      ref.flops_vector())
+        np.testing.assert_array_equal(ours.output_vector(),
+                                      ref.output_vector())
+        acts = ours.activation_vector()
+        assert np.all(acts > 0) and np.all(acts < ref.activation_vector())
+
+
 def test_weight_grad_residuals_exceed_input_only_count(lms):
     """The planner counts what the input gradient needs (as the
     reference); training also keeps each matmul's input for the weight
@@ -235,3 +254,35 @@ def test_fixed_train_bytes_accounts_adam(lms):
 def test_none_planner_keeps_everything(lms):
     mask, info = NonePlanner(lms["xla"]).plan(_batch(64))
     assert not any(mask) and len(mask) == 4 and info.quantized_size == 128
+
+
+# ---------------------------------------------------------------------------
+# the planning rate follows the model's dtype
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recompute_priced_at_the_rate_of_the_models_dtype(dtype):
+    """A planner hands the simulator FLOPs that, over ``PEAK_FLOPS``,
+    give the recompute time at the GEMM rate of the model's dtype: fp32
+    models at ``PEAK_FLOPS`` (the vector passes unchanged), bf16 models
+    at ``PEAK_FLOPS_BF16``."""
+    cfg = dataclasses.replace(
+        get_config("granite_moe_1b_a400m").reduced(), dtype=dtype)
+    lm = LM(cfg, device="meta")
+    planner = MimosePlanner(lm, 1e12, quantum=32)
+    flops = np.array([3e12, 5e12])
+    scaled = planner.planning_flops(flops)
+    rate = (roofline.PEAK_FLOPS if dtype == "float32"
+            else roofline.PEAK_FLOPS_BF16)
+    if dtype == "float32":
+        assert scaled is flops
+    r = simulate([1e6, 1e6], [True, False], 0.0, [0.0, 0.0], scaled)
+    np.testing.assert_allclose(r.recompute_time_s, 3e12 / rate, rtol=1e-12)
+    assert planner.planning_flops(None) is None
+
+
+def test_recompute_scale_reads_the_constants_when_called(monkeypatch):
+    monkeypatch.setattr(roofline, "PEAK_FLOPS_BF16", 2.0 * roofline.PEAK_FLOPS)
+    assert roofline.recompute_scale(torch.bfloat16) == 0.5
+    assert roofline.recompute_scale("float16") == 0.5
+    assert roofline.recompute_scale("float32") == 1.0

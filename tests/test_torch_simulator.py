@@ -136,6 +136,9 @@ def test_port_constants_are_the_h100s_not_the_tpus():
     for name in ("PEAK_FLOPS", "PCIE_BW", "MICROBATCH_OVERHEAD_S"):
         mine, tpu = getattr(roofline, name), getattr(ref_roofline, name)
         assert mine > 0 and mine != tpu, name
+    # the bf16 rate against the TPU's (its PEAK_FLOPS is a bf16 rate)
+    assert roofline.PEAK_FLOPS_BF16 > roofline.PEAK_FLOPS
+    assert roofline.PEAK_FLOPS_BF16 != ref_roofline.PEAK_FLOPS
 
 
 def test_unpinned_simulate_prices_at_the_port_constants():

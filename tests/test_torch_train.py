@@ -87,6 +87,34 @@ def test_launcher_runs_on_cpu():
     assert "summary:" in res.stdout
 
 
+@pytest.mark.parametrize("arch,impl", [("hymba_1p5b", "xla"),
+                                       ("granite-moe-1b-a400m", "flash")])
+def test_launcher_runs_new_families_on_cpu(arch, impl):
+    """``--arch`` takes a registered id or its dashed name, and
+    ``--reduced`` cuts the hybrid and MoE families to CPU size; the step
+    lines carry ce and aux (granite's aux > 0).  (hymba's flash route on
+    the CPU runs the SSD scan's sequential plain version, which
+    ``tests/test_torch_hybrid.py`` covers at a smaller size.)"""
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--reduced", "--arch", arch, "--attn-impl", impl, "--steps", "2",
+         "--batch-size", "4", "--budget-mb", "60"],
+        cwd=REPO, env=_env(), capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "summary:" in res.stdout
+    steps = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("step ") and ln.split()[1].isdigit()]
+    assert len(steps) == 2
+    aux = [float(ln.split(" aux ")[1].split(")")[0]) for ln in steps]
+    assert all(a > 0 for a in aux) == arch.startswith("granite")
+
+
+def test_launcher_trains_kimi_only_reduced():
+    with pytest.raises(SystemExit):
+        launch_train.main(["--arch", "kimi-k2-1t-a32b", "--device", "cpu",
+                           "--steps", "1"])
+
+
 def test_launcher_refuses_cuda_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
@@ -114,9 +142,14 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     assert res.returncode == 0, res.stderr
     loaded = set(res.stdout.split())
     assert len(loaded) >= 20
-    # the planner's decision space, host offload and telemetry are
-    # reached by the walk
+    # the planner's decision space, host offload, telemetry and the MoE
+    # and hybrid families (with their configs) are reached by the walk
     assert {"repro_torch.core.simulator", "repro_torch.core.solver",
+            "repro_torch.models.moe", "repro_torch.models.hymba",
+            "repro_torch.configs.granite_moe_1b_a400m",
+            "repro_torch.configs.kimi_k2_1t_a32b",
+            "repro_torch.configs.hymba_1p5b",
+            "repro_torch.configs.qwen3_1p7b", "repro_torch.configs.yi_9b",
             "repro_torch.core.baselines", "repro_torch.train.accumulate",
             "repro_torch.launch.calibrate", "repro_torch.train.transfer",
             "repro_torch.launch.bench_offload_bw",

@@ -19,7 +19,10 @@ import pkgutil
 import repro_torch
 from repro.launch import roofline as ref_roofline
 
+# the reference's one PEAK_FLOPS is its chip's bf16 rate; the port keeps
+# an fp32 and a bf16 rate, and both take it
 REF = {"PEAK_FLOPS": ref_roofline.PEAK_FLOPS,
+       "PEAK_FLOPS_BF16": ref_roofline.PEAK_FLOPS,
        "PCIE_BW": ref_roofline.PCIE_BW,
        "MICROBATCH_OVERHEAD_S": ref_roofline.MICROBATCH_OVERHEAD_S}
 
@@ -31,7 +34,7 @@ def port_modules() -> list:
 
 
 def pin_reference_constants(monkeypatch) -> dict:
-    """Rebind the three constants in every port module that binds them;
+    """Rebind the constants in every port module that binds them;
     raise if a class of the port holds one of their values.  Returns
     the pinned values."""
     from repro_torch.launch import roofline
