@@ -99,12 +99,38 @@ Phases (each raises on failure; the script then exits non-zero):
 10. ``qwen3_1p7b`` at full width, 2 layers: one loss and each layer's
    attention through the kernels (qk-norm, hd 128) against the plain
    path, beside the wrong-kv-head control;
+11. seamless path (the encoder-decoder family; the launcher builds no
+   stub inputs, so the run goes through ``Trainer.run`` with a seeded
+   normal ``frames`` (B, S, d) function): K1-K3 at each bucket with its
+   true lengths (B = 8, 16 / 16 heads x 64, bf16); one loss of
+   ``seamless_m4t_large_v2`` at full width, 2 + 2 layers, and each
+   decoder layer's self and cross attention against the plain path,
+   beside two controls (the wrong kv head; the cross attention fed a
+   zero encoder output); full width and depth (24 encoder and 24
+   decoder layers, 48 plan units) trains 8 steps under Mimose, launch
+   counts read around it: K1 = sum k (24 + recomputed decoder layers),
+   K2 = K3 = sum 24 k (the encoder's and the cross attention run
+   plain, as in the reference); profile and memory; then one batch at
+   4 + 4 layers under KEEP, every unit OFFLOAD, and encoder REMAT with
+   decoder OFFLOAD (deterministic algorithms on): loss and every
+   gradient, the encoder's included, equal KEEP's bitwise or within
+   ``OFFLOAD_TOL``, the lane's bytes the offloaded inputs;
+12. qwen2-vl path (the vision-language family, a seeded normal
+   ``vision_embeds`` (B, 1024, d) function): K1-K3 at each bucket behind
+   the 1024 vision tokens (S = 1024 + bucket, ``kv_len`` = lengths +
+   1024; B = 4, 28 / 4 heads x 128, bf16); the 2-layer loss and mixer
+   checks beside two controls (the wrong kv head; plain RoPE over
+   ``arange(S)`` for M-RoPE); full-width ``qwen2_vl_7b`` at 8 of its 28
+   layers in 2 scan chunks of 4 trains 8 steps under Mimose: K1 = sum k
+   (8 + recomputed layers), K2 = K3 = sum 8 k; profile and memory;
 
 then prints the card line, one ``{"kernels": [...]}`` JSON line (no new
 kernel on the offload path: it runs K1-K3; K1-K3 launches are the bert,
-hymba and granite paths'; K4's are the mamba2 path's tensor-core
-kernel's, with the hymba path's FMA launches as ``hymba_launches``), and, as
-the last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without
+hymba, granite, seamless and qwen2-vl paths', with each bf16 family's
+``<family>_max_abs_err`` beside the maximum; K4's are the mamba2 path's
+tensor-core kernel's, with the hymba path's FMA launches as
+``hymba_launches``), and, as the last line, ``{"ok": true, "device":
+{...}}``.  Exits non-zero without
 a CUDA device, and when the repository's ``src/`` is not beside it.
 """
 from __future__ import annotations
@@ -144,8 +170,19 @@ HYMBA_ARGS = dict(arch="hymba_1p5b", dataset="squad", batch_size=8,
                   steps=8, quantum=32)
 GRANITE_ARGS = dict(arch="granite_moe_1b_a400m", dataset="squad",
                     batch_size=8, steps=8, quantum=32)
+# the encoder-decoder and vision-language paths, driven through
+# ``Trainer`` (the launcher builds no stub inputs): seamless at full
+# width and depth (24 + 24 layers), B = 8; qwen2-vl at full width, 8 of
+# its 28 layers in 2 scan chunks of 4 (all 28 hold 85 GiB of fixed
+# bytes), B = 4 (buckets 384, 416, 320, 416, 384, 384, 448, 416 behind
+# 1024 vision tokens)
+SEAMLESS_ARGS = dict(arch="seamless_m4t_large_v2", dataset="squad",
+                     batch_size=8, steps=8, quantum=32)
+QWEN2VL_ARGS = dict(arch="qwen2_vl_7b", dataset="squad", batch_size=4,
+                    steps=8, quantum=32,
+                    over=dict(num_layers=8, scan_chunks=2))
 # profile groups after each family's own kernels: first match wins
-OTHER_GROUPS = [("gemm", ("gemm", "cutlass", "xmma", "sm90_")),
+OTHER_GROUPS = [("gemm", ("gemm", "cutlass", "xmma", "sm90_", "nvjet")),
                 ("elementwise", ("elementwise",)), ("reductions", ("reduce",))]
 # one full-width bf16 loss through the kernels against the plain path at
 # 2 layers (check_model_at_depth), and each layer's mixer likewise
@@ -157,6 +194,10 @@ OTHER_GROUPS = [("gemm", ("gemm", "cutlass", "xmma", "sm90_")),
 # sound, 0.26 to 1.42 under the controls
 BF16_MODEL_RTOL = 2.5e-4
 MIXER_RTOL = 2e-2
+# seamless's loss at 2 + 2 layers moves less under its zero-encoder
+# control (8.2e-5) than the other paths' controls do, and its sound gap
+# is 3.5e-6 (NVIDIA H100 80GB HBM3, 700 W): the limit sits between them
+SEAMLESS_LOSS_RTOL = 2e-5
 # share of the first batch's collected activation bytes the budget
 # leaves on top of the fixed bytes: the rest must be rematerialised
 BUDGET_ACT_SHARE = 0.6
@@ -405,14 +446,40 @@ def check_kernels(fa, ops, cases, lens_of=None):
 # the main path
 # ---------------------------------------------------------------------------
 
+def path_config(args, **over):
+    """The path's configuration: the registered one with the path's cuts
+    (``args["over"]``) and ``over``."""
+    import dataclasses
+    from repro_torch.models.registry import get_config
+    return dataclasses.replace(get_config(args["arch"]),
+                               **{**args.get("over", {}), **over})
+
+
+def stub_inputs(cfg, seed=0):
+    """The stub frontends' batch entries as ``make_batches`` ``extra``
+    functions ``fn(B, S)``, from one seeded normal generator: an
+    encoder-decoder's ``frames`` (B, S, d), one frame per bucket token
+    (the reference's ``launch/steps.py``), and a vision-language model's
+    ``vision_embeds`` (B, vt, d); {} for the other families."""
+    rng = np.random.default_rng(seed)
+    d = cfg.d_model
+    if cfg.family == "encdec":
+        return {"frames": lambda B, S: rng.standard_normal(
+            (B, S, d), dtype=np.float32)}
+    if cfg.family == "vlm":
+        return {"vision_embeds": lambda B, S: rng.standard_normal(
+            (B, cfg.vision_tokens, d), dtype=np.float32)}
+    return {}
+
+
 def main_path_batches(args):
     from repro_torch.data.pipeline import make_batches
-    from repro_torch.models.registry import get_config
-    cfg = get_config(args["arch"])
+    cfg = path_config(args)
     return list(make_batches(args["dataset"], batch_size=args["batch_size"],
                              vocab_size=cfg.vocab_size,
                              num_batches=args["steps"],
-                             quantum=args["quantum"], seed=0))
+                             quantum=args["quantum"], seed=0,
+                             extra=stub_inputs(cfg)))
 
 
 def lengths_by_bucket(batches):
@@ -426,14 +493,17 @@ def lengths_by_bucket(batches):
 def flash_main_cases(args, batches):
     """{case: the bucket's true lengths} for K1-K3 at each bucket of a
     family's main-path ``batches``, at its attention's shape, once for
-    each window its layers run (0 on a global layer)."""
-    from repro_torch.models.registry import get_config
-    cfg = get_config(args["arch"])
+    each window its layers run (0 on a global layer).  A vision-language
+    model's sequence is its vision prefix and the bucket, its lengths
+    the text's plus the prefix."""
+    cfg = path_config(args)
     W = cfg.sliding_window
     windows = sorted(({W} if W else set())
                      | ({0} if not W or cfg.global_interval else set()))
-    return {(args["batch_size"], S, cfg.num_heads, cfg.num_kv_heads,
-             cfg.resolved_head_dim(), True, w, cfg.dtype, True): lens
+    vt = cfg.vision_tokens if cfg.family == "vlm" else 0
+    return {(args["batch_size"], vt + S, cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim(), True, w, cfg.dtype, True):
+            [vt + n for n in lens]
             for S, lens in sorted(lengths_by_bucket(batches).items())
             for w in windows}
 
@@ -454,12 +524,13 @@ def derive_budget_mb(args, first_batch) -> float:
                                            unit_residual_bytes)
     from repro_torch.core.planner import fixed_train_bytes
     from repro_torch.models.lm import LM
-    from repro_torch.models.registry import get_config
-    lm = LM(get_config(args["arch"]), attn_impl="flash", device="meta")
+    lm = LM(path_config(args), attn_impl="flash", device="meta")
     fixed = fixed_train_bytes(lm.parameters())
     n_params = sum(p.numel() for p in lm.parameters())
     B, S = first_batch["tokens"].shape
     tokens = {"tokens": torch.zeros((B, S), dtype=torch.long)}
+    tokens.update({k: torch.empty(np.shape(first_batch[k]), device="meta")
+                   for k in ("frames", "vision_embeds") if k in first_batch})
     act = ShuttlingCollector(lm).collect(tokens).total_activation_bytes()
     budget = fixed + BUDGET_ACT_SHARE * act
     units = lm.num_plan_units()
@@ -470,16 +541,23 @@ def derive_budget_mb(args, first_batch) -> float:
         f"first batch (B={B}, S={S}, {units} units) = "
         f"{budget / 2**20:.1f} MiB")
     # what the planner's model leaves out (the measured peak's excess)
-    unit = lm.plan_units(tokens)[0]
-    shape = (B, S, lm.cfg.d_model)
-    x_only = unit_residual_bytes(unit, shape, lm.dtype)["activation_bytes"]
-    train = unit_residual_bytes(unit, shape, lm.dtype,
-                                weight_grads=True)["activation_bytes"]
-    log(f"residuals per unit ({unit.name}) at S={S}: {x_only / 2**20:.2f} "
-        f"MiB counted (input gradient only, as the reference) vs "
-        f"{train / 2**20:.2f} MiB held in training (weight gradients too); "
-        f"fp32 logits {B * S * lm.cfg.vocab_size * 4 / 2**20:.2f} MiB per "
-        f"copy, outside every unit")
+    units = lm.plan_units(tokens)
+    # the first unit, and an encoder-decoder's first decoder unit
+    for unit in {units[0].name: units[0],
+                 units[lm.cfg.encoder_layers].name:
+                 units[lm.cfg.encoder_layers]}.values():
+        shape = lm.unit_input_shape(unit, tokens)
+        x_only = unit_residual_bytes(unit, shape,
+                                     lm.dtype)["activation_bytes"]
+        train = unit_residual_bytes(unit, shape, lm.dtype,
+                                    weight_grads=True)["activation_bytes"]
+        log(f"residuals per unit ({unit.name}) at {shape}: "
+            f"{x_only / 2**20:.2f} MiB counted (input gradient only, as the "
+            f"reference) vs {train / 2**20:.2f} MiB held in training "
+            f"(weight gradients too)")
+    S_out = lm.unit_input_shape(units[-1], tokens)[1]
+    log(f"fp32 logits {B * S_out * lm.cfg.vocab_size * 4 / 2**20:.2f} MiB "
+        f"per copy, outside every unit")
     return budget / 2**20
 
 
@@ -537,13 +615,14 @@ def check_main_path(trainer, launches):
     """What a main path's run must show; raises otherwise."""
     h = trainer.history
     lm = trainer.lm
-    L = lm.cfg.num_layers
+    L = lm.cfg.num_layers                 # the decoder's layers
     n_units = lm.num_plan_units()
     losses = [s.loss for s in h]
-    # every layer runs its mixers' kernels once in each microbatch's
-    # forward, and each layer of a REMAT unit once more in the backward's
-    # recompute; the backward kernels run once per layer
-    fwd = sum(s.microbatches * (L + s.recompute_layers) for s in h)
+    # every decoder layer runs its mixers' kernels once in each
+    # microbatch's forward, and each layer of a REMAT unit once more in
+    # the backward's recompute; the backward kernels run once per layer.
+    # An encoder's layers (and a decoder's cross attention) run plain
+    fwd = sum(s.microbatches * (L + s.recompute_dec_layers) for s in h)
     bwd = sum(s.microbatches * L for s in h)
     log(f"main path launches: {launches}")
     checks = {
@@ -558,7 +637,7 @@ def check_main_path(trainer, launches):
     flash = {
         "every flash kernel launched": all(launches[k] > 0
                                            for k in FLASH_KERNELS),
-        f"K1 (tensor cores) = sum k ({L} + recomputed layers)":
+        f"K1 (tensor cores) = sum k ({L} + recomputed decoder layers)":
             launches["flash_fwd"] == fwd,
         f"K2 = K3 (tensor cores) = sum {L} k": launches["flash_bwd_dq"]
         == launches["flash_bwd_dkv"] == bwd,
@@ -596,8 +675,10 @@ def check_main_path(trainer, launches):
     summ = trainer.summary()
     log(f"main path {lm.cfg.name}: per step loss / ce / aux "
         + ", ".join(f"{s.loss:.4f} / {s.ce:.4f} / {s.aux:.5f}" for s in h)
-        + f"; recomputed layers {[s.recompute_layers for s in h]}")
-    log(f"main path: tokens/s over warm steps {summ['tokens_per_s']:.1f} "
+        + f"; recomputed layers {[s.recompute_layers for s in h]}, of "
+        f"them in the decoder {[s.recompute_dec_layers for s in h]}")
+    log(f"main path: tokens/s (text tokens, loss weights) over warm steps "
+        f"{summ['tokens_per_s']:.1f} "
         f"(padded {summ['padded_tokens_per_s']:.1f}), mean warm step "
         f"{summ['mean_step_s'] * 1e3:.2f} ms, plan time "
         f"{summ['total_plan_s'] * 1e3:.2f} ms total, first step "
@@ -1998,13 +2079,14 @@ def check_ssd_hymba(ops, ssd, kb, cfg, S, lens):
 
 def check_model_at_depth(args, batch, rtol, layers=2):
     """``check_model`` and ``check_mixers`` on a full-width
-    ``args["arch"]`` cut to ``layers`` layers (its own seeded weights),
-    freed after; the loss under each control of ``_controls`` must miss
-    ``rtol`` too, so the loss check is shown able to fail."""
-    import dataclasses
+    ``args["arch"]`` cut to ``layers`` layers (an encoder-decoder:
+    ``layers`` encoder and ``layers`` decoder layers; its own seeded
+    weights), freed after; the loss under each control of ``_controls``
+    must miss ``rtol`` too, so the loss check is shown able to fail."""
     from repro_torch.models.lm import LM
-    from repro_torch.models.registry import get_config
-    cfg = dataclasses.replace(get_config(args["arch"]), num_layers=layers)
+    base = path_config(args)
+    cfg = path_config(args, num_layers=layers, **(
+        {"encoder_layers": layers} if base.encoder_layers else {}))
     lm = LM(cfg, attn_impl="flash", device="cuda")
     kernel, plain = check_model(lm, batch, args["quantum"], rtol)
     gaps = {n: abs(v - plain) / abs(plain) for n, v in check_mixers(
@@ -2022,39 +2104,67 @@ def check_model_at_depth(args, batch, rtol, layers=2):
     torch.cuda.empty_cache()
 
 
-def check_plans_equal_keep(args, batch, layers=6, chunks=2):
-    """The MoE's auxiliary loss through checkpointing and the transfer
-    lane: full-width ``args["arch"]`` at ``layers`` layers in ``chunks``
-    scan chunks, one batch under all-KEEP, all-REMAT and all-OFFLOAD
-    (deterministic algorithms on); REMAT's and OFFLOAD's loss, aux and
-    every gradient equal KEEP's, bitwise or within ``OFFLOAD_TOL``, and
-    the lane moved every layer's input out and back."""
-    import dataclasses
+def check_plans_equal_keep(args, batch, plans, layers=6, chunks=2):
+    """Checkpointing and the transfer lane change no value: full-width
+    ``args["arch"]`` at ``layers`` layers (an encoder-decoder: ``layers``
+    encoder and ``layers`` decoder layers) in ``chunks`` scan chunks, one
+    batch under all-KEEP and under each plan of ``plans`` ({name:
+    fn(n_encoder_units, n_decoder_units) -> actions}; deterministic
+    algorithms on): loss, aux and every gradient (the encoder's
+    included) equal KEEP's, bitwise or within ``OFFLOAD_TOL``, the lane
+    moved exactly each OFFLOAD layer's input out and back, and each
+    plan's launches meet K1 = L + recomputed decoder layers, K2 = K3 =
+    L."""
     from repro_torch.actions import Action
+    from repro_torch.kernels import ops
     from repro_torch.models.lm import LM
-    from repro_torch.models.registry import get_config
-    cfg = dataclasses.replace(get_config(args["arch"]), num_layers=layers,
-                              scan_chunks=chunks)
+    base = path_config(args)
+    cfg = path_config(args, num_layers=layers, scan_chunks=chunks, **(
+        {"encoder_layers": layers} if base.encoder_layers else {}))
     lm = LM(cfg, attn_impl="flash", device="cuda")
     b = _device_batch(batch, args["quantum"])
     B, S = b["tokens"].shape
-    out = {}
+    stream = {"encoder.blocks": b["frames"].shape[1] if "frames" in b
+              else 0, "blocks": lm.unit_input_shape(
+                  lm.plan_units(b)[-1], b)[1]}
+    ne, nd = cfg.encoder_layers, len(lm.unit_bounds())
+    el = torch.empty((), dtype=lm.dtype).element_size()
+    out, moved, want, k1 = {}, {}, {}, {}
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        for act in (Action.KEEP, Action.REMAT, Action.OFFLOAD):
-            loss, m = lm.loss(b, (act,) * lm.num_plan_units())
+        for name, fn in {"KEEP": lambda e, d: (Action.KEEP,) * (e + d),
+                         **plans}.items():
+            acts = fn(ne, nd)
+            lm.lane().reset_stats()
+            ops.reset_launches()
+            loss, m = lm.loss(b, acts)
             loss.backward()
             torch.cuda.synchronize()
-            out[act.name] = (loss.detach().clone(), m["aux"].detach().clone(),
-                             {n: p.grad.clone()
-                              for n, p in lm.named_parameters()})
+            rec = sum(e - s_ for a, (stack, s_, e)
+                      in zip(acts, lm.plan_unit_layers())
+                      if stack == "blocks"
+                      and a in (Action.REMAT, Action.OFFLOAD))
+            k1[name] = (ops.LAUNCHES["flash_fwd"], layers + rec)
+            if not (ops.LAUNCHES["flash_fwd"] == layers + rec
+                    and ops.LAUNCHES["flash_bwd_dq"]
+                    == ops.LAUNCHES["flash_bwd_dkv"] == layers):
+                raise AssertionError(f"{name}: launches {ops.LAUNCHES}, "
+                                     f"not K1 = {layers} + {rec}, K2 = "
+                                     f"K3 = {layers}")
+            out[name] = (loss.detach().clone(), m["aux"].detach().clone(),
+                         {n: p.grad.clone()
+                          for n, p in lm.named_parameters()})
             lm.zero_grad(set_to_none=True)
+            moved[name] = lm.lane().reset_stats()
+            want[name] = sum(
+                (e - s_) * B * stream[stack] * cfg.d_model * el
+                for a, (stack, s_, e) in zip(acts, lm.plan_unit_layers())
+                if a is Action.OFFLOAD)
     finally:
         torch.use_deterministic_algorithms(False)
-    lane = lm.transfer_lane.reset_stats()
     keep = out["KEEP"]
-    res = {"aux": float(keep[1]), "lane_bytes_out": int(lane["bytes_out"])}
-    for name in ("REMAT", "OFFLOAD"):
+    res = {"aux": float(keep[1])}
+    for name in plans:
         got = out[name]
         e_loss = max(_same_or_close(f"{name} loss", got[0], keep[0],
                                     OFFLOAD_TOL["loss"]),
@@ -2064,20 +2174,21 @@ def check_plans_equal_keep(args, batch, layers=6, chunks=2):
                                     OFFLOAD_TOL["grads"])
                      for n, g in got[2].items())
         res[name] = {"bitwise": e_loss == 0.0 and e_grad == 0.0,
-                     "loss_err": e_loss, "grad_err": e_grad}
-    want = (layers * B * S * cfg.d_model
-            * torch.empty((), dtype=lm.dtype).element_size())
-    log(f"plan equality {cfg.name} ({layers} layers in {chunks} chunks, "
-        f"B={B} S={S}): loss {float(keep[0]):.7f}, aux {float(keep[1]):.7f} "
-        f"under KEEP; REMAT {res['REMAT']}, OFFLOAD {res['OFFLOAD']} "
-        f"against KEEP (tolerances {OFFLOAD_TOL}); lane out "
-        f"{lane['bytes_out'] / 2**20:.2f} MiB, in "
-        f"{lane['bytes_in'] / 2**20:.2f} MiB (the layers' inputs "
-        f"{want / 2**20:.2f} MiB)")
-    if not (keep[1] > 0 and torch.isfinite(keep[1])):
+                     "loss_err": e_loss, "grad_err": e_grad,
+                     "lane_bytes_out": int(moved[name]["bytes_out"]),
+                     "offloaded_inputs": int(want[name]),
+                     "K1": k1[name][0]}
+        if not (moved[name]["bytes_out"] == moved[name]["bytes_in"]
+                == want[name]):
+            raise AssertionError(f"{name}: the lane moved {moved[name]}, "
+                                 f"not the offloaded inputs' {want[name]} "
+                                 f"bytes")
+    log(f"plan equality {cfg.name} ({ne} + {layers} layers, {nd} decoder "
+        f"units, B={B} S={S}): loss {float(keep[0]):.7f}, aux "
+        f"{float(keep[1]):.7f} under KEEP; against KEEP (tolerances "
+        f"{OFFLOAD_TOL}): " + json.dumps({n: res[n] for n in plans}))
+    if lm.kind == "moe" and not (keep[1] > 0 and torch.isfinite(keep[1])):
         raise AssertionError(f"aux is not finite and > 0: {float(keep[1])}")
-    if lane["bytes_out"] != want or lane["bytes_in"] != want:
-        raise AssertionError("OFFLOAD did not move every layer's input")
     del lm, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -2091,21 +2202,6 @@ def _rel(a, b, lens):
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         raise AssertionError("mixer output is not finite")
     return float((a - b).norm() / b.norm())
-
-
-def _controls(lm, i):
-    """{name: [(tensor, its control value)]} for layer ``i``: the kv heads
-    rolled by one (each query head reads the wrong kv head), and for
-    the hybrid mixer its SSD half skipped (``ssm_scale`` 0)."""
-    blk = lm.blocks[i]
-    attn = blk["mixer"]["attn"] if lm.kind == "hybrid" else blk["attn"]
-    hd = lm.cfg.resolved_head_dim()
-    out = {"kv heads rolled": [(attn[w], torch.roll(attn[w], hd, dims=1))
-                               for w in ("wk", "wv")]}
-    if lm.kind == "hybrid":
-        scale = blk["mixer"]["ssm_scale"]
-        out["SSD half skipped"] = [(scale, torch.zeros_like(scale))]
-    return out
 
 
 class _swapped:
@@ -2126,80 +2222,168 @@ class _swapped:
                 t.copy_(v)
 
 
+class _config_swapped:
+    """Context: ``lm.cfg`` with the fields ``over`` changed."""
+
+    def __init__(self, lm, **over):
+        self.lm, self.over = lm, over
+
+    def __enter__(self):
+        import dataclasses
+        self.saved = self.lm.cfg
+        self.lm.cfg = dataclasses.replace(self.saved, **self.over)
+
+    def __exit__(self, *exc):
+        self.lm.cfg = self.saved
+
+
+def _controls(lm, layers):
+    """{name: context manager} of the controls over the decoder layers
+    ``layers``: the kv heads rolled by one (each query head reads the
+    wrong kv head; the self attention's); for the hybrid mixer its SSD
+    half skipped (``ssm_scale`` 0); for an encoder-decoder the cross
+    attention fed a zero encoder output (the encoder's final norm scale
+    0); for M-RoPE plain RoPE over ``arange(S)`` instead."""
+    hd = lm.cfg.resolved_head_dim()
+    attn = [lm.blocks[i]["mixer"]["attn"] if lm.kind == "hybrid"
+            else lm.blocks[i]["attn"] for i in layers]
+    out = {"kv heads rolled": _swapped([(a[w], torch.roll(a[w], hd, dims=1))
+                                        for a in attn for w in ("wk", "wv")])}
+    if lm.kind == "hybrid":
+        out["SSD half skipped"] = _swapped(
+            [(lm.blocks[i]["mixer"]["ssm_scale"],
+              torch.zeros_like(lm.blocks[i]["mixer"]["ssm_scale"]))
+             for i in layers])
+    if lm.kind == "dec":
+        scale = lm.encoder.final_norm["scale"]
+        out["encoder output zeroed"] = _swapped(
+            [(scale, torch.zeros_like(scale))])
+    if lm.cfg.mrope:
+        out["1-D RoPE for M-RoPE"] = _config_swapped(lm, mrope=False)
+    return out
+
+
 def check_mixers(lm, batch, quantum, rtol):
-    """Each layer's mixer (attention; hymba's attention and SSD halves)
-    through the kernels against the plain path, on the plain path's
-    residual stream, at ``_rel`` <= ``rtol``; and each control of
-    ``_controls`` through the kernels, which must land above ``rtol`` in
-    every layer, so the check is shown able to fail.  Returns the loss
-    through the kernels under each control (all layers swapped)."""
+    """Each decoder layer's mixer (attention; hymba's attention and SSD
+    halves; an encoder-decoder's self and cross attention) through the
+    kernels against the plain path, on the plain path's residual stream,
+    at ``_rel`` <= ``rtol``; and each control of ``_controls`` through
+    the kernels, which must land above ``rtol`` in every layer, so the
+    check is shown able to fail.  Returns the loss through the kernels
+    under each control (all layers)."""
+    from repro_torch.actions import Action
     from repro_torch.models import hymba as HY
     from repro_torch.models import layers as L
     from repro_torch.models.lm import block_apply
-    cfg = lm.cfg
     b = _device_batch(batch, quantum)
-    lens = [int(x) for x in b["lengths"]]
-    B, S = b["tokens"].shape
-    positions = torch.arange(S, device="cuda").expand(B, S)
-    seq_lens = b["lengths"].to(torch.int32)
+    n_layers = lm.cfg.num_layers
+    B, _ = b["tokens"].shape
+    enc_keep = (Action.KEEP,) * lm.cfg.encoder_layers
 
-    def mixer(i, h, impl):
-        blk, g = lm.blocks[i], lm._is_global(i)
+    def mixer(i, x, positions, mpos, seq_lens, impl):
+        cfg, blk, g = lm.cfg, lm.blocks[i], lm._is_global(i)
+        h = L.rmsnorm_apply(blk["norm1"], x, cfg.norm_eps)
         if lm.kind == "hybrid":
             return HY.hymba_apply(blk["mixer"], cfg, h, positions=positions,
                                   layer_is_global=g, impl=impl,
                                   seq_lens=seq_lens)
-        return L.attention_apply(blk["attn"], cfg, h, positions=positions,
-                                 layer_is_global=g, impl=impl,
-                                 kv_len=seq_lens)
+        a = L.attention_apply(blk["attn"], cfg, h, positions=positions,
+                              layer_is_global=g, impl=impl,
+                              kv_len=seq_lens, mrope_positions=mpos)
+        if lm.kind != "dec":
+            return a
+        # the cross attention over the encoder's output, as block_apply
+        enc = lm.encode(b, enc_keep)
+        hd = cfg.resolved_head_dim()
+        ck, cv = ((enc @ blk["cross"][w]).reshape(
+            B, enc.shape[1], cfg.num_kv_heads, hd) for w in ("wk", "wv"))
+        hx = L.rmsnorm_apply(blk["norm_cross"], x + a, cfg.norm_eps)
+        return a + L.attention_apply(blk["cross"], cfg, hx,
+                                     positions=positions, impl=impl,
+                                     cross_kv=(ck, cv))
     sound, ctrl = [], {}
     with torch.no_grad():
-        x = lm.embed[b["tokens"]]
-        for i in range(cfg.num_layers):
-            h = L.rmsnorm_apply(lm.blocks[i]["norm1"], x, cfg.norm_eps)
-            plain = mixer(i, h, "xla")
-            sound.append(_rel(mixer(i, h, "flash"), plain, lens))
-            for name, pairs in _controls(lm, i).items():
-                with _swapped(pairs):
-                    ctrl.setdefault(name, []).append(
-                        _rel(mixer(i, h, "flash"), plain, lens))
-            x, _ = block_apply(lm.blocks[i], cfg, x, lm.kind,
+        x, positions, mpos = lm._embed_inputs(b)
+        seq_lens = b["lengths"].to(torch.int32) + (x.shape[1]
+                                                   - b["tokens"].shape[1])
+        lens = [int(n) for n in seq_lens]
+        enc = lm.encode(b, enc_keep) if lm.kind == "dec" else None
+        for i in range(n_layers):
+            plain = mixer(i, x, positions, mpos, seq_lens, "xla")
+            sound.append(_rel(mixer(i, x, positions, mpos, seq_lens,
+                                    "flash"), plain, lens))
+            for name, ctl in _controls(lm, [i]).items():
+                with ctl:
+                    ctrl.setdefault(name, []).append(_rel(
+                        mixer(i, x, positions, mpos, seq_lens, "flash"),
+                        plain, lens))
+            x, _ = block_apply(lm.blocks[i], lm.cfg, x, lm.kind,
                                positions=positions,
                                layer_is_global=lm._is_global(i),
-                               impl="xla", seq_lens=seq_lens)
+                               impl="xla", seq_lens=seq_lens, enc_out=enc,
+                               mrope_positions=mpos)
         impl, lm.attn_impl = lm.attn_impl, "flash"
         losses = {}
-        for name in ctrl:
-            pairs = [p for i in range(cfg.num_layers)
-                     for p in _controls(lm, i)[name]]
-            with _swapped(pairs):
+        for name, ctl in _controls(lm, range(n_layers)).items():
+            with ctl:
                 losses[name] = float(lm.loss(b)[0])
         lm.attn_impl = impl
     torch.cuda.synchronize()
-    log(f"mixer check {cfg.name} (B={B} S={S}, {cfg.num_layers} layers): "
-        f"|kernel - plain| / |plain| per layer "
+    log(f"mixer check {lm.cfg.name} (B={B} S={x.shape[1]}, {n_layers} "
+        f"decoder layers): |kernel - plain| / |plain| per layer "
         f"{[f'{e:.3e}' for e in sound]} (limit {rtol}); controls through "
         f"the kernels: " + "; ".join(
             f"{n} {[f'{e:.3e}' for e in v]}, loss {losses[n]:.6f}"
             for n, v in ctrl.items()))
     if max(sound) > rtol:
-        raise AssertionError(f"{cfg.name}: a mixer through the kernels "
+        raise AssertionError(f"{lm.cfg.name}: a mixer through the kernels "
                              f"disagrees with the plain path")
     blind = [n for n, v in ctrl.items() if min(v) <= rtol]
     if blind:
-        raise AssertionError(f"{cfg.name}: the mixer check does not tell "
-                             f"the controls {blind} from the kernels")
+        raise AssertionError(f"{lm.cfg.name}: the mixer check does not "
+                             f"tell the controls {blind} from the kernels")
     return losses
+
+
+def run_trainer_path(args, budget_mb, batches):
+    """A main path through ``Trainer.run``, as the launcher would drive
+    it (Mimose, the launcher's settings) on ``batches``, which carry the
+    stub frontends' entries the launcher does not build; launch counts
+    read around the run and checked."""
+    from repro_torch.core.planner import MimosePlanner
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.trainer import Trainer
+    cfg = path_config(args)
+    lm = LM(cfg, attn_impl="flash", device="cuda")
+    planner = MimosePlanner(lm, budget_mb * 2**20, quantum=args["quantum"],
+                            warmup_samples=3)
+    trainer = Trainer(lm, planner, AdamW(lr=cosine_schedule(
+        3e-4, 10, args["steps"])))
+    log(f"main path: Trainer.run, {cfg.name} ({cfg.encoder_layers} + "
+        f"{cfg.num_layers} layers, {lm.num_plan_units()} units), Mimose at "
+        f"{budget_mb:.3f} MiB, {len(batches)} batches of "
+        f"{sorted(k for k in batches[0] if k not in ('labels', 'weights'))}")
+    ops.reset_launches()
+    trainer.run(batches)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check_main_path(trainer, launches)
+    return trainer, launches
 
 
 def run_family_path(args, batches, profile_groups, rtol):
     """One family's path on its main-path ``batches``: ``check_model`` at
-    2 layers, then the main path's run with launch counts read around
-    it, one profiled warm step and the memory phase; returns the
-    launches."""
+    2 layers, then the main path's run (the launcher; ``Trainer.run``
+    for the stub-input families) with launch counts read around it, one
+    profiled warm step and the memory phase; returns the launches."""
     check_model_at_depth(args, batches[0], rtol)
     budget_mb = derive_budget_mb(args, batches[0])
-    trainer, launches = run_main_path(args, budget_mb)
+    if stub_inputs(path_config(args)):
+        trainer, launches = run_trainer_path(args, budget_mb, batches)
+    else:
+        trainer, launches = run_main_path(args, budget_mb)
     _, batch = most_common_bucket(batches)
     profile_step(trainer, batch, profile_groups)
     memory_phase(trainer, batch)
@@ -2272,6 +2456,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.actions import Action
     from repro_torch.kernels import build as kb
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import offload_dma as dma
@@ -2403,7 +2588,9 @@ def main() -> int:
         GRANITE_ARGS, g_batches, [("flash kernels", ("flash_",)),
                        ("cumsum (MoE slots)", ("scan_outer_dim",))]
         + OTHER_GROUPS, BF16_MODEL_RTOL)
-    check_plans_equal_keep(GRANITE_ARGS, g_batches[0])
+    check_plans_equal_keep(GRANITE_ARGS, g_batches[0], {
+        "REMAT": lambda e, d: (Action.REMAT,) * (e + d),
+        "OFFLOAD": lambda e, d: (Action.OFFLOAD,) * (e + d)})
     log(f"granite path: {time.perf_counter() - t0:.1f} s")
 
     # -- qwen3: qk-norm and head dim 128 through the kernels -------------
@@ -2414,8 +2601,38 @@ def main() -> int:
                          BF16_MODEL_RTOL)
     log(f"qwen3 check: {time.perf_counter() - t0:.1f} s")
 
+    # -- seamless path: the encoder-decoder family, K1-K3 ---------------
+    t0 = time.perf_counter()
+    s_batches = main_path_batches(SEAMLESS_ARGS)
+    s_cases = flash_main_cases(SEAMLESS_ARGS, s_batches)
+    family_errs["seamless"] = check_kernels(fa, ops, list(s_cases), s_cases)
+    log(f"flash kernel checks at the seamless path's shapes passed; max "
+        f"abs error {family_errs['seamless']}")
+    s_launches = run_family_path(
+        SEAMLESS_ARGS, s_batches, [("flash kernels", ("flash_",))]
+        + OTHER_GROUPS, SEAMLESS_LOSS_RTOL)
+    check_plans_equal_keep(SEAMLESS_ARGS, s_batches[0], {
+        "every unit OFFLOAD": lambda e, d: (Action.OFFLOAD,) * (e + d),
+        "encoder REMAT, decoder OFFLOAD":
+            lambda e, d: (Action.REMAT,) * e + (Action.OFFLOAD,) * d},
+        layers=4)
+    log(f"seamless path: {time.perf_counter() - t0:.1f} s")
+
+    # -- qwen2-vl path: the vision-language family, K1-K3 ---------------
+    t0 = time.perf_counter()
+    v_batches = main_path_batches(QWEN2VL_ARGS)
+    v_cases = flash_main_cases(QWEN2VL_ARGS, v_batches)
+    family_errs["qwen2vl"] = check_kernels(fa, ops, list(v_cases), v_cases)
+    log(f"flash kernel checks at the qwen2-vl path's shapes passed; max "
+        f"abs error {family_errs['qwen2vl']}")
+    v_launches = run_family_path(
+        QWEN2VL_ARGS, v_batches, [("flash kernels", ("flash_",))]
+        + OTHER_GROUPS, BF16_MODEL_RTOL)
+    log(f"qwen2-vl path: {time.perf_counter() - t0:.1f} s")
+
     for name in FLASH_KERNELS:
-        launches[name] += h_launches[name] + g_launches[name]
+        launches[name] += (h_launches[name] + g_launches[name]
+                           + s_launches[name] + v_launches[name])
         errs[name] = max([errs[name]] + [e[name]
                                          for e in family_errs.values()])
     kernels = []

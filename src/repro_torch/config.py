@@ -2,9 +2,9 @@
 
 A plain frozen dataclass, so it hashes, prints and overrides with
 ``dataclasses.replace``.  The field set is the reference's, so a
-configuration reads the same in both packages; the port runs the dense
-and ssm families, unrolled or in scan mode, for now (``models/lm.py``
-rejects the rest).
+configuration reads the same in both packages; the port runs every
+family, unrolled or in scan mode (``models/lm.py`` rejects other remat
+modes).
 """
 from __future__ import annotations
 

@@ -71,6 +71,9 @@ class SublinearPlanner(PlannerBase):
             probe = dict(batch)
             probe["tokens"] = torch.zeros((B, max(1, int(s) // B)),
                                           dtype=torch.long)
+            if "frames" in batch:
+                probe["frames"] = torch.zeros(
+                    (B, max(1, int(s) // B), self.lm.cfg.d_model))
             res = self.collector.collect(probe)
             self.estimator.add_sample(res.input_size,
                                       self.collected_vector(res))

@@ -159,8 +159,15 @@ def unit_moment_bytes(unit_params) -> float:
 
 
 def input_size_of(batch) -> int:
-    """Paper §3.1: input size = number of elements in the input tensor."""
-    return int(np.prod(tuple(batch["tokens"].shape)))
+    """Paper §3.1: input size = number of elements in the input tensor:
+    the tokens, plus one per encoder frame and per vision patch (the
+    stub frontends' (B, F) and (B, vt) positions), as the reference
+    counts them."""
+    size = int(np.prod(tuple(batch["tokens"].shape)))
+    for key in ("frames", "vision_embeds"):
+        if key in batch:
+            size += int(np.prod(tuple(batch[key].shape[:2])))
+    return size
 
 
 def _param_sig(node) -> tuple:
@@ -172,7 +179,9 @@ class ShuttlingCollector:
 
     Units are deduplicated by (behavioural signature, parameter shapes,
     input shape and dtype): a homogeneous 12-block model needs one meta
-    trace per input size, not 12, and 8 equal scan-mode chunks one.  ``dedup=False`` traces every unit.
+    trace per input size, not 12, and 8 equal scan-mode chunks one (an
+    encoder-decoder: one encoder and one decoder trace).  ``dedup=False``
+    traces every unit.
     """
 
     def __init__(self, lm, dedup: bool = True):
@@ -184,12 +193,13 @@ class ShuttlingCollector:
         t0 = time.perf_counter()
         units = self.lm.plan_units(batch)
         unit_flops = plan_unit_flops(self.lm, batch)
-        B, S = batch["tokens"].shape
-        x_shape = (int(B), int(S), self.lm.cfg.d_model)
         dtype = self.lm.dtype
         records: List[UnitRecord] = []
         traced = hits = 0
         for u in units:
+            # the encoder's stream for an encoder unit, else the
+            # residual stream (the vision prefix included)
+            x_shape = self.lm.unit_input_shape(u, batch)
             key = info = None
             if self.dedup and u.signature is not None:
                 key = (u.signature, _param_sig(u.params), x_shape, str(dtype))

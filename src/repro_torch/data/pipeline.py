@@ -14,7 +14,7 @@ number of distinct shapes (and Mimose plan-cache entries) stays bounded.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -103,12 +103,16 @@ def top_buckets(dataset: str, *, batch_size: int, quantum: int, k: int,
 
 def make_batches(dataset: str, *, batch_size: int, vocab_size: int,
                  num_batches: int, quantum: int = 32,
-                 seed: int = 0) -> Iterator[dict]:
+                 seed: int = 0,
+                 extra: Optional[Dict[str, Callable]] = None
+                 ) -> Iterator[dict]:
     """Yield padded mini-batches with dynamic sequence lengths.
 
     Each batch dict has ``tokens`` (B, S), ``labels`` (B, S) (next-token),
     ``weights`` (B, S) zeroing the padding and ``lengths`` (B,) — S
-    varies across batches.
+    varies across batches.  ``extra`` maps more batch keys to functions
+    ``fn(B, S) -> array``, called once per batch after the tokens (the
+    stub frontends' ``frames`` and ``vision_embeds``).
     """
     dist = DISTRIBUTIONS[dataset]
     rng = np.random.default_rng(seed)
@@ -128,5 +132,8 @@ def make_batches(dataset: str, *, batch_size: int, vocab_size: int,
         tokens = tokens * weights.astype(np.int32)          # pad id 0
         labels = np.roll(tokens, -1, axis=1)
         labels[:, -1] = 0
-        yield {"tokens": tokens, "labels": labels, "weights": weights,
-               "lengths": lens}
+        batch = {"tokens": tokens, "labels": labels, "weights": weights,
+                 "lengths": lens}
+        if extra:
+            batch.update({k: fn(batch_size, S) for k, fn in extra.items()})
+        yield batch

@@ -1,6 +1,7 @@
 """Planning constants of the H100 and the per-plan-unit analytic cost
 model (copied from the reference's ``launch/roofline.py``, for the
-decoder-only kinds: dense, moe, ssm, hybrid).
+block kinds: dense, moe, ssm, hybrid, and an encoder-decoder's enc and
+dec).
 
 The simulator, scheduler, solver and planners bind the constants below
 at import, as the reference binds its own.  They price a plan's
@@ -45,19 +46,26 @@ PCIE_BW = 5.4387e10
 MICROBATCH_OVERHEAD_S = 0.063917
 
 
-def _attention_flops(cfg, B: int, S: int, *, is_global: bool = True) -> float:
-    """QKVO projections + score/value matmuls for one causal attention
-    layer."""
+def _attention_flops(cfg, B: int, S: int, *, causal: bool = True,
+                     is_global: bool = True, kv_seq: int = 0) -> float:
+    """QKVO projections + score/value matmuls for one attention layer;
+    ``kv_seq`` > 0 is cross attention over that many keys (k, v
+    projected from the encoder's stream)."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim()
+    Sk = kv_seq or S
     proj = 2.0 * B * S * d * cfg.attn_dim()            # q
-    proj += 2.0 * 2.0 * B * S * d * cfg.kv_dim()       # k, v
+    proj += 2.0 * 2.0 * B * Sk * d * cfg.kv_dim()      # k, v
     proj += 2.0 * B * S * cfg.attn_dim() * d           # o
     W = cfg.sliding_window
-    if not is_global and W > 0:
+    if kv_seq:
+        pairs = float(S) * Sk                          # cross: every key
+    elif not is_global and W > 0:
         pairs = float(S) * min(W, S)                   # banded
-    else:
+    elif causal:
         pairs = float(S) * S / 2.0
+    else:
+        pairs = float(S) * S                           # bidirectional
     return proj + 4.0 * B * cfg.num_heads * hd * pairs
 
 
@@ -103,11 +111,19 @@ def ssd_scan_flops_per_position(cfg) -> float:
 
 
 def unit_fwd_flops(cfg, kind: str, *, batch: int, seq: int, layers: int = 1,
-                   is_global: bool = True) -> float:
+                   is_global: bool = True, enc_frames: int = 0) -> float:
     """Analytic forward FLOPs of one plan unit (``layers`` blocks of
-    ``kind`` at geometry (batch, seq))."""
+    ``kind`` at geometry (batch, seq); a ``dec`` block's cross attention
+    over ``enc_frames`` keys)."""
     B, S = int(batch), int(seq)
-    if kind == "ssm":
+    if kind == "enc":
+        per = (_attention_flops(cfg, B, S, causal=False)
+               + _mlp_flops(cfg, B, S))
+    elif kind == "dec":
+        per = (_attention_flops(cfg, B, S, is_global=is_global)
+               + _attention_flops(cfg, B, S, kv_seq=enc_frames or S)
+               + _mlp_flops(cfg, B, S))
+    elif kind == "ssm":
         per = _ssm_flops(cfg, B, S) + _mlp_flops(cfg, B, S)
     elif kind == "dense":
         per = (_attention_flops(cfg, B, S, is_global=is_global)
@@ -139,5 +155,6 @@ def plan_unit_flops(lm, batch) -> np.ndarray:
     geometry, aligned with the planner's byte vectors."""
     return np.array([unit_fwd_flops(lm.cfg, m["kind"], batch=m["batch"],
                                     seq=m["seq"], layers=m["layers"],
-                                    is_global=m["is_global"])
+                                    is_global=m["is_global"],
+                                    enc_frames=m.get("enc_frames", 0))
                      for m in lm.plan_unit_meta(batch)], dtype=np.float64)

@@ -3,9 +3,13 @@ path.
 
 Runs on CUDA unless ``--device cpu`` is given (and raises when no GPU is
 present).  ``--arch`` takes a registered id or its dashed name
-(``models/registry.py``).  On the H100, with the hand-written kernels
-(flash attention for the attention families, the SSD chunk scan for
-``mamba2_1p3b``, both for the hybrid ``hymba_1p5b``):
+(``models/registry.py``), bar the encoder-decoder and vision-language
+families: their batches carry a stub frontend's output, which this
+launcher does not build (nor does the reference's); they train through
+``Trainer`` with ``make_batches(..., extra=...)`` functions.  On the
+H100, with the hand-written kernels (flash attention for the attention
+families, the SSD chunk scan for ``mamba2_1p3b``, both for the hybrid
+``hymba_1p5b``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch bert_base_paper \\
         --dataset squad --planner mimose --attn-impl flash --budget-mb 3000 \\
@@ -67,6 +71,9 @@ from repro_torch.obs import build_telemetry, flush_telemetry
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.train.trainer import Trainer
 from repro_torch.train.transfer import calibrated_pcie_gbps
+
+# the families whose batches carry a stub frontend's output, by key
+STUB_INPUTS = {"encdec": "frames", "vlm": "vision_embeds"}
 
 
 def main(argv=None) -> Trainer:
@@ -152,6 +159,14 @@ def main(argv=None) -> Trainer:
         args.pcie_gbps = calibrated_pcie_gbps(PCIE_BW / 1e9)
 
     cfg = get_config(args.arch)
+    if cfg.family in STUB_INPUTS:
+        # the reference's launcher builds no stub inputs either
+        ap.error(f"--arch {args.arch} ({cfg.family}) needs a "
+                 f"{STUB_INPUTS[cfg.family]!r} entry in every batch, which "
+                 f"this launcher does not build: train it through "
+                 f"repro_torch.train.trainer.Trainer with make_batches(..., "
+                 f"extra={{{STUB_INPUTS[cfg.family]!r}: fn(B, S)}}) "
+                 f"functions")
     if canonical(args.arch) in REDUCED_ONLY and not args.reduced:
         ap.error(f"--arch {args.arch} trains only with --reduced "
                  f"({REDUCED_ONLY[canonical(args.arch)]})")

@@ -4,8 +4,10 @@ Counterpart of the reference's ``models/layers.py``.  Parameters are
 dict-like (``nn.ParameterDict`` or plain dicts of tensors) in the
 reference's layout: dense weights stored ``(d_in, d_out)`` and applied
 as ``x @ w``.  All shapes follow ``(batch, seq, d_model)``.  Attention
-takes GQA, RoPE, causal / sliding-window / per-layer local-global masks
-and qk-norm; the plain path of a local layer runs the banded
+takes GQA, RoPE or M-RoPE, causal / sliding-window / per-layer
+local-global masks, qk-norm, bidirectional self attention (the encoder)
+and cross attention over precomputed keys and values (the decoder of an
+encoder-decoder); the plain path of a local layer runs the banded
 ``sdpa_banded_local`` where the reference does.
 """
 from __future__ import annotations
@@ -91,6 +93,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl).  x: (B, S, H, hd); positions: (3, B,
+    S) integer, the (t, h, w) streams.  The hd/2 frequency slots are cut
+    into ``sections`` groups; slot j rotates by stream ``group(j) % 3``.
+    The section map is cut to hd/2 slots, as the reference's is."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long)
+                     for i, s in enumerate(sections)])[: hd // 2]
+    streams = positions.permute(1, 2, 0).float()           # (B, S, 3)
+    idx = (sec.to(x.device) % 3).expand(*streams.shape[:2], sec.numel())
+    angles = torch.gather(streams, -1, idx) * freqs        # (B, S, hd/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -160,46 +182,77 @@ def sdpa_reference(q, k, v, mask) -> torch.Tensor:
 def attention_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
                     positions: torch.Tensor, layer_is_global: bool = True,
                     impl: str = "xla",
-                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal self attention without a cache (training / prefill).
+                    kv_len: Optional[torch.Tensor] = None,
+                    mrope_positions: Optional[torch.Tensor] = None,
+                    cross_kv: Optional[tuple] = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention without a cache (training / prefill).
 
-    ``kv_len``: optional (B,) int32 true lengths of a bucket-padded
-    batch — padded keys are masked out (and skipped tile-wise by the
-    flash kernels).  ``impl="flash"`` runs the hand-written kernels;
-    ``"xla"`` (the reference's name) runs ``sdpa_reference``, or on a
-    local layer with ``S % W == 0`` and ``S >= 2 W`` the banded
-    ``sdpa_banded_local`` (with or without ``kv_len``, as the reference:
-    the band is causal and padding a suffix, so a valid query only sees
-    valid keys).
+    * self attention, causal (``causal=True``) or bidirectional (the
+      encoder's, ``causal=False``);
+    * cross attention: ``cross_kv = (k, v)``, (B, Sk, Hkv, hd) each,
+      projected from the encoder's output by the caller; no RoPE and
+      no qk-norm on them, every key visible.
+    * ``kv_len``: optional (B,) int32 true lengths of a bucket-padded
+      batch — padded keys of self attention are masked out (and
+      skipped tile-wise by the flash kernels).
+    * ``mrope_positions``: (3, B, S) positions of M-RoPE, used in place
+      of ``positions`` when ``cfg.mrope`` is set.
+
+    ``impl="flash"`` runs the hand-written kernels on causal self
+    attention, the only kind the reference sends to its kernel; the
+    encoder's and the cross attention run ``sdpa_reference`` on either
+    impl.  ``"xla"`` (the reference's name) runs ``sdpa_reference``, or
+    on a local causal layer with ``S % W == 0`` and ``S >= 2 W`` the
+    banded ``sdpa_banded_local`` (with or without ``kv_len``, as the
+    reference: the band is causal and padding a suffix, so a valid
+    query only sees valid keys).
     """
+    if impl not in ("xla", "flash"):
+        raise ValueError(f"attn impl must be 'xla' or 'flash', not {impl!r}")
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
-    k = (x @ params["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    if cross_kv is None:
+        k = (x @ params["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+        v = (x @ params["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    else:
+        k, v = cross_kv
     if cfg.qk_norm:
         q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+        if cross_kv is None:
+            k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
+    if cross_kv is None:
+        if cfg.mrope and mrope_positions is not None:
+            q = apply_mrope(q, mrope_positions, cfg.rope_theta,
+                            cfg.mrope_sections)
+            k = apply_mrope(k, mrope_positions, cfg.rope_theta,
+                            cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
 
     W = cfg.sliding_window
     is_local = not layer_is_global and W > 0
-    if impl == "flash":
+    causal_self = cross_kv is None and causal
+    if impl == "flash" and causal_self:
         from repro_torch.kernels import ops as kernel_ops
         out = kernel_ops.flash_attention(q, k, v, kv_len, causal=True,
                                          window=W if is_local else 0)
-    elif impl == "xla" and is_local and S % W == 0 and S >= 2 * W:
+    elif causal_self and is_local and S % W == 0 and S >= 2 * W:
         out = sdpa_banded_local(q, k, v, W)
-    elif impl == "xla":
-        mask = build_mask(positions, positions, W, layer_is_global)
-        if kv_len is not None:
-            key_valid = torch.arange(S, device=x.device)[None, :] \
-                < kv_len[:, None]                              # (B, S)
+    else:
+        Sk = k.shape[1]
+        if causal_self:
+            mask = build_mask(positions, positions, W, layer_is_global)
+        else:
+            mask = torch.ones((B, S, Sk), dtype=torch.bool, device=x.device)
+        if kv_len is not None and cross_kv is None:
+            # bidirectional: a padded key would reach every valid query
+            key_valid = torch.arange(Sk, device=x.device)[None, :] \
+                < kv_len[:, None]                              # (B, Sk)
             mask = mask & key_valid[:, None, :]
         out = sdpa_reference(q, k, v, mask)
-    else:
-        raise ValueError(f"attn impl must be 'xla' or 'flash', not {impl!r}")
     return out.reshape(B, S, cfg.num_heads * hd) @ params["wo"]
 
 

@@ -1,17 +1,21 @@
 """The language-model shell: embedding -> N plannable blocks -> final
 norm -> lm head (tied to the embedding, or its own ``lm_head``).
 
-Counterpart of the reference's ``models/lm.py`` for the decoder-only
-families -- dense (qk-norm and sliding-window layers included), ssm
-(Mamba2), moe and hybrid (Hymba) -- in unrolled or scan mode.  Families
+Counterpart of the reference's ``models/lm.py`` for every family --
+dense (qk-norm and sliding-window layers included), ssm (Mamba2), moe,
+hybrid (Hymba), encdec (a bidirectional encoder over stub ``frames``
+and a decoder with cross attention) and vlm (stub ``vision_embeds``
+prepended to the text, M-RoPE) -- in unrolled or scan mode.  Families
 differ only in what a block contains.  The Mimose planner sees
 the model as an ordered list of plan units and decides which to
-rematerialise: one unit per block in unrolled mode, one per chunk of
-consecutive layers in scan mode (``scan_chunks`` chunks, the reference's
-``_chunk_bounds``).  REMAT is ``torch.utils.checkpoint`` (non-reentrant)
-around each layer of the unit — the reference's scan mode checkpoints the
-scan *body*, so a REMAT chunk keeps every layer input of the chunk, not
-one — and a rematerialised layer's forward runs again in the backward.
+rematerialise: the encoder's layers first (one unit each, never
+stacked), then one unit per decoder block in unrolled mode, or one per
+chunk of consecutive layers in scan mode (``scan_chunks`` chunks, the
+reference's ``_chunk_bounds``).  REMAT is ``torch.utils.checkpoint``
+(non-reentrant) around each layer of the unit — the reference's scan
+mode checkpoints the scan *body*, so a REMAT chunk keeps every layer
+input of the chunk, not one — and a rematerialised layer's forward runs
+again in the backward.
 
     lm = LM(cfg, attn_impl="flash", device="cuda")
     loss, metrics = lm.loss(batch, actions)
@@ -19,7 +23,8 @@ one — and a rematerialised layer's forward runs again in the backward.
 
 Parameters keep the reference's tree and layout (``embed``,
 ``final_norm.scale``, ``lm_head`` when untied, ``blocks.<i>.{norm1,
-attn.{wq,wk,wv,wo[,q_norm,k_norm]}, norm2, mlp | moe}``,
+attn.{wq,wk,wv,wo[,q_norm,k_norm]}, [norm_cross, cross,] norm2, mlp |
+moe}``, ``encoder.{blocks.<i>, final_norm}`` for encdec,
 ``blocks.<i>.{norm1, ssm.{in_proj, conv_w, ...}}`` or ``blocks.<i>.{norm1,
 mixer.{attn, ssm, attn_scale, ssm_scale}, norm2, mlp}``, dense weights
 ``(d_in, d_out)``), one entry per layer in both modes, so
@@ -50,7 +55,9 @@ from repro_torch.train.transfer import TransferLane
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-FAMILIES = ("dense", "ssm", "moe", "hybrid")   # the block kind is the family
+FAMILIES = ("dense", "ssm", "moe", "hybrid", "encdec", "vlm")
+# the decoder's block kind of each family (the encoder's is "enc")
+BLOCK_KIND = {"encdec": "dec", "vlm": "dense"}
 
 
 def resolve_device(device) -> torch.device:
@@ -109,6 +116,9 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
         p["mixer"] = HY.hymba_init(gen, cfg, dtype)
     else:
         p["attn"] = L.attention_init(gen, cfg, dtype)
+    if kind == "dec":
+        p["norm_cross"] = L.rmsnorm_init(d, dtype)
+        p["cross"] = L.attention_init(gen, cfg, dtype)
     p["norm2"] = L.rmsnorm_init(d, dtype)
     p["moe" if kind == "moe" else "mlp"] = ffn
     return p
@@ -117,12 +127,17 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
 def block_apply(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
                 positions: torch.Tensor, layer_is_global: bool = True,
                 impl: str = "xla",
-                seq_lens: Optional[torch.Tensor] = None
+                seq_lens: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None,
+                mrope_positions: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block: pre-norm mixer (attention; the Mamba2 mixer for
     ``kind="ssm"``; attention and Mamba2 in parallel for ``"hybrid"``)
     and MLP (the MoE for ``"moe"``), both residual; an ssm block without
-    ``d_ff`` has no MLP.  Returns ``(x, aux)``: the MoE's load-balance
+    ``d_ff`` has no MLP.  ``"enc"``'s self attention is bidirectional;
+    ``"dec"`` adds a pre-norm cross attention over ``enc_out`` (B, F, d)
+    after its causal self attention, with keys and values projected from
+    ``enc_out`` (no RoPE).  Returns ``(x, aux)``: the MoE's load-balance
     loss, or None."""
     eps = cfg.norm_eps
     h = L.rmsnorm_apply(params["norm1"], x, eps)
@@ -139,7 +154,21 @@ def block_apply(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
         x = x + L.attention_apply(params["attn"], cfg, h,
                                   positions=positions,
                                   layer_is_global=layer_is_global,
-                                  impl=impl, kv_len=seq_lens)
+                                  impl=impl, kv_len=seq_lens,
+                                  mrope_positions=mrope_positions,
+                                  causal=kind != "enc")
+    if kind == "dec":
+        # k and v in one product: the encoder output's gradient then
+        # takes one term per decoder layer, summed in the same order
+        # whether the layer ran under KEEP, REMAT or OFFLOAD
+        B, F = enc_out.shape[:2]
+        wkv = torch.cat([params["cross"]["wk"], params["cross"]["wv"]], 1)
+        ck, cv = (enc_out @ wkv).reshape(
+            B, F, 2, cfg.num_kv_heads, cfg.resolved_head_dim()).unbind(2)
+        hx = L.rmsnorm_apply(params["norm_cross"], x, eps)
+        x = x + L.attention_apply(params["cross"], cfg, hx,
+                                  positions=positions, impl=impl,
+                                  cross_kv=(ck, cv))
     h2 = L.rmsnorm_apply(params["norm2"], x, eps)
     if kind == "moe":
         out, aux = MOE.moe_apply(params["moe"], cfg, h2)
@@ -169,19 +198,21 @@ class _OffloadChain:
 
 class _OffloadLayer(torch.autograd.Function):
     """One layer whose input checkpoint goes to host memory.  Inputs:
-    ``(x, fn, chain, *params)``: ``fn(x)`` runs the layer on its
-    parameters ``params`` (passed so autograd routes their gradients)
-    and returns ``(y, aux)``.  Outputs ``y``, or ``(y, aux)`` when the
-    layer has an auxiliary loss; the backward takes the incoming
-    gradient of each."""
+    ``(x, fn, chain, n_extra, *extra, *params)``: ``fn(x, *extra)`` runs
+    the layer on its parameters ``params`` (passed so autograd routes
+    their gradients) and returns ``(y, aux)``; ``extra`` are the other
+    tensors the layer reads (a decoder layer's encoder output), kept on
+    the device and given their gradients too.  Outputs ``y``, or ``(y,
+    aux)`` when the layer has an auxiliary loss; the backward takes the
+    incoming gradient of each."""
 
     @staticmethod
-    def forward(ctx, x, fn, chain, *params):
+    def forward(ctx, x, fn, chain, n_extra, *tensors):
         ctx.fn, ctx.chain = fn, chain
         ctx.index = len(chain.handles)
         chain.handles.append(chain.lane.offload(x))
-        ctx.params = params
-        y, aux = fn(x)               # forward of a Function: no grad
+        ctx.extra, ctx.params = tensors[:n_extra], tensors[n_extra:]
+        y, aux = fn(x, *ctx.extra)   # forward of a Function: no grad
         ctx.has_aux = aux is not None
         return (y, aux) if ctx.has_aux else y
 
@@ -192,11 +223,18 @@ class _OffloadLayer(torch.autograd.Function):
         chain.prefetch(i - 1)        # the next input the backward needs
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
-            y, aux = ctx.fn(xx)
+            extra = tuple(e.detach().requires_grad_(e.requires_grad)
+                          for e in ctx.extra)
+            y, aux = ctx.fn(xx, *extra)
             outs = (y, aux) if ctx.has_aux else (y,)
-            grads = torch.autograd.grad(outs, (xx,) + tuple(ctx.params),
-                                        grad_outs, allow_unused=True)
-        return (grads[0], None, None) + tuple(grads[1:])
+            wrt = (xx,) + tuple(e for e in extra if e.requires_grad) \
+                + tuple(ctx.params)
+            grads = iter(torch.autograd.grad(outs, wrt, grad_outs,
+                                             allow_unused=True))
+        gx = next(grads)
+        g_extra = tuple(next(grads) if e.requires_grad else None
+                        for e in extra)
+        return (gx, None, None, None) + g_extra + tuple(grads)
 
 
 @dataclasses.dataclass
@@ -217,17 +255,13 @@ class PlanUnit:
 def _check_supported(cfg: ModelConfig) -> None:
     unsupported = {
         "family": cfg.family not in FAMILIES,
-        "mrope": cfg.mrope,
-        "encoder_layers": cfg.encoder_layers > 0,
-        "vision_tokens": cfg.vision_tokens > 0,
         "remat_mode": cfg.remat_mode not in ("unrolled", "scan"),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the decoder-only families "
-            f"{FAMILIES}, unrolled or in scan mode; unsupported settings: "
-            f"{bad}")
+            f"{cfg.name}: the port runs the families {FAMILIES}, unrolled "
+            f"or in scan mode; unsupported settings: {bad}")
 
 
 class LM(nn.Module):
@@ -240,7 +274,9 @@ class LM(nn.Module):
                              f"not {attn_impl!r}")
         self.cfg = cfg
         self.attn_impl = attn_impl
-        self.kind = cfg.family
+        self.kind = BLOCK_KIND.get(cfg.family, cfg.family)
+        # vision patches prepended to the text (the reference's test)
+        self.vision = cfg.family == "vlm" and cfg.vision_tokens > 0
         dt = _DTYPES[cfg.dtype]
         device = resolve_device(device)
         # the reference's init distributions, drawn on the CPU from one
@@ -254,10 +290,21 @@ class LM(nn.Module):
                        L.dense_init(gen, cfg.d_model, cfg.vocab_size, dt))
             blocks = [block_init(gen, cfg, self.kind, dt)
                       for _ in range(cfg.num_layers)]
+            enc_blocks = [block_init(gen, cfg, "enc", dt)
+                          for _ in range(cfg.encoder_layers)]
+            enc_norm = L.rmsnorm_init(cfg.d_model, dt)
         self.embed = nn.Parameter(embed)
         self.final_norm = ParamTree(final_norm)
         self.lm_head = None if lm_head is None else nn.Parameter(lm_head)
         self.blocks = nn.ModuleList(ParamTree(b) for b in blocks)
+        # the encoder keeps one tree per layer in both modes, as the
+        # reference's (never stacked)
+        self.encoder = None
+        if cfg.encoder_layers:
+            self.encoder = nn.Module()
+            self.encoder.blocks = nn.ModuleList(ParamTree(b)
+                                                for b in enc_blocks)
+            self.encoder.final_norm = ParamTree(enc_norm)
         self.to(device)
         # OFFLOAD execution: True runs it for real (the only mode on
         # CUDA unless a caller asks otherwise); the lane is made on first
@@ -307,37 +354,91 @@ class LM(nn.Module):
         return flags.pop() if len(flags) == 1 else True
 
     def unit_bounds(self) -> List[Tuple[int, int]]:
-        """The layers [s, e) of each plan unit, in forward order."""
+        """The decoder layers [s, e) of each decoder plan unit, in
+        forward order."""
         if self.cfg.remat_mode == "scan":
             return self._chunk_bounds()
         return [(i, i + 1) for i in range(self.cfg.num_layers)]
+
+    def plan_unit_layers(self) -> List[Tuple[str, int, int]]:
+        """``(stack, s, e)`` of every plan unit in forward order: the
+        encoder's layers (stack ``"encoder.blocks"``, one unit each),
+        then the decoder's units (``"blocks"``); ``stack.<i>.`` prefixes
+        the parameter names of layer i."""
+        return ([("encoder.blocks", i, i + 1)
+                 for i in range(self.cfg.encoder_layers)]
+                + [("blocks", s, e) for s, e in self.unit_bounds()])
 
     # -- forward -----------------------------------------------------------
     def forward(self, batch: Dict[str, torch.Tensor],
                 actions=None) -> torch.Tensor:
         """Logits (B, S, V) in fp32 (``forward_aux`` also returns the
-        auxiliary loss)."""
+        auxiliary loss); S counts the vision prefix."""
         return self.forward_aux(batch, actions)[0]
+
+    def _mrope_positions(self, B: int, St: int, device) -> torch.Tensor:
+        """(3, B, vt + St) M-RoPE positions: the vision patches at t = 0
+        on a side x side grid (h, w), the text at ``side + arange(St)``
+        on all three streams."""
+        vt = self.cfg.vision_tokens
+        side = max(int(math.sqrt(vt)), 1)
+        idx = torch.arange(vt, device=device)
+        text = torch.arange(St, device=device) + side
+        three = torch.stack([torch.cat([torch.zeros_like(idx), text]),
+                             torch.cat([idx // side, text]),
+                             torch.cat([idx % side, text])])
+        return three[:, None, :].expand(3, B, vt + St)
+
+    def _embed_inputs(self, batch):
+        """(x, positions (B, S), M-RoPE positions (3, B, S) or None): the
+        token embeddings, behind the vision prefix for the vlm family."""
+        tokens = batch["tokens"]
+        B, St = tokens.shape
+        x = self.embed[tokens]
+        mrope_positions = None
+        if self.vision:
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+            S = x.shape[1]
+            positions = torch.arange(S, device=x.device).expand(B, S)
+            if self.cfg.mrope:
+                mrope_positions = self._mrope_positions(B, St, x.device)
+        else:
+            positions = batch.get("positions")
+            if positions is None:
+                positions = torch.arange(St, device=x.device).expand(B, St)
+        return x, positions, mrope_positions
 
     def forward_aux(self, batch: Dict[str, torch.Tensor], actions=None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(logits (B, S, V) in fp32, the blocks' summed auxiliary loss or
-        None).  ``actions``: per-unit plan (bools or ``Action``); every
-        layer of a REMAT unit is checkpointed, every layer input of an
-        OFFLOAD unit goes to host memory.  ``lengths`` ((B,) true
-        lengths of a bucket-padded batch) are threaded into every
-        block's mixer."""
+        None).  ``actions``: per-unit plan (bools or ``Action``), the
+        encoder's units first; every layer of a REMAT unit is
+        checkpointed, every layer input of an OFFLOAD unit goes to host
+        memory.  ``lengths`` ((B,) true text lengths of a bucket-padded
+        batch; the vision prefix is added to them) are threaded into
+        every decoder block's mixer; the encoder runs over every frame,
+        as the reference's."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = self.embed[tokens]
-        positions = batch.get("positions")
-        if positions is None:
-            positions = torch.arange(S, device=x.device).expand(B, S)
+        x, positions, mrope_positions = self._embed_inputs(batch)
         seq_lens = batch.get("lengths")
         if seq_lens is not None:
             seq_lens = seq_lens.to(device=x.device, dtype=torch.int32)
-        x, aux = self.blocks_forward(x, actions, positions, seq_lens)
+            if self.vision:
+                seq_lens = seq_lens + cfg.vision_tokens
+        n = self.num_plan_units()
+        acts = (as_actions(actions) if actions is not None
+                else (Action.KEEP,) * n)
+        if len(acts) != n:
+            raise ValueError(f"plan has {len(acts)} actions for {n} units")
+        ne = cfg.encoder_layers
+        # one chain over both stacks: the backward walks the decoder's
+        # inputs, then the encoder's
+        chain = self._offload_chain(acts)
+        enc_out = self.encode(batch, acts[:ne], chain) if ne else None
+        x, aux = self.blocks_forward(x, acts[ne:], positions, seq_lens,
+                                     enc_out=enc_out,
+                                     mrope_positions=mrope_positions,
+                                     chain=chain)
         x = L.rmsnorm_apply(self.final_norm, x, cfg.norm_eps)
         head = self.embed.t() if self.lm_head is None else self.lm_head
         return (x @ head).float(), aux
@@ -348,40 +449,78 @@ class LM(nn.Module):
             self.transfer_lane = TransferLane(self.device)
         return self.transfer_lane
 
+    def _offload_chain(self, actions) -> Optional[_OffloadChain]:
+        """The chain OFFLOAD layers send their inputs through, when the
+        plan has one that executes (``offload_exec`` on, grad on)."""
+        if (Action.OFFLOAD in actions and self.offload_exec
+                and torch.is_grad_enabled()):
+            return _OffloadChain(self.lane())
+        return None
+
+    def _layer(self, act, fn, x, params, extra, chain):
+        """``fn(x, *extra) -> (y, aux)``, one layer, under ``act``: KEEP
+        runs it; REMAT checkpoints it (non-reentrant); OFFLOAD sends x to
+        the host through ``chain`` (``_OffloadLayer``; as REMAT without a
+        chain).  ``extra``: other tensors the layer reads, each given its
+        gradient."""
+        if act is Action.OFFLOAD and chain is not None:
+            out = _OffloadLayer.apply(x, fn, chain, len(extra), *extra,
+                                      *params)
+            return out if isinstance(out, tuple) else (out, None)
+        if act in (Action.REMAT, Action.OFFLOAD):
+            return checkpoint(fn, x, *extra, use_reentrant=False)
+        return fn(x, *extra)
+
+    def encode(self, batch, actions, chain=None) -> torch.Tensor:
+        """The bidirectional encoder over the stub ``frames`` (B, F, d),
+        one ``actions`` entry per encoder layer, then its own final norm
+        (the reference's ``_encode``: no lengths)."""
+        cfg = self.cfg
+        x = batch["frames"].to(self.dtype)
+        B, F = x.shape[:2]
+        pos = torch.arange(F, device=x.device).expand(B, F)
+        acts = as_actions(actions)
+        chain = chain or self._offload_chain(acts)
+        for act, blk in zip(acts, self.encoder.blocks):
+            def one(xx, _blk=blk):
+                return block_apply(_blk, cfg, xx, "enc", positions=pos,
+                                   impl=self.attn_impl)
+            x, _ = self._layer(act, one, x, list(blk.parameters()), (),
+                               chain)
+        return L.rmsnorm_apply(self.encoder.final_norm, x, cfg.norm_eps)
+
     def blocks_forward(self, x: torch.Tensor, actions, positions,
-                       seq_lens=None
+                       seq_lens=None, *, enc_out=None, mrope_positions=None,
+                       chain=None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Every block under the plan ``actions`` (one per unit); each
-        layer of a REMAT unit is checkpointed on its own, each layer of
-        an OFFLOAD unit sends its input to the host (``_OffloadLayer``;
-        as REMAT when ``offload_exec`` is False or grad is off).
-        Returns the last block's output and the summed auxiliary loss
-        (None when no block has one)."""
-        n = self.num_plan_units()
+        """Every decoder block under ``actions`` (one per decoder unit;
+        each layer of a unit under ``_layer``); a decoder layer reads
+        ``enc_out`` as a tensor input, so its gradient reaches the
+        encoder under every action.  Returns the last block's output and
+        the summed auxiliary loss (None when no block has one)."""
+        bounds = self.unit_bounds()
         acts = (as_actions(actions) if actions is not None
-                else (Action.KEEP,) * n)
-        if len(acts) != n:
-            raise ValueError(f"plan has {len(acts)} actions for {n} units")
-        chain = aux = None
-        for act, (s, e) in zip(acts, self.unit_bounds()):
+                else (Action.KEEP,) * len(bounds))
+        if len(acts) != len(bounds):
+            raise ValueError(f"plan has {len(acts)} actions for "
+                             f"{len(bounds)} units")
+        extra = () if enc_out is None else (enc_out,)
+        chain = chain or self._offload_chain(acts)
+        aux = None
+        for act, (s, e) in zip(acts, bounds):
             for i in range(s, e):
-                def one(xx, _blk=self.blocks[i], _g=self._is_global(i)):
+                def one(xx, *enc, _blk=self.blocks[i],
+                        _g=self._is_global(i)):
                     return block_apply(_blk, self.cfg, xx, self.kind,
                                        positions=positions,
                                        layer_is_global=_g,
                                        impl=self.attn_impl,
-                                       seq_lens=seq_lens)
-                if (act is Action.OFFLOAD and self.offload_exec
-                        and torch.is_grad_enabled()):
-                    if chain is None:
-                        chain = _OffloadChain(self.lane())
-                    out = _OffloadLayer.apply(x, one, chain,
-                                              *self.blocks[i].parameters())
-                    x, a = out if isinstance(out, tuple) else (out, None)
-                elif act in (Action.REMAT, Action.OFFLOAD):
-                    x, a = checkpoint(one, x, use_reentrant=False)
-                else:
-                    x, a = one(x)
+                                       seq_lens=seq_lens,
+                                       enc_out=enc[0] if enc else None,
+                                       mrope_positions=mrope_positions)
+                x, a = self._layer(act, one, x,
+                                   list(self.blocks[i].parameters()),
+                                   extra, chain)
                 if a is not None:
                     aux = a if aux is None else aux + a
         return x, aux
@@ -389,10 +528,13 @@ class LM(nn.Module):
     def loss(self, batch: Dict[str, torch.Tensor],
              actions=None) -> Tuple[torch.Tensor, dict]:
         """``ce + aux``: ce the weighted mean of (logsumexp - label logit)
-        over ``max(sum(weights), 1)``, aux the blocks' summed auxiliary
-        loss (0 for families without one).  Metrics: ``ce``, ``aux``,
+        over ``max(sum(weights), 1)`` at the text positions (the vision
+        prefix has no labels), aux the blocks' summed auxiliary loss (0
+        for families without one).  Metrics: ``ce``, ``aux``,
         ``tokens``."""
         logits, aux = self.forward_aux(batch, actions)
+        if self.vision:
+            logits = logits[:, self.cfg.vision_tokens:]
         labels = batch["labels"].long()
         weights = batch.get("weights")
         if weights is None:
@@ -408,42 +550,86 @@ class LM(nn.Module):
 
     # -- plan units ----------------------------------------------------------
     def num_plan_units(self) -> int:
-        return len(self.unit_bounds())
+        return self.cfg.encoder_layers + len(self.unit_bounds())
+
+    def _unit_geometry(self, batch) -> Tuple[int, int, int]:
+        """(B, S of the residual stream, F encoder frames) of a batch."""
+        B, St = batch["tokens"].shape
+        S = St + (self.cfg.vision_tokens if self.vision else 0)
+        F = batch["frames"].shape[1] if "frames" in batch else 0
+        return int(B), int(S), int(F)
 
     def plan_unit_meta(self, batch) -> List[Dict[str, Any]]:
         """One dict per plan unit: the static facts the roofline cost
         model needs to price its forward (= its recompute cost)."""
-        B, S = batch["tokens"].shape
-        return [{"kind": self.kind, "layers": e - s, "batch": int(B),
-                 "seq": int(S), "is_global": self._chunk_flag(s, e)}
-                for s, e in self.unit_bounds()]
+        B, S, F = self._unit_geometry(batch)
+        return ([{"kind": "enc", "layers": 1, "batch": B, "seq": F,
+                  "is_global": True}
+                 for _ in range(self.cfg.encoder_layers)]
+                + [{"kind": self.kind, "layers": e - s, "batch": B,
+                    "seq": S, "is_global": self._chunk_flag(s, e),
+                    "enc_frames": F}
+                   for s, e in self.unit_bounds()])
+
+    def unit_input_shape(self, unit: "PlanUnit", batch) -> tuple:
+        """The shape of ``unit``'s input at this batch: the encoder's
+        stream (B, F, d) for an encoder unit, else the residual stream
+        (B, S, d), S counting the vision prefix."""
+        B, S, F = self._unit_geometry(batch)
+        seq = F if unit.index < self.cfg.encoder_layers else S
+        return (B, seq, self.cfg.d_model)
 
     def plan_units(self, batch) -> List[PlanUnit]:
-        """Ordered plannable units.  Each ``apply(params, x)`` builds its
-        positions from ``x`` (no lengths, as in the reference), so the
-        collector can run it on ``meta`` tensors.  A scan-mode unit's
-        params are the list of its layers' trees."""
+        """Ordered plannable units, the encoder's first.  Each
+        ``apply(params, x)`` builds its positions from ``x`` (no lengths,
+        as in the reference; M-RoPE's three streams all ``arange(S)``,
+        since only shapes matter to the collector), and a decoder unit
+        of an encoder-decoder reads a zero encoder output of the batch's
+        geometry, so the collector can run it on ``meta`` tensors.  A
+        scan-mode unit's params are the list of its layers' trees."""
         cfg = self.cfg
         scan = cfg.remat_mode == "scan"
+        B, _, F = self._unit_geometry(batch)
         units = []
+        for i in range(cfg.encoder_layers):
+            def enc_fn(p, xx):
+                Bx, Fx = xx.shape[:2]
+                pos = torch.arange(Fx, device=xx.device).expand(Bx, Fx)
+                return block_apply(p, cfg, xx, "enc", positions=pos,
+                                   impl=self.attn_impl)[0]
+            units.append(PlanUnit(f"enc{i}", i, self.encoder.blocks[i],
+                                  enc_fn, signature=("enc",)))
+        # a decoder unit closes over the encoder's output: its geometry
+        # is part of the signature, or residuals collected at one frame
+        # count would be replayed at another
+        enc_sig = (B, F, cfg.d_model) if cfg.encoder_layers else None
         for u, (s, e) in enumerate(self.unit_bounds()):
             flag = self._chunk_flag(s, e)
 
             def unit_fn(p, xx, _g=flag):
-                B, S = xx.shape[:2]
-                pos = torch.arange(S, device=xx.device).expand(B, S)
+                Bx, Sx = xx.shape[:2]
+                pos = torch.arange(Sx, device=xx.device).expand(Bx, Sx)
+                mpos = pos[None].expand(3, Bx, Sx) if cfg.mrope else None
+                enc = (None if enc_sig is None else
+                       torch.zeros((Bx, F, cfg.d_model), dtype=xx.dtype,
+                                   device=xx.device))
                 for lp in (p if scan else [p]):
                     xx, _ = block_apply(lp, cfg, xx, self.kind,
                                         positions=pos, layer_is_global=_g,
-                                        impl=self.attn_impl)
+                                        impl=self.attn_impl, enc_out=enc,
+                                        mrope_positions=mpos)
                 return xx
+            tail = () if enc_sig is None else (enc_sig,)
+            index = cfg.encoder_layers + u
             if scan:
-                units.append(PlanUnit(f"chunk{u}[{s}:{e}]", u,
+                units.append(PlanUnit(f"chunk{u}[{s}:{e}]", index,
                                       list(self.blocks[s:e]), unit_fn,
-                                      signature=("chunk", flag, e - s)))
+                                      signature=("chunk", flag, e - s)
+                                      + tail))
             else:
-                units.append(PlanUnit(f"block{s}", u, self.blocks[s],
-                                      unit_fn, signature=("block", flag)))
+                units.append(PlanUnit(f"block{s}", index, self.blocks[s],
+                                      unit_fn,
+                                      signature=("block", flag) + tail))
         return units
 
 

@@ -18,6 +18,8 @@ ARCH_IDS = [
     "hymba_1p5b",
     "qwen3_1p7b",
     "yi_9b",
+    "seamless_m4t_large_v2",
+    "qwen2_vl_7b",
 ]
 
 # configurations that train only reduced: their full-size weights do
@@ -43,8 +45,6 @@ ALIASES = {
 WAITING = {
     "stablelm_3b": "flash kernels at head dim 80 (ROADMAP queue B)",
     "gemma3_12b": "flash kernels at head dim 256 (ROADMAP queue B)",
-    "seamless_m4t_large_v2": "the encoder-decoder family (ROADMAP A15b)",
-    "qwen2_vl_7b": "the vision-language family and M-RoPE (ROADMAP A15b)",
 }
 
 

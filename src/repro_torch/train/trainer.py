@@ -92,8 +92,10 @@ class StepStats:
     ce: float = 0.0
     aux: float = 0.0
     # layers whose forward runs again in the backward (every layer of a
-    # REMAT or OFFLOAD unit), per microbatch
+    # REMAT or OFFLOAD unit, the encoder's included), per microbatch,
+    # and those of them in the decoder
     recompute_layers: int = 0
+    recompute_dec_layers: int = 0
 
 
 class Trainer:
@@ -108,12 +110,12 @@ class Trainer:
         planner.bind_telemetry(self.telemetry)
         self.optimizer = optimizer or AdamW()
         self.params = dict(lm.named_parameters())
-        # parameter names of each plan unit (its layers' trees), for
-        # moment parking
+        # parameter names of each plan unit (its layers' trees, the
+        # encoder's units first), for moment parking
         self._unit_names = [
             [n for n in self.params
-             if any(n.startswith(f"blocks.{i}.") for i in range(s, e))]
-            for s, e in lm.unit_bounds()]
+             if any(n.startswith(f"{stack}.{i}.") for i in range(s, e))]
+            for stack, s, e in lm.plan_unit_layers()]
         # the transfer lane, made when a plan first moves something; the
         # parked-unit set records whose moments live on the host
         self.transfer_lane: Optional[TransferLane] = None
@@ -288,19 +290,25 @@ class Trainer:
         return opt_state, loss, metrics
 
     # ------------------------------------------------------------------
-    def prewarm(self, seq_lens: Iterable[int], batch_size: int) -> int:
+    def prewarm(self, seq_lens: Iterable[int], batch_size: int,
+                extra=None) -> int:
         """Plan the given bucket seq-lens before step 0 and build their
         step functions.  Eager PyTorch has nothing to compile, so the
         gain is the plan: the first real batch of a prewarmed bucket is
         a plan-cache hit (sheltered collections happen here, off the
-        step).  Each step function built bumps ``prewarm_compiles``
-        (the registry's ``train_jit_prewarm_compiles``); returns their
-        number."""
+        step).  ``extra`` maps more batch keys to ``fn(batch_size, S)``
+        functions (the ``make_batches`` convention): the encoder's
+        ``frames``, the vision ``vision_embeds``.  Each step function
+        built bumps ``prewarm_compiles`` (the registry's
+        ``train_jit_prewarm_compiles``); returns their number."""
         n = 0
         for S in seq_lens:
             raw = {"tokens": np.zeros((batch_size, int(S)), np.int32),
                    "labels": np.zeros((batch_size, int(S)), np.int32),
                    "weights": np.ones((batch_size, int(S)), np.float32)}
+            if extra:
+                raw.update({k: fn(batch_size, int(S))
+                            for k, fn in extra.items()})
             batch = self._prepare(raw)
             actions, info = self.planner.plan(batch)
             k = max(int(info.plan.microbatch), 1)
@@ -380,6 +388,9 @@ class Trainer:
             tel.metrics.counter("train_exposed_transfer_s").inc(exposed_s)
             tel.metrics.counter("train_sim_transfer_s").inc(sim_s)
         degraded = bool(plan.n_offload and not self.lm.offload_exec)
+        recomputed = [(e - s, stack == "blocks") for a, (stack, s, e)
+                      in zip(actions, self.lm.plan_unit_layers())
+                      if int(a) in (int(Action.REMAT), int(Action.OFFLOAD))]
         if degraded:
             tel.metrics.counter("train_offload_degraded_steps").inc()
         self.history.append(StepStats(
@@ -391,9 +402,8 @@ class Trainer:
             offload_degraded=degraded, exposed_transfer_s=exposed_s,
             sim_transfer_s=sim_s, ce=float(metrics["ce"].detach()),
             aux=float(metrics["aux"].detach()),
-            recompute_layers=sum(
-                e - s for a, (s, e) in zip(actions, self.lm.unit_bounds())
-                if int(a) in (int(Action.REMAT), int(Action.OFFLOAD)))))
+            recompute_layers=sum(n for n, _ in recomputed),
+            recompute_dec_layers=sum(n for n, dec in recomputed if dec)))
         if tel.events_on:
             tel.events.emit("train_step", step=len(self.history) - 1,
                             bucket=bucket, loss=loss, k=k,

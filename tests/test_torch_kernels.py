@@ -593,6 +593,68 @@ def test_chip_smoke_flash_main_cases_cover_each_bucket(family, heads,
     assert len(by_bucket) > 1
 
 
+@pytest.mark.parametrize("family", ["SEAMLESS_ARGS", "QWEN2VL_ARGS"])
+def test_chip_smoke_flash_main_cases_cover_the_new_families(family,
+                                                           monkeypatch):
+    """``chip_smoke.py`` holds K1-K3 at every bucket of the seamless
+    (B = 8, 16 / 16 heads x 64) and qwen2-vl (B = 4, 28 / 4 heads x 128)
+    paths with that bucket's true lengths, bf16; qwen2-vl's sequence is
+    its 1024 vision tokens and the bucket, ``kv_len`` its lengths plus
+    1024.  (The stub inputs are left out here: the cases read only the
+    tokens' buckets and lengths.)"""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(smoke, "stub_inputs", lambda cfg, seed=0: {})
+    args = getattr(smoke, family)
+    batches = smoke.main_path_batches(args)
+    cases = smoke.flash_main_cases(args, batches)
+    by_bucket = smoke.lengths_by_bucket(batches)
+    B, heads, hd, vt = ((8, (16, 16), 64, 0) if family == "SEAMLESS_ARGS"
+                        else (4, (28, 4), 128, 1024))
+    want = {(B, vt + S, *heads, hd, True, 0, "bfloat16", True):
+            [vt + n for n in lens] for S, lens in by_bucket.items()}
+    assert cases == want
+    assert len(by_bucket) > 2
+    if vt:
+        assert sorted(c[1] for c in cases) == [1344, 1408, 1440, 1472]
+
+
+@pytest.mark.parametrize("arch,control,limit", [
+    ("seamless_m4t_large_v2", "encoder output zeroed", "SEAMLESS_LOSS_RTOL"),
+    ("qwen2_vl_7b", "1-D RoPE for M-RoPE", "BF16_MODEL_RTOL")])
+def test_chip_smoke_family_controls_change_the_loss_and_are_undone(
+        arch, control, limit):
+    """The encoder-decoder's control (the cross attention fed a zero
+    encoder output) and the vision-language model's (plain RoPE over
+    ``arange(S)`` for M-RoPE), on reduced models through the plain path
+    (seeded weights and inputs): each moves the loss past 5 x the path's
+    loss limit while it holds, and leaves every parameter and the config
+    as they were after."""
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import get_config
+    smoke = _chip_smoke()
+    cfg = get_config(arch).reduced(dtype="float32")
+    lm = LM(cfg, device="cpu")
+    before = {n: p.detach().clone() for n, p in lm.named_parameters()}
+    rng = np.random.default_rng(0)
+    B, S = 2, 32
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, S)))
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    stub = smoke.stub_inputs(cfg)
+    batch.update({k: torch.from_numpy(fn(B, S)) for k, fn in stub.items()})
+
+    def loss():
+        with torch.no_grad():
+            return float(lm.loss(batch)[0])
+    sound = loss()
+    controls = smoke._controls(lm, range(cfg.num_layers))
+    assert set(controls) == {"kv heads rolled", control}
+    with controls[control]:
+        assert abs(loss() - sound) > 5 * getattr(smoke, limit) * sound
+    assert loss() == sound and lm.cfg == cfg
+    for n, p in lm.named_parameters():
+        assert torch.equal(p, before[n]), n
+
+
 def test_chip_smoke_controls_change_the_mixer_and_are_undone():
     """The controls of ``chip_smoke.py``'s mixer check (the wrong kv
     head; hymba's SSD half skipped), on a reduced hymba through the plain
@@ -615,10 +677,10 @@ def test_chip_smoke_controls_change_the_mixer_and_are_undone():
             return HY.hymba_apply(lm.blocks[0]["mixer"], lm.cfg, h,
                                   positions=positions)
     sound = mixer()
-    controls = smoke._controls(lm, 0)
+    controls = smoke._controls(lm, [0])
     assert set(controls) == {"kv heads rolled", "SSD half skipped"}
-    for pairs in controls.values():
-        with smoke._swapped(pairs):
+    for control in controls.values():
+        with control:
             assert smoke._rel(mixer(), sound, [S] * B) > 5 * smoke.MIXER_RTOL
         assert torch.equal(mixer(), sound)
     for n, p in lm.named_parameters():

@@ -201,28 +201,79 @@ def test_padded_loss_with_lengths_equals_unpadded(models, impl):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("setting,over", [
-    ("mrope", dict(mrope=True)),
-    ("encoder_layers", dict(encoder_layers=2, encoder_frames=16)),
-    ("vision_tokens", dict(vision_tokens=4)),
-    ("family", dict(family="encdec")),
-    ("family", dict(family="vlm")),
-    ("remat_mode", dict(remat_mode="layerwise")),
-])
-def test_unsupported_config_is_rejected(setting, over):
-    """What the port does not run yet (the encoder-decoder and
-    vision-language families, M-RoPE: ROADMAP A15b) is refused by
-    name; qk-norm and untied heads now run (tests below)."""
+def test_unsupported_config_is_rejected():
+    """A remat mode the port does not run is refused by name."""
     cfg = get_config("bert_base_paper").reduced(**REDUCED)
-    with pytest.raises(NotImplementedError, match=setting):
-        LM(dataclasses.replace(cfg, **over), device="cpu")
+    with pytest.raises(NotImplementedError, match="remat_mode"):
+        LM(dataclasses.replace(cfg, remat_mode="layerwise"), device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", "gemma3_12b",
-                                  "seamless-m4t-large-v2", "qwen2_vl_7b"])
+# the settings the port refused until the encoder-decoder and
+# vision-language families came: (config, overrides).  An encdec family
+# needs encoder layers (the reference's decoder blocks read an encoder
+# output), and a vlm family vision tokens to be one
+FORMERLY_REFUSED = {
+    "mrope": ("bert_base_paper", dict(mrope=True)),
+    "encoder_layers": ("bert_base_paper",
+                       dict(encoder_layers=2, encoder_frames=16)),
+    "vision_tokens": ("bert_base_paper", dict(vision_tokens=4)),
+    "family-encdec": ("bert_base_paper",
+                      dict(family="encdec", encoder_layers=2)),
+    "family-vlm": ("bert_base_paper",
+                   dict(family="vlm", vision_tokens=4, mrope=True)),
+    "seamless-m4t-large-v2": ("seamless-m4t-large-v2", {}),
+    "qwen2_vl_7b": ("qwen2_vl_7b", {}),
+}
+
+
+@pytest.mark.parametrize("setting", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_setting_builds_and_gives_the_reference_loss(
+        setting):
+    """Each setting the port refused before (M-RoPE, encoder layers,
+    vision tokens, the encdec and vlm families, and the two configs that
+    waited for them) builds and gives the reference's loss, with
+    ``lengths``, and the stub inputs its batch needs."""
+    arch, over = FORMERLY_REFUSED[setting]
+    base = REDUCED if arch == "bert_base_paper" else dict(dtype="float32")
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(**base), **over)
+    tcfg = dataclasses.replace(get_config(arch).reduced(**base), **over)
+    jlm = build_model(jcfg, attn_impl="xla")
+    params = jlm.init(jax.random.PRNGKey(0))
+    batch = pad_batch(_ragged(), 64)
+    rng = np.random.default_rng(9)
+    B, S = batch["tokens"].shape
+    if tcfg.encoder_layers:
+        batch["frames"] = rng.standard_normal(
+            (B, 24, tcfg.d_model)).astype(np.float32)
+    if tcfg.family == "vlm":
+        batch["vision_embeds"] = rng.standard_normal(
+            (B, tcfg.vision_tokens, tcfg.d_model)).astype(np.float32)
+    want = jax.jit(lambda p: jlm.loss(p, _to_jax(batch))[0])(params)
+    lm = _torch_lm(tcfg, params, "xla")
+    assert lm.num_plan_units() == jlm.num_plan_units()
+    with torch.no_grad():
+        loss, _ = lm.loss(_to_torch(batch))
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["stablelm_3b", "gemma3_12b"])
 def test_registry_names_what_a_waiting_config_waits_for(arch):
     with pytest.raises(KeyError, match="waits for"):
         get_config(arch)
+
+
+@pytest.mark.parametrize("arch,key", [("seamless-m4t-large-v2", "frames"),
+                                      ("qwen2_vl_7b", "vision_embeds")])
+def test_launcher_refuses_the_stub_input_families_by_name(arch, key, capsys):
+    """The launcher builds no stub inputs (nor does the reference's): it
+    refuses the two families by name before building a model, and says
+    how they train."""
+    from repro_torch.launch import train as launch_train
+    with pytest.raises(SystemExit):
+        launch_train.main(["--device", "cpu", "--reduced", "--arch", arch,
+                           "--steps", "1"])
+    err = capsys.readouterr().err
+    assert arch in err and repr(key) in err and "Trainer" in err
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,7 @@
 """The port's collected residual bytes against the reference's, per
-family, on the reduced configs (2 layers, fp32, B = 2).
+family, on the reduced configs (2 layers, fp32, B = 2; seamless: 2
+encoder and 2 decoder layers, its units' ratios in that order, over
+as many frames as tokens; qwen2-vl: behind 16 vision tokens).
 
 The two autodiffs save different tensors, so the byte ratio is data,
 not a bound (ROADMAP §C records it; ``tests/test_torch_planner.py``
@@ -29,6 +31,8 @@ FAMILIES = {
     "hymba_1p5b": dict(sliding_window=64, global_interval=2),
     "qwen3_1p7b": {},
     "yi_9b": {},
+    "seamless_m4t_large_v2": {},
+    "qwen2_vl_7b": {},
 }
 LENGTHS = (32, 64, 128, 256)
 
@@ -42,12 +46,27 @@ def collections(arch: str, impl: str):
     lm = LM(get_config(arch).reduced(**cfg), attn_impl=impl, device="cpu")
     out = {}
     for S in LENGTHS:
+        stub = _stub_inputs(lm.cfg, S)
         ref = JaxCollector(jlm).collect(
-            params, {"tokens": jnp.ones((2, S), jnp.int32)})
+            params, {"tokens": jnp.ones((2, S), jnp.int32),
+                     **{k: jnp.asarray(v) for k, v in stub.items()}})
         ours = ShuttlingCollector(lm).collect(
-            {"tokens": torch.ones((2, S), dtype=torch.long)})
+            {"tokens": torch.ones((2, S), dtype=torch.long),
+             **{k: torch.from_numpy(v) for k, v in stub.items()}})
         out[S] = (ours, ref)
     return out
+
+
+def _stub_inputs(cfg, S):
+    """The stub frontends' entries at text length S (B = 2): an
+    encoder-decoder's ``frames`` (one per token), a vision-language
+    model's ``vision_embeds``."""
+    if cfg.family == "encdec":
+        return {"frames": np.zeros((2, S, cfg.d_model), np.float32)}
+    if cfg.family == "vlm":
+        return {"vision_embeds": np.zeros((2, cfg.vision_tokens,
+                                           cfg.d_model), np.float32)}
+    return {}
 
 
 def main() -> None:
