@@ -56,6 +56,23 @@ Phases (each raises on failure; the script then exits non-zero):
    forward down by the offloaded inputs; three OFFLOAD_OPT split steps
    against three fused ones, parameters equal; the bert main path with
    every sink on and off, losses bitwise equal;
+3d. resilience path (full-width ``bert_base_paper``, the main path's
+   budget and batches, deterministic algorithms on): R1, 16 steps
+   against 8, a snapshot (``train/resilience.py``), every object
+   dropped, fresh ones restored from it and batches 8-15: losses and
+   final parameters bitwise equal, no collection or refit after the
+   restore, one restored plan per bucket of the first 8 steps; then
+   ``launch.train`` in a subprocess with a snapshot every 6 of 12 steps
+   and the first 2 executions failing (``--inject-oom 2``), and again
+   with ``--resume`` (resumes at cursor 12); R2, the fixed plan with the
+   last unit's moments parked on the host, 4 steps against 2 + a
+   snapshot + 2: losses, parameters and moments bitwise equal; R3, a
+   real ``torch.OutOfMemoryError``: the most common bucket's plan and
+   every rung of its escalation ladder stepped once each for their
+   peak reserved bytes, the allocator capped between the plan's peak
+   and the lowest rung's, one step of a trainer restored from a
+   pre-step snapshot OOMs, escalates and recovers, equal bitwise to the
+   escalated plan run directly from the same snapshot, uncapped;
 4. the SSD chunk-scan kernels against their plain version through
    ``ops.ssd_scan`` (the reference's SSD cases and its ragged cases on
    the fp32 FMA kernel, the mamba2 main path's buckets on the
@@ -125,8 +142,9 @@ Phases (each raises on failure; the script then exits non-zero):
    (8 + recomputed layers), K2 = K3 = sum 8 k; profile and memory;
 
 then prints the card line, one ``{"kernels": [...]}`` JSON line (no new
-kernel on the offload path: it runs K1-K3; K1-K3 launches are the bert,
-hymba, granite, seamless and qwen2-vl paths', with each bf16 family's
+kernel on the offload and resilience paths: they run K1-K3; K1-K3
+launches are the bert, resilience, hymba, granite, seamless and qwen2-vl
+paths', with each bf16 family's
 ``<family>_max_abs_err`` beside the maximum; K4's are the mamba2 path's
 tensor-core kernel's, with the hymba path's FMA launches as
 ``hymba_launches``), and, as the last line, ``{"ok": true, "device":
@@ -1098,10 +1116,11 @@ def offload_budgets_mb(args, batches):
     return a, b, peaks
 
 
-def fixed_planner(lm, actions, quantum):
-    """A planner serving one action plan for every batch (the
-    OFFLOAD_OPT runs: the planner never picks OFFLOAD_OPT for bert at
-    squad lengths, PERF.md §6)."""
+def fixed_planner(lm, actions, quantum, microbatch=1):
+    """A planner serving one action plan (split ``microbatch`` ways) for
+    every batch (the OFFLOAD_OPT runs: the planner never picks
+    OFFLOAD_OPT for bert at squad lengths, PERF.md §6; the OOM phase's
+    direct run of the escalated plan)."""
     from repro_torch.core.planner import PlanInfo, PlannerBase
     from repro_torch.core.scheduler import Plan
 
@@ -1110,7 +1129,8 @@ def fixed_planner(lm, actions, quantum):
             self.lm, self.quantum = lm, quantum
 
         def plan(self, batch):
-            p = Plan([], 0.0, 0.0, 0.0, actions=actions)
+            p = Plan([], 0.0, 0.0, 0.0, actions=actions,
+                     microbatch=microbatch)
             return p.as_actions(), PlanInfo(0, self.bucket_key(batch), True,
                                             False, p)
     return FixedPlanner()
@@ -1545,6 +1565,418 @@ def run_offload_path(args, budget_main_mb):
     log("offload: " + json.dumps({"card": card_line(), "runs": results,
                                   "equality": eq, "split": split,
                                   "telemetry": tele}))
+
+
+# ---------------------------------------------------------------------------
+# the resilience phases (R1-R3): snapshots, kill-and-resume and a real
+# CUDA OOM on full-width bert, deterministic algorithms on
+# ---------------------------------------------------------------------------
+
+# R1: 16 uninterrupted steps against 8, a snapshot, fresh objects, and
+# batches 8-15; the launcher drill: 12 steps with a snapshot every 6 and
+# the first 2 executions failing, then the same command with --resume
+RESUME_STEPS = 16
+DRILL_STEPS = 12
+# R2: the fixed OFFLOAD_OPT plan, 4 uninterrupted steps against 2 + 2
+PARKED_STEPS = 4
+
+
+def _bert_trainer(args, budget_mb, seed=0, actions=None, k=1, **kw):
+    """Full-width bert through the flash kernels under Mimose at the main
+    budget (or a fixed plan), AdamW on the launcher's schedule; ``seed``
+    draws the weights (a restore overwrites them)."""
+    from repro_torch.core.planner import MimosePlanner
+    from repro_torch.models.lm import LM
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.train.trainer import Trainer
+    lm = LM(path_config(args), attn_impl="flash", device="cuda", seed=seed)
+    planner = (fixed_planner(lm, actions, args["quantum"], k)
+               if actions is not None else
+               MimosePlanner(lm, budget_mb * 2**20, quantum=args["quantum"],
+                             warmup_samples=3))
+    return Trainer(lm, planner, AdamW(lr=cosine_schedule(
+        3e-4, 10, RESUME_STEPS)), **kw)
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _host_copy(tree):
+    return {n: t.detach().to("cpu", copy=True) for n, t in tree.items()}
+
+
+def _bitwise(label, got: dict, want: dict):
+    bad = [n for n in want if not torch.equal(got[n], want[n])]
+    if set(got) != set(want) or bad:
+        raise AssertionError(f"{label}: not bitwise equal at {bad[:4]} "
+                             f"({len(bad)} of {len(want)})")
+
+
+def _snapshot_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).iterdir())
+
+
+def _flash_launches(histories, launches, label, exact=True):
+    """K1 = sum k (12 + recomputed layers), K2 = K3 = sum 12 k over the
+    runs' steps (``exact``), else each > 0; never an FMA launch."""
+    fwd = sum(s.microbatches * (12 + s.recompute_dec_layers)
+              for h in histories for s in h)
+    bwd = sum(12 * s.microbatches for h in histories for s in h)
+    ok = (all(launches[k] > 0 for k in FLASH_KERNELS)
+          and all(launches[k] == 0 for k in FMA_OF.values()))
+    if exact:
+        ok = ok and (launches["flash_fwd"] == fwd
+                     and launches["flash_bwd_dq"]
+                     == launches["flash_bwd_dkv"] == bwd)
+    log(f"{label} launches: " + json.dumps(
+        {k: launches[k] for k in FLASH_KERNELS + list(FMA_OF.values())})
+        + (f" (K1 = {fwd}, K2 = K3 = {bwd} expected)" if exact else ""))
+    if not ok:
+        raise AssertionError(f"{label}: launches {launches}")
+    return {k: launches[k] for k in FLASH_KERNELS}
+
+
+def run_kill_and_resume(args, budget_mb, batches):
+    """R1: 16 uninterrupted steps (run A) against 8 steps, a snapshot,
+    every object dropped, fresh ones restored from it, and batches 8-15
+    (run B): losses and final parameters bitwise equal, no collection
+    or refit after the restore, one restored plan per bucket A planned
+    in its first 8 steps.  Then the launcher drill in two subprocesses."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.train.resilience import SnapshotManager
+    half = RESUME_STEPS // 2
+    ops.reset_launches()
+    tr = _bert_trainer(args, budget_mb)
+    tr.run(batches)
+    hist = [tr.history]
+    losses_a = [s.loss for s in tr.history]
+    params_a = _host_copy(tr.params)
+    buckets = len({s.bucket for s in tr.history[:half]})
+    del tr
+    _free()
+    tr = _bert_trainer(args, budget_mb)
+    st = tr.run(batches[:half])
+    hist.append(tr.history)
+    losses_b = [s.loss for s in tr.history]
+    with tempfile.TemporaryDirectory() as tmp:
+        sm = SnapshotManager(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = tr.save_snapshot(st, sm)
+        save_s = time.perf_counter() - t0
+        nbytes = _snapshot_bytes(path)
+        del tr, st
+        _free()
+        tr = _bert_trainer(args, budget_mb, seed=1)
+        t0 = time.perf_counter()
+        st, r = tr.restore(tr.optimizer.init(tr.params), sm)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    st = tr.run(batches[r.data_cursor:], st)
+    hist.append(tr.history)
+    torch.cuda.synchronize()
+    launches = _flash_launches(hist, dict(ops.LAUNCHES), "R1")
+    losses_b += [s.loss for s in tr.history]
+    stats = tr.planner.stats
+    checks = {
+        "losses bitwise equal": losses_b == losses_a,
+        "restored at step and cursor 8": r.step == r.data_cursor == half,
+        "collections == 0 after the restore": stats["collections"] == 0,
+        "refits == 0 after the restore": stats["refits"] == 0,
+        f"restored_plans == {buckets} buckets of A's first {half} steps":
+            stats["restored_plans"] == buckets,
+        "summary restores == 1": tr.summary()["restores"] == 1,
+    }
+    res = {"snapshot_bytes": nbytes, "save_s": save_s,
+           "restore_s": restore_s, "buckets": buckets,
+           "planner_summary": r.planner_summary, "launches": launches}
+    log(f"R1 kill and resume (bert, {RESUME_STEPS} steps vs {half} + "
+        f"snapshot + {half}): snapshot {nbytes} bytes, save "
+        f"{save_s:.3f} s, restore {restore_s:.3f} s, planner "
+        f"{r.planner_summary}; losses A {losses_a} B {losses_b}; checks "
+        + json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"R1 checks failed: {checks}")
+    _bitwise("R1 final parameters", _host_copy(tr.params), params_a)
+    del tr, st
+    _free()
+    res["drill"] = run_launcher_drill(args, budget_mb)
+    return res
+
+
+def run_launcher_drill(args, budget_mb):
+    """``launch.train`` with a snapshot every 6 steps and the first 2
+    executions failing (injected), then the same command with
+    ``--resume``: two subprocesses, each with one card."""
+    import ast
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [sys.executable, "-m", "repro_torch.launch.train",
+                "--arch", args["arch"], "--dataset", args["dataset"],
+                "--planner", "mimose", "--attn-impl", "flash",
+                "--budget-mb", f"{budget_mb:.3f}",
+                "--steps", str(DRILL_STEPS),
+                "--batch-size", str(args["batch_size"]),
+                "--quantum", str(args["quantum"]),
+                "--checkpoint-dir", tmp, "--checkpoint-every-steps",
+                str(DRILL_STEPS // 2)]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        out = {}
+        for name, extra in (("first", ["--inject-oom", "2"]),
+                            ("resumed", ["--resume"])):
+            log("R1 drill: python -m repro_torch.launch.train "
+                + " ".join(argv[3:] + extra))
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv + extra, cwd=ROOT, env=env,
+                                  capture_output=True, text=True,
+                                  timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"R1 drill ({name}) exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-2000:]}")
+            lines = proc.stdout.splitlines()
+            summ = next(ln for ln in lines if ln.startswith("summary:"))
+            out[name] = {"s": time.perf_counter() - t0,
+                         "summary": ast.literal_eval(summ[len("summary:"):]
+                                                     .strip()),
+                         "lines": [ln for ln in lines
+                                   if ln.startswith(("resumed", "resilience",
+                                                     "snapshot"))]}
+            log(f"R1 drill ({name}, {out[name]['s']:.1f} s): "
+                + " | ".join(out[name]["lines"]))
+    first = out["first"]["summary"]
+    checks = {
+        "first run: oom_events == 2": first.get("oom_events") == 2,
+        "first run: escalations == 2, one retry success":
+            first.get("escalations") == 2
+            and first.get("retry_successes") == 1,
+        f"resumed at cursor {DRILL_STEPS}": any(
+            f"at step {DRILL_STEPS} (cursor={DRILL_STEPS}," in ln
+            for ln in out["resumed"]["lines"]),
+    }
+    log("R1 drill checks: " + json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"R1 drill checks failed: {checks}")
+    return {k: {"s": v["s"], "oom_events": v["summary"].get("oom_events"),
+                "snapshots_written": v["summary"].get("snapshots_written")}
+            for k, v in out.items()}
+
+
+def run_parked_resume(args, batches):
+    """R2: the fixed plan with every unit OFFLOAD but the last, whose
+    moments are parked on the host: 4 uninterrupted steps against 2, a
+    snapshot taken with the moments parked, fresh objects restored from
+    it, and 2 more: losses, parameters and moments bitwise equal."""
+    import tempfile
+
+    from repro_torch.actions import Action
+    from repro_torch.kernels import ops
+    from repro_torch.train.resilience import SnapshotManager
+    n = path_config(args).num_layers
+    acts = (Action.OFFLOAD,) * (n - 1) + (Action.OFFLOAD_OPT,)
+    half = PARKED_STEPS // 2
+    ops.reset_launches()
+    tr = _bert_trainer(args, 0.0, actions=acts)
+    st = tr.run(batches[:PARKED_STEPS])
+    hist = [tr.history]
+    want = ([s.loss for s in tr.history], _host_copy(tr.params),
+            _host_copy(st.m), _host_copy(st.v))
+    del tr, st
+    _free()
+    tr = _bert_trainer(args, 0.0, actions=acts)
+    st = tr.run(batches[:half])
+    hist.append(tr.history)
+    losses = [s.loss for s in tr.history]
+    parked = sorted(tr._parked)
+    on_host = sum(t.device.type == "cpu" for t in st.m.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        sm = SnapshotManager(tmp)
+        path = tr.save_snapshot(st, sm)
+        nbytes = _snapshot_bytes(path)
+        del tr, st
+        _free()
+        tr = _bert_trainer(args, 0.0, seed=1, actions=acts)
+        st, r = tr.restore(tr.optimizer.init(tr.params), sm)
+    reparked = sorted(tr._parked)
+    st = tr.run(batches[r.data_cursor:PARKED_STEPS], st)
+    hist.append(tr.history)
+    torch.cuda.synchronize()
+    launches = _flash_launches(hist, dict(ops.LAUNCHES), "R2")
+    losses += [s.loss for s in tr.history]
+    log(f"R2 parked moments (bert, 11 OFFLOAD + unit {n - 1} OFFLOAD_OPT, "
+        f"{PARKED_STEPS} steps vs {half} + snapshot + {half}): parked "
+        f"units at the snapshot {parked} ({on_host} moment tensors on the "
+        f"host), after the restore {reparked}; snapshot {nbytes} bytes; "
+        f"losses {losses} vs {want[0]}")
+    if not (parked == reparked == [n - 1] and on_host > 0
+            and losses == want[0]):
+        raise AssertionError("R2: parked units or losses differ")
+    _bitwise("R2 parameters", _host_copy(tr.params), want[1])
+    _bitwise("R2 m", _host_copy(st.m), want[2])
+    _bitwise("R2 v", _host_copy(st.v), want[3])
+    del tr, st
+    _free()
+    return {"snapshot_bytes": nbytes, "parked_units": parked,
+            "launches": launches}
+
+
+def _peak_step(args, budget_mb, batch, actions, k):
+    """One step of a fixed plan on fresh full-width bert: the allocator's
+    peak reserved and allocated bytes over it, from an emptied cache."""
+    tr = _bert_trainer(args, budget_mb, actions=actions, k=k)
+    st = tr.optimizer.init(tr.params)
+    _free()
+    st, _ = tr.step(st, batch)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_reserved(),
+            torch.cuda.max_memory_allocated())
+    del tr, st
+    _free()
+    return peak
+
+
+def run_real_oom(args, budget_mb, batches):
+    """R3: a real ``torch.OutOfMemoryError`` (no injector).  The most
+    common bucket's plan and every rung of its ladder are made on a
+    planner of their own; one step of the plan and of each rung measures
+    its peak reserved bytes; the allocator is capped between the plan's
+    peak and the lowest rung's; one step of a trainer restored from a
+    pre-step snapshot must OOM, escalate and recover, and equal, bitwise,
+    a fresh trainer restored from the same snapshot running the
+    escalated plan directly, uncapped."""
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Telemetry
+    from repro_torch.train.resilience import OOMWatchdog, SnapshotManager
+    S, batch = most_common_bucket(batches)
+    tr = _bert_trainer(args, budget_mb)
+    tb = tr._prepare(batch)
+    planner = tr.planner
+    planner.plan(tb)
+    key = planner.plan_key(tb)
+    rungs = [planner.cache[key]]
+    while planner.escalate(tb):
+        rungs.append(planner.cache[key])
+    del tr, planner
+    _free()
+    peaks = [_peak_step(args, budget_mb, batch, p.actions, p.microbatch)
+             for p in rungs]
+    mib = 2 ** 20
+    desc = [{"rung": i, "k": int(p.microbatch), "n_remat": int(p.n_remat),
+             "n_offload": int(p.n_offload),
+             "peak_reserved_mib": r / mib, "peak_allocated_mib": a / mib}
+            for i, (p, (r, a)) in enumerate(zip(rungs, peaks))]
+    log(f"R3 bucket {S}: the planner's plan (rung 0) and its ladder, one "
+        f"step each: " + json.dumps(desc))
+    plan_peak = peaks[0][0]
+    low = min(r for r, _ in peaks[1:])
+    if not low < plan_peak:
+        raise AssertionError(f"R3: no rung peaks below the plan's "
+                             f"{plan_peak / mib:.1f} MiB")
+    cap = 0.5 * (plan_peak + low)
+    total = torch.cuda.get_device_properties(0).total_memory
+    expected = next(i for i, (r, _) in enumerate(peaks) if r < cap)
+    with tempfile.TemporaryDirectory() as tmp:
+        sm = SnapshotManager(tmp)
+        tr = _bert_trainer(args, budget_mb)
+        sm.save(step=0, params=tr.params,
+                opt_state=tr.optimizer.init(tr.params))
+        del tr
+        _free()
+        tel = Telemetry.enabled()
+        tr = _bert_trainer(args, budget_mb, seed=1, telemetry=tel,
+                           watchdog=OOMWatchdog(max_retries=len(rungs)))
+        if tr.watchdog.injector is not None:
+            raise AssertionError("R3 runs with no injector")
+        st, _ = tr.restore(tr.optimizer.init(tr.params), sm)
+        _free()
+        ops.reset_launches()
+        log(f"R3 cap: {cap / mib:.1f} MiB ({cap / total:.5f} of "
+            f"{total / mib:.0f} MiB) between the plan's peak "
+            f"{plan_peak / mib:.1f} MiB and the lowest rung's "
+            f"{low / mib:.1f} MiB; rung {expected} is the first under it")
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            st, loss = tr.step(st, batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        launches = _flash_launches([], dict(ops.LAUNCHES), "R3", exact=False)
+        ev = tel.events.tail()
+        wd = tr.watchdog.stats
+        level = tr.planner._escalation.get(key, 0)
+        plan = tr.planner.cache[key]
+        got = (loss, _host_copy(tr.params))
+        errors = [e["error"] for e in ev if e["kind"] == "oom"]
+        reached = {"rung": level, "k": int(plan.microbatch),
+                   "n_remat": int(plan.n_remat),
+                   "n_offload": int(plan.n_offload),
+                   "peak_allocated_mib": tr.history[-1].max_memory_bytes
+                   / mib}
+        log(f"R3 capped step: loss {loss}; watchdog {dict(wd)}; oom "
+            f"errors {errors}; rung reached " + json.dumps(reached)
+            + f"; events " + json.dumps(
+                [e["kind"] for e in ev
+                 if e["kind"] in ("oom", "plan_poisoned", "escalation")]))
+        del tr, st
+        _free()
+        tr = _bert_trainer(args, budget_mb, seed=2, actions=plan.actions,
+                           k=plan.microbatch)
+        st, _ = tr.restore(tr.optimizer.init(tr.params), sm)
+        st, loss_direct = tr.step(st, batch)
+        torch.cuda.synchronize()
+        direct = _host_copy(tr.params)
+        del tr, st
+        _free()
+    checks = {
+        "oom_events >= 1": wd["oom_events"] >= 1,
+        "every OOM a torch.OutOfMemoryError": bool(errors) and all(
+            e == "OutOfMemoryError" for e in errors)
+        and len(errors) == wd["oom_events"],
+        "escalations == oom_events": wd["escalations"] == wd["oom_events"],
+        "retry_successes == 1, retry_failures == 0":
+            wd["retry_successes"] == 1 and wd["retry_failures"] == 0,
+        "rung reached == escalations": level == wd["escalations"],
+        "loss bitwise equal to the direct run": got[0] == loss_direct,
+    }
+    log("R3 checks: " + json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"R3 checks failed: {checks}")
+    _bitwise("R3 parameters against the direct run", got[1], direct)
+    return {"bucket": S, "plan_peak_mib": plan_peak / mib,
+            "lowest_rung_peak_mib": low / mib, "cap_mib": cap / mib,
+            "expected_rung": expected, "reached": reached,
+            "oom_events": int(wd["oom_events"]), "ladder": desc,
+            "launches": launches}
+
+
+def run_resilience_path(args, budget_mb):
+    """R1-R3 on the bert main path's batches, deterministic algorithms
+    on; returns each phase's flash launches."""
+    batches = main_path_batches(dict(args, steps=RESUME_STEPS))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        r1 = run_kill_and_resume(args, budget_mb, batches)
+        r1["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r2 = run_parked_resume(args, batches)
+        r2["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r3 = run_real_oom(args, budget_mb, batches)
+        r3["s"] = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log("resilience: " + json.dumps({"card": card_line(), "R1": r1,
+                                     "R2": r2, "R3": r3}))
+    return {k: sum(r["launches"][k] for r in (r1, r2, r3))
+            for k in FLASH_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -2515,6 +2947,11 @@ def main() -> int:
     run_offload_path(BERT_ARGS, budget_mb)
     log(f"offload path: {time.perf_counter() - t0:.1f} s")
 
+    # -- resilience path: snapshots, resume and a real OOM on bert --------
+    t0 = time.perf_counter()
+    r_launches = run_resilience_path(BERT_ARGS, budget_mb)
+    log(f"resilience path: {time.perf_counter() - t0:.1f} s")
+
     # -- the SSD scan and DMA copy against their plain versions -----------
     t0 = time.perf_counter()
     mcfg = get_config(MAMBA_ARGS["arch"])
@@ -2632,7 +3069,8 @@ def main() -> int:
 
     for name in FLASH_KERNELS:
         launches[name] += (h_launches[name] + g_launches[name]
-                           + s_launches[name] + v_launches[name])
+                           + s_launches[name] + v_launches[name]
+                           + r_launches[name])
         errs[name] = max([errs[name]] + [e[name]
                                          for e in family_errs.values()])
     kernels = []

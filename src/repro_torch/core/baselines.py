@@ -33,6 +33,8 @@ from repro_torch.launch.roofline import plan_unit_flops
 
 
 class SublinearPlanner(PlannerBase):
+    name = "sublinear"
+
     def __init__(self, lm, budget_bytes: float, max_input_size: int = 0, *,
                  fixed_bytes: Optional[float] = None,
                  warmup_samples: int = 4,
@@ -122,6 +124,8 @@ class SublinearPlanner(PlannerBase):
 
 
 class DTRSimPlanner(PlannerBase):
+    name = "dtr"
+
     def __init__(self, lm, budget_bytes: float, *,
                  fixed_bytes: Optional[float] = None,
                  frag_factor: float = 1.25,

@@ -4,6 +4,7 @@ reference's ``PolyEstimator``.
 Per plan-unit polynomial regression of activation bytes against input
 size.  Activation memory is at most quadratic in the input size
 (attention's (S, S) score tensor), so degree 2 is the default.
+``state_dict`` / ``load_state`` carry the raw samples into a snapshot.
 """
 from __future__ import annotations
 
@@ -62,3 +63,31 @@ class PolyEstimator:
 
     def predict_total(self, input_size: float) -> float:
         return float(np.sum(self.predict(input_size)))
+
+    # -- persistence (snapshots, ``train/resilience.py``) ------------------
+    def state_dict(self) -> dict:
+        """The raw samples, which fully determine the coefficients (a
+        restore refits, ~1 ms, rather than trusting stored
+        coefficients)."""
+        return {"degree": int(self.degree),
+                "min_samples": int(self.min_samples),
+                "sizes": [float(s) for s in self._sizes],
+                "acts": [np.asarray(a, dtype=np.float64).tolist()
+                         for a in self._acts]}
+
+    def load_state(self, state: dict) -> "PolyEstimator":
+        """Adopt the sample log of a ``state_dict``; ``degree`` and
+        ``min_samples`` stay as constructed (the planner owns them).
+        Refits at once when ready."""
+        sizes = list(state.get("sizes", []))
+        acts = state.get("acts", [])
+        if len(sizes) != len(acts):
+            raise ValueError(
+                f"estimator state corrupt: {len(sizes)} sizes vs "
+                f"{len(acts)} activation vectors")
+        self._sizes = [float(s) for s in sizes]
+        self._acts = [np.asarray(a, dtype=np.float64) for a in acts]
+        self._coeffs = None
+        if self.ready:
+            self.fit()
+        return self

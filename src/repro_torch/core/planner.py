@@ -46,8 +46,18 @@ run's metrics registry under the reference's keys; ``plan`` traces its
 on the planner track, keeps the per-bucket ``plan_predicted_peak_bytes``
 / ``plan_actual_peak_bytes`` gauges (actual = the collector's exact
 re-collection, not the allocator) and emits ``plan`` and ``drift``
-events.  The reference's OOM escalation (``escalate``, ``record_oom``)
-is not ported.
+events.
+
+OOM recovery (``train/resilience.py``): ``record_oom`` books a device
+OOM against its bucket, and ``MimosePlanner.escalate`` walks the
+reference's DTR-style ladder (more remat at a shrunken budget, then
+offload, then a doubled microbatch split), replacing the cached plan
+under the same key (the old one is poisoned) and emitting the
+``plan_poisoned`` / ``escalation`` events and the ``escalation``
+instant on the planner track.  The base ``escalate`` returns False, so
+the Sublinear and DTR baselines re-raise.  Every sample the estimators
+are fed is logged with its batch geometry (``_sample_log``), so a
+snapshot's planner state can replay it through the ``meta`` collector.
 """
 from __future__ import annotations
 
@@ -62,7 +72,7 @@ import torch
 from repro_torch.core.cache import LRUCache
 from repro_torch.core.collector import ShuttlingCollector, input_size_of
 from repro_torch.core.estimator import PolyEstimator
-from repro_torch.core.scheduler import (Plan, greedy_plan,
+from repro_torch.core.scheduler import (Plan, escalate_plan, greedy_plan,
                                         greedy_plan_adaptive)
 from repro_torch.core.solver import BackgroundSolver, SolveRequest
 from repro_torch.data.pipeline import bucket_length
@@ -78,6 +88,9 @@ DEGREE = 2
 BUCKET_TOL = 0.10
 MAX_PLANS = 256
 AUDIT_TOL = 0.02
+# OOM recovery: each rung of the ladder plans against the budget shrunk
+# by this factor per level (the prediction's error is unknown)
+ESCALATE_SHRINK = 0.85
 
 
 def fixed_train_bytes(params: Iterable[torch.Tensor]) -> int:
@@ -102,6 +115,7 @@ class PlanInfo:
 
 
 class PlannerBase:
+    name = "base"
     telemetry: Optional[Telemetry] = None
     quantum: int = 1          # batch geometry granularity (1 = no bucketing)
     fixed_bytes: Optional[float] = None
@@ -134,6 +148,26 @@ class PlannerBase:
         st = getattr(self, "stats", None)
         if isinstance(st, StatsView):
             st.attach(telemetry.metrics)
+
+    # -- OOM-watchdog hooks (train/resilience.py) --------------------------
+    def record_oom(self, bucket: int) -> None:
+        """Book a device OOM against ``bucket`` in ``stats``.  Sharing a
+        registry with an ``OOMWatchdog``, whose ``on_oom`` bumps the
+        same ``train_oom_events`` counter: call one of them per OOM."""
+        st = getattr(self, "stats", None)
+        if isinstance(st, StatsView):
+            st.inc("oom_events", bucket=bucket)
+        elif isinstance(st, dict):
+            st["oom_events"] = st.get("oom_events", 0) + 1
+            by = st.setdefault("oom_by_bucket", {})
+            by[bucket] = by.get(bucket, 0) + 1
+
+    def escalate(self, batch) -> bool:
+        """Replace the cached plan for this batch's bucket with a more
+        memory-aggressive one after an OOM.  Only a planner with an
+        online estimator has the ladder; False tells the watchdog to
+        re-raise."""
+        return False
 
     # -- the byte vectors planning runs on (one device: the global ones,
     # which equal the device ones) ----------------------------------------
@@ -247,16 +281,24 @@ class PlannerBase:
         return float(PCIE_BW if self.pcie_gbps is None
                      else self.pcie_gbps * 1e9)
 
-    def plan_key(self, batch) -> tuple:
-        """Plan-cache key: (bucket id, mesh signature (always () on one
-        device), microbatch ceiling, link GB/s, offload overlap, the
-        accumulation overhead).  A plan built under one knob setting —
-        or priced at other roofline constants — is never replayed under
-        another; the chosen ``k`` is plan output (``Plan.microbatch``)."""
-        return (self.bucket_key(batch), (), self.max_microbatches,
+    @staticmethod
+    def mesh_sig() -> tuple:
+        """The mesh part of every plan key: always () on one device."""
+        return ()
+
+    def plan_key_of(self, bucket: int) -> tuple:
+        """Plan-cache key: (bucket id, mesh signature, microbatch
+        ceiling, link GB/s, offload overlap, the accumulation overhead).
+        A plan built under one knob setting — or priced at other
+        roofline constants — is never replayed under another; the
+        chosen ``k`` is plan output (``Plan.microbatch``)."""
+        return (int(bucket), self.mesh_sig(), self.max_microbatches,
                 round(self.link_bytes_per_s() / 1e9, 6),
                 round(float(self.offload_overlap), 6),
                 self.accum_overhead_s())
+
+    def plan_key(self, batch) -> tuple:
+        return self.plan_key_of(self.bucket_key(batch))
 
     def planning_flops(self, flops):
         """The recompute-cost vector the simulator and scheduler divide
@@ -307,6 +349,7 @@ class PlannerBase:
 
 class NonePlanner(PlannerBase):
     """No checkpointing (the paper's PyTorch baseline)."""
+    name = "none"
 
     def __init__(self, lm):
         self.lm = lm
@@ -320,6 +363,8 @@ class NonePlanner(PlannerBase):
 
 
 class MimosePlanner(PlannerBase):
+    name = "mimose"
+
     def __init__(self, lm, budget_bytes: float, *,
                  quantum: int = 256,
                  warmup_samples: int = 4,
@@ -363,9 +408,15 @@ class MimosePlanner(PlannerBase):
         self.collector = ShuttlingCollector(lm)
         self.estimator = PolyEstimator(DEGREE, min_samples=warmup_samples)
         self.cache = LRUCache(MAX_PLANS)
-        # stats (paper Table 2) and the solver tier's counters: a
-        # dict-shaped view over the metrics registry, under the
-        # reference's keys and metric names
+        # OOM recovery: the escalation level per plan key
+        self._escalation: dict = {}
+        # every (input size, batch geometry) the estimators were fed: a
+        # snapshot carries it, and a restore under another signature
+        # replays it through the meta collector
+        self._sample_log: list = []
+        # stats (paper Table 2), the resilience counters and the solver
+        # tier's: a dict-shaped view over the metrics registry, under
+        # the reference's keys and metric names
         self.stats = StatsView(
             self.telemetry.metrics,
             scalars={"cache_hits": "plan_cache_hits",
@@ -377,11 +428,20 @@ class MimosePlanner(PlannerBase):
                      "audits": "planner_audits",
                      "refits": "planner_refits",
                      "evictions": "plan_cache_evictions",
+                     "oom_events": "train_oom_events",
+                     "escalations": "train_escalations",
+                     "poisoned_plans": "plan_cache_poisoned",
+                     "restored_samples": "planner_restored_samples",
+                     "restored_plans": "planner_restored_plans",
+                     "dropped_plans": "planner_dropped_plans",
                      "solves": "solver_solves",
                      "solver_swaps": "solver_swaps",
                      "solver_wins": "solver_wins",
                      "solver_timeouts": "solver_timeouts",
-                     "offload_fallbacks": "offload_fallbacks"})
+                     "offload_fallbacks": "offload_fallbacks"},
+            labeled={"oom_by_bucket": ("train_oom_events", "bucket"),
+                     "escalations_by_bucket": ("train_escalations",
+                                               "bucket")})
         # optimal-plan tier: a daemon thread solves the (k, action)
         # assignment exactly and swaps strictly better plans into the
         # cache; every cache access goes through _cache_lock so the swap
@@ -401,11 +461,19 @@ class MimosePlanner(PlannerBase):
         self.stats["collect_time_s"] += res.collect_time_s
         return res
 
-    def _feed_estimators(self, s: int, res) -> None:
+    def _feed_estimators(self, s: int, res, probe=None) -> None:
         """One collection feeds all three per-unit fits (activation,
-        boundary, offloadable), so they become ready together."""
+        boundary, offloadable), so they become ready together.  The
+        probe's geometry is logged so a snapshot can replay the sample
+        (``train/resilience.py``)."""
         self.estimator.add_sample(s, self.collected_vector(res))
         self._feed_hybrid_estimators(s, res)
+        if probe is not None:
+            self._sample_log.append(
+                {"size": int(s),
+                 "probe": {k: [list(v.shape),
+                               str(v.dtype).replace("torch.", "")]
+                           for k, v in probe.items() if v.dim()}})
 
     def _record_drift_point(self, bucket: int, size: int, est, truth,
                             rel_err: float = 0.0,
@@ -448,7 +516,7 @@ class MimosePlanner(PlannerBase):
                 est = self.estimator.predict(size)
             else:
                 res_k = self._collect(probe)
-                self._feed_estimators(size, res_k)
+                self._feed_estimators(size, res_k, probe)
                 est = self.collected_vector(res_k)
             flops = None
             if self.cost_aware:
@@ -490,7 +558,7 @@ class MimosePlanner(PlannerBase):
             # sheltered execution: collect this size online; the
             # collection carries the recompute-cost vector too
             res = self._collect(batch)
-            self._feed_estimators(s, res)
+            self._feed_estimators(s, res, batch)
             est = self.collected_vector(res)
             if self.cost_aware:
                 flops = res.flops_vector()
@@ -515,7 +583,7 @@ class MimosePlanner(PlannerBase):
                 self._record_drift_point(qs, s, est, truth, rel_err=err,
                                          refit=refit)
                 if refit:
-                    self._feed_estimators(s, audit)
+                    self._feed_estimators(s, audit, batch)
                     self.estimator.fit()
                     self.est_output.fit()
                     self.est_offload.fit()
@@ -586,13 +654,17 @@ class MimosePlanner(PlannerBase):
         """Queue an exact background solve for this bucket.  Greedy
         already served the step — this never blocks.  Skipped while the
         estimator is warming up (sheltered plans are exact for their
-        collections) and for plans the solver produced or checked.  The
-        planning vectors are materialised here, on the training thread,
-        so the daemon stays numpy-only."""
+        collections), for plans the solver produced or checked, and for
+        OOM-escalated buckets (their plan survived a real OOM, which the
+        simulator does not know of).  The planning vectors are
+        materialised here, on the training thread, so the daemon stays
+        numpy-only."""
         bs = self.background_solver
         if (bs is None or not self.estimator.ready
                 or getattr(plan, "solver_checked", False)
-                or plan.source == "dp" or bs.pending(key)):
+                or plan.source == "dp"
+                or self._escalation.get(key, 0)
+                or bs.pending(key)):
             return
         s = input_size_of(batch)
         est1 = self.estimator.predict(s)
@@ -614,3 +686,102 @@ class MimosePlanner(PlannerBase):
             # one submission per cached plan object; the daemon re-marks
             # it when the solve completes
             plan.solver_checked = True
+
+    def escalate(self, batch) -> bool:
+        """The DTR-style recovery ladder after a device OOM on this
+        batch's bucket (called by the trainer's watchdog loop).
+
+        The plan predicted the bucket fits and the device disagreed, so
+        each call replaces the cached plan with a more aggressive one,
+        planned against the budget shrunk by ``ESCALATE_SHRINK ** level``.
+        Rungs, in order:
+
+          1. more remat — a remat-only replan at the shrunken budget;
+          2. offload — upgrade the failed plan's actions (KEEP -> REMAT
+             -> OFFLOAD) in density order (``escalate_plan``) until the
+             liveness replay fits;
+          3. a higher microbatch split — double ``k``
+             (``greedy_plan_adaptive`` with that one candidate), again
+             on each call until ``k`` reaches the batch size.
+
+        The escalated plan is cached under the same key, so later steps
+        of the bucket reuse it.  Returns False when the ladder is
+        exhausted (the watchdog then re-raises).
+        """
+        key = self.plan_key(batch)
+        level = self._escalation.get(key, 0) + 1
+        s = input_size_of(batch)
+        bucket = self.bucket_key(batch)
+        B = int(batch["tokens"].shape[0])
+        res = None
+        if not self.estimator.ready:
+            res = self._collect(batch)
+            self._feed_estimators(s, res, batch)
+            est = self.collected_vector(res)
+        else:
+            est = self.estimator.predict(s)
+        flops = (res.flops_vector() if res is not None
+                 else plan_unit_flops(self.lm, batch))
+        fixed = self.resolve_fixed_bytes()
+        budget = self.budget_bytes * (ESCALATE_SHRINK ** level)
+        with self._cache_lock:
+            prev = self.cache.get(key)
+        prev_k = max(int(getattr(prev, "microbatch", 1) or 1), 1)
+
+        if level == 1 and prev_k == 1:
+            # rung 1: the cost-aware replan at the shrunken budget frees
+            # more bytes than the plan that ran out of memory
+            plan = greedy_plan(est, budget, fixed, tol=BUCKET_TOL,
+                               flops=self.planning_flops(flops))
+        elif level == 2 and prev_k == 1:
+            # rung 2: upgrade the failed plan's actions until the
+            # replayed peak fits (the hybrid fits are fed on every
+            # collection, so this works with the offload knob off)
+            out_v, off_v = (
+                (self.collected_output_vector(res),
+                 self.collected_offload_vector(res)) if res is not None
+                else (self.est_output.predict(s),
+                      self.est_offload.predict(s)))
+            base = prev.actions if prev is not None else None
+            plan = escalate_plan(base, est, self.planning_flops(flops),
+                                 budget, fixed, output_bytes=out_v,
+                                 offload_bytes=off_v,
+                                 pcie_bytes_per_s=self.link_bytes_per_s(),
+                                 offload_overlap=self.offload_overlap,
+                                 opt_bytes=self._opt_bytes_planning())
+        else:
+            # rung 3+: gradient accumulation shrinks the per-microbatch
+            # footprint itself, below the bucket's k = 1 minimum
+            k_new = min(B, max(2, prev_k * 2))
+            if k_new <= prev_k:
+                self._escalation[key] = level
+                return False
+            plan = greedy_plan_adaptive(
+                lambda k: self._microbatch_vectors(batch, k, est, flops,
+                                                   res),
+                budget, fixed, candidate_ks=[k_new], tol=BUCKET_TOL,
+                pcie_bytes_per_s=self.link_bytes_per_s(),
+                offload_overlap=self.offload_overlap,
+                accum_overhead_s=self.accum_overhead_s())
+
+        plan.source = "escalated"
+        tel = self.telemetry
+        with self._cache_lock:
+            if key in self.cache:
+                self.stats["poisoned_plans"] += 1
+                if tel.events_on:
+                    tel.events.emit("plan_poisoned", bucket=bucket,
+                                    level=level)
+            # a new object also invalidates an in-flight solve for this
+            # key (the solver's swap is identity-checked)
+            self.cache[key] = plan
+        self._escalation[key] = level
+        self.stats.inc("escalations", bucket=bucket)
+        if tel.events_on:
+            tel.events.emit("escalation", bucket=bucket, level=level,
+                            k=int(getattr(plan, "microbatch", 1) or 1),
+                            n_remat=int(plan.n_remat),
+                            n_offload=int(plan.n_offload))
+        tel.tracer.instant("escalation", TRACK_PLANNER,
+                           args={"bucket": bucket, "level": level})
+        return True

@@ -116,7 +116,8 @@ def microbatch_overhead(trainer, batch, rounds: int = 2,
         nonlocal opt_state
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        opt_state, loss, _ = fns[k](opt_state, tb)
+        loss, _, grads = fns[k].grads(tb)
+        opt_state = trainer._update(fns[k], grads, opt_state)
         float(loss)
         torch.cuda.synchronize()
         return time.perf_counter() - t0

@@ -1,8 +1,9 @@
 """The engine report a training run prints at exit: a per-bucket table
 (steps, gradient-accumulation split ``k``, padded vs effective tokens,
 pad fraction), the step- and plan-cache counts, the background solver's
-and the offload lane's totals, and the planner's predicted-vs-actual
-peak bytes per bucket.  Copied from the reference's
+and the offload lane's totals, the resilience counters (snapshots,
+restores, OOMs, escalations, retries), and the planner's
+predicted-vs-actual peak bytes per bucket.  Copied from the reference's
 ``launch/report.py`` (``engine_report``, ``drift_table``); built from
 the run's ``MetricsRegistry`` snapshot, not from trainer internals.
 The dryrun and roofline tables (A20) and the serve report (A18) are not
@@ -136,6 +137,23 @@ def engine_report(trainer, planner=None) -> str:
         lines.append(f"offload degraded to remat: {degraded} step(s), "
                      f"{fallbacks} fallback(s) (plans keep their typed "
                      f"actions)")
+    # resilience counters — only when something happened, so quiet runs
+    # keep a quiet report
+    oom = _total(snap, "train_oom_events")
+    snaps = _total(snap, "snapshots_written")
+    restores = int(getattr(trainer, "restores", 0))
+    if oom or snaps or restores:
+        lines.append(f"resilience: {snaps} snapshot(s) written, "
+                     f"{restores} restore(s), {oom} OOM event(s), "
+                     f"{_total(snap, 'train_escalations')} escalation(s), "
+                     f"{_total(snap, 'train_retry_successes')} retry "
+                     f"success(es), "
+                     f"{_total(snap, 'train_retry_failures')} retry "
+                     "failure(s)")
+        esc_by = _by_label(snap, "train_escalations")
+        if esc_by:
+            per = ", ".join(f"{b}: {n}" for b, n in sorted(esc_by.items()))
+            lines.append(f"escalations by bucket: {per}")
     # input-aware memory drift: predicted vs audited per-device peak
     lines.extend(drift_table(snap))
     return "\n".join(lines)

@@ -47,6 +47,16 @@ the three telemetry sinks:
         --steps 4 --offload --opt-offload --budget-mb 30 \\
         --metrics m.json --events-out ev.jsonl --trace-out trace.json
 
+Resilience: periodic atomic snapshots, kill-and-resume, and the OOM
+watchdog (``--inject-oom`` drives deterministic faults; a real
+``torch.OutOfMemoryError`` takes the same path):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+        --steps 12 --checkpoint-dir ckpt --checkpoint-every-steps 6 \\
+        --inject-oom 2
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+        --steps 12 --checkpoint-dir ckpt --resume
+
 ``--pcie-gbps`` defaults to ``MIMOSE_PCIE_GBPS``, else this host's
 calibration file (``python -m repro_torch.launch.bench_offload_bw``
 writes it), else ``launch/roofline.PCIE_BW``.  At exit the run prints
@@ -56,6 +66,7 @@ run.
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 
 from repro_torch.core.baselines import DTRSimPlanner, SublinearPlanner
@@ -69,6 +80,8 @@ from repro_torch.models.registry import (ARCH_IDS, REDUCED_ONLY,
                                          canonical, get_config)
 from repro_torch.obs import build_telemetry, flush_telemetry
 from repro_torch.optim.adamw import AdamW, cosine_schedule
+from repro_torch.train.resilience import (FaultInjector, OOMWatchdog,
+                                         SnapshotManager)
 from repro_torch.train.trainer import Trainer
 from repro_torch.train.transfer import calibrated_pcie_gbps
 
@@ -129,6 +142,31 @@ def main(argv=None) -> Trainer:
                     help="reduced model variant (CPU demo)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    # resilience (repro_torch.train.resilience)
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="directory for periodic full-state snapshots "
+                         "(params + optimizer + planner state + data "
+                         "cursor); atomic, hash-manifested, last-k kept")
+    ap.add_argument("--checkpoint-every-steps", type=int, default=25,
+                    help="snapshot cadence in steps (0 = off)")
+    ap.add_argument("--checkpoint-every-secs", type=float, default=0.0,
+                    help="wall-clock snapshot cadence in seconds (0 = off; "
+                         "fires on the first step boundary past the mark)")
+    ap.add_argument("--checkpoint-keep", type=int, default=3,
+                    help="retain the newest K snapshots")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest valid snapshot from "
+                         "--checkpoint-dir (params, optimizer, planner "
+                         "state, data cursor) and continue")
+    ap.add_argument("--max-oom-retries", type=int, default=3,
+                    help="OOM watchdog: retries per step, each after a "
+                         "DTR-style plan escalation (more remat -> "
+                         "offload -> higher microbatch split)")
+    ap.add_argument("--inject-oom", default=None,
+                    help="deterministic fault injection for drills: an "
+                         "int N (fail the first N step executions) or "
+                         'JSON like {"bucket": {"1024": 2}}; also '
+                         "readable from $MIMOSE_INJECT_OOM")
     # telemetry (repro_torch.obs): every sink is opt-in, and the run's
     # values are the same with them off
     ap.add_argument("--metrics", default=None,
@@ -154,6 +192,8 @@ def main(argv=None) -> Trainer:
                  "the same host link)")
     if args.opt_offload and args.planner != "mimose":
         ap.error("--opt-offload needs --planner mimose")
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume needs --checkpoint-dir")
     if args.pcie_gbps is None:
         # price the link at what this host measured
         args.pcie_gbps = calibrated_pcie_gbps(PCIE_BW / 1e9)
@@ -205,16 +245,36 @@ def main(argv=None) -> Trainer:
         "none": lambda: NonePlanner(lm),
     }[args.planner]()
     opt = AdamW(lr=cosine_schedule(args.lr, 10, args.steps))
+    snapshots = None
+    if args.checkpoint_dir:
+        snapshots = SnapshotManager(args.checkpoint_dir,
+                                    every_steps=args.checkpoint_every_steps,
+                                    every_secs=args.checkpoint_every_secs,
+                                    keep=args.checkpoint_keep)
+    injector = (FaultInjector(args.inject_oom) if args.inject_oom
+                else FaultInjector.from_env())
+    watchdog = OOMWatchdog(max_retries=args.max_oom_retries,
+                           injector=injector)
     telemetry = build_telemetry(metrics_path=args.metrics,
                                 events_path=args.events_out,
                                 trace_path=args.trace_out)
-    trainer = Trainer(lm, planner, opt, telemetry=telemetry)
+    trainer = Trainer(lm, planner, opt, telemetry=telemetry,
+                      watchdog=watchdog, snapshots=snapshots)
     batches = make_batches(args.dataset, batch_size=args.batch_size,
                            vocab_size=cfg.vocab_size,
                            num_batches=args.steps, quantum=args.quantum,
                            seed=0)
     t0 = time.time()
     opt_state = opt.init(trainer.params)
+    if args.resume:
+        opt_state, restored = trainer.restore(opt_state)
+        # the batch stream is seeded: the cursor says how many batches
+        # the snapshot already consumed
+        batches = itertools.islice(iter(batches), restored.data_cursor,
+                                   None)
+        print(f"resumed {restored.path} at step {restored.step} "
+              f"(cursor={restored.data_cursor}, "
+              f"planner={restored.planner_summary})")
     if args.prewarm:
         likely = top_buckets(args.dataset, batch_size=args.batch_size,
                              quantum=max(args.quantum,
@@ -224,12 +284,12 @@ def main(argv=None) -> Trainer:
         n = trainer.prewarm([S for S, _ in likely], args.batch_size)
         print(f"prewarmed {n} bucket(s) {[S for S, _ in likely]} "
               f"in {time.time() - tw:.1f}s")
-    for i, batch in enumerate(batches):
+    for batch in batches:
         opt_state, loss = trainer.step(opt_state, batch)
         st = trainer.history[-1]
         source = ("hit" if st.cache_hit else
                   "collected" if st.collected else "predicted")
-        print(f"step {i:4d} loss {loss:.4f} (ce {st.ce:.4f} aux "
+        print(f"step {trainer.global_step - 1:4d} loss {loss:.4f} (ce {st.ce:.4f} aux "
               f"{st.aux:.4f}) S={batch['tokens'].shape[1]} "
               f"bucket={st.bucket} remat={st.remat_units} "
               f"offload={st.offload_units} opt_offload="
@@ -243,6 +303,8 @@ def main(argv=None) -> Trainer:
         # wait; training is done), then end the solver's thread
         bs.drain(timeout=5.0)
         bs.close()
+    if snapshots is not None:
+        print("snapshot", trainer.save_snapshot(opt_state))
     if trainer.transfer_lane is not None:
         pinned = trainer.transfer_lane.pinned_bytes / 2**20
         print(f"transfer lane: {pinned:.1f} MiB of pinned host buffers "

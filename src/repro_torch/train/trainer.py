@@ -28,9 +28,24 @@ device):
      PyTorch has nothing to compile), so the first batch of each is a
      plan-cache hit.
 
+Resilience (``train/resilience.py``): with an ``OOMWatchdog`` the
+step's forward and backward run in a bounded retry loop.  The window
+ends once the gradients are computed: until then nothing of the
+parameters or the optimizer state has changed, so an OOM there is
+booked against the bucket, the failed step function is dropped, the
+planner escalates and the step runs again under the new plan — after
+the failed attempt's memory is freed (its frames released, ``.grad``
+dropped, the transfer lane drained, the allocator's cache emptied).
+An OOM in the update (which writes parameters and moments in place) is
+re-raised.  With a ``SnapshotManager`` a snapshot is written when one
+is due after a step; ``restore`` copies a snapshot into the live
+parameters in place and puts parked moments back on the host.
+
 Telemetry (``repro_torch.obs``): ``cache_stats`` is a ``StatsView``
 over the run's registry; each step traces ``plan``, ``build_step`` and
-``execute`` spans on the step track and emits a ``train_step`` event;
+``execute`` spans on the step track (one per attempt, with an ``oom``
+instant and event after a failed one) and emits a ``train_step`` event
+numbered by ``global_step``;
 the lane's exposed time and the simulator's price of the same bytes
 land in ``train_exposed_transfer_s`` / ``train_sim_transfer_s``.
 
@@ -42,8 +57,9 @@ comparison.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
-from typing import Iterable, Optional
+from typing import Callable, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -98,10 +114,23 @@ class StepStats:
     recompute_dec_layers: int = 0
 
 
+class StepFn(NamedTuple):
+    """A built step.  ``grads(batch)`` runs the forward and backward and
+    returns ``(loss, metrics, grads)`` without touching the parameters
+    or the optimizer state (the window the watchdog retries);
+    ``Trainer._update`` then applies AdamW in place.  With
+    ``opt_units`` (OFFLOAD_OPT units, unrolled mode) the step is split:
+    the parked moments come to the device only for the update and the
+    plan's units go back out after it."""
+    grads: Callable
+    opt_units: tuple = ()
+
+
 class Trainer:
     def __init__(self, lm, planner: PlannerBase,
                  optimizer: Optional[AdamW] = None,
-                 telemetry: Optional[Telemetry] = None):
+                 telemetry: Optional[Telemetry] = None,
+                 watchdog=None, snapshots=None):
         self.lm = lm
         self.planner = planner
         # one registry per run: the planner re-homes its stats into it
@@ -122,6 +151,13 @@ class Trainer:
         self._parked: set = set()
         self._step_cache = LRUCache(MAX_CACHED_STEPS)
         self.history: list[StepStats] = []
+        # resilience: the OOM watchdog, the snapshot manager, and the
+        # counters a resumed run carries on
+        self.watchdog = watchdog
+        self.snapshots = snapshots
+        self.global_step = 0              # across restarts (set on resume)
+        self.data_cursor = 0              # batches consumed from the stream
+        self.restores = 0                 # snapshots restored into this run
         reg = self.telemetry.metrics
         self._m_padded_tokens = reg.counter(
             "train_bucket_padded_tokens",
@@ -144,6 +180,29 @@ class Trainer:
                 "bucket_tokens": self._bucket_tokens_view,
                 "bucket_microbatch":
                     lambda: LabelView(self._g_bucket_k, "bucket")})
+
+    # properties, so that a later assignment also re-homes the
+    # component's metrics into the run's registry (the watchdog's and
+    # the planner's oom_events / escalations are then one counter)
+    @property
+    def watchdog(self):
+        return self._watchdog
+
+    @watchdog.setter
+    def watchdog(self, wd) -> None:
+        if wd is not None:
+            wd.bind_telemetry(self.telemetry)
+        self._watchdog = wd
+
+    @property
+    def snapshots(self):
+        return self._snapshots
+
+    @snapshots.setter
+    def snapshots(self, sm) -> None:
+        if sm is not None:
+            sm.bind_telemetry(self.telemetry)
+        self._snapshots = sm
 
     def _bucket_tokens_view(self) -> dict:
         """``{bucket: [padded_tokens, effective_tokens]}``."""
@@ -171,7 +230,7 @@ class Trainer:
                 for k, v in batch.items()}
 
     def _build_step(self, actions, microbatch: int = 1):
-        lm, opt, params = self.lm, self.optimizer, self.params
+        lm, params = self.lm, self.params
         opt_units = tuple(u for u, a in enumerate(actions)
                           if int(a) == int(Action.OFFLOAD_OPT))
 
@@ -187,18 +246,12 @@ class Trainer:
                     p.grad = None
                 return loss, metrics, grads
 
-        if opt_units and lm.cfg.remat_mode != "scan":
-            # OFFLOAD_OPT: the parked moments must be off the device
-            # while activations peak and on it only for the update, so
-            # the trainer runs the step in phases (_run_opt_split)
-            return ("opt_split", grad_fn, opt_units)
-
-        def train_step(opt_state: AdamWState, batch):
-            loss, metrics, grads = grad_fn(batch)
-            opt_state = opt.update(grads, opt_state, params)
-            return opt_state, loss, metrics
-
-        return train_step
+        if lm.cfg.remat_mode == "scan":
+            # the planner offers no OFFLOAD_OPT in scan mode
+            opt_units = ()
+        # OFFLOAD_OPT: the parked moments must be off the device while
+        # activations peak and on it only for the update (_update)
+        return StepFn(grad_fn, opt_units)
 
     def _step_key(self, actions, batch, microbatch: int = 1) -> tuple:
         # the typed actions: two plans that remat the same units but
@@ -278,16 +331,69 @@ class Trainer:
         return AdamWState(opt_state.step, self._moment_set(m, dev["m"]),
                           self._moment_set(v, dev["v"]))
 
-    def _run_opt_split(self, fn, opt_state: AdamWState, batch):
-        """One OFFLOAD_OPT step: gradients, the parked moments home, the
-        update, and the plan's units' moments back out."""
-        _tag, grad_fn, opt_units = fn
-        loss, metrics, grads = grad_fn(batch)
+    def _update(self, fn: StepFn, grads, opt_state: AdamWState
+                ) -> AdamWState:
+        """The update after the gradients: every parked moment home,
+        AdamW, and the moments of the plan's OFFLOAD_OPT units back
+        out."""
         opt_state = self._unpark_moments(opt_state)
         opt_state = self.optimizer.update(grads, opt_state, self.params)
-        del grads
-        opt_state = self._park_moments(opt_state, opt_units)
-        return opt_state, loss, metrics
+        if fn.opt_units:
+            opt_state = self._park_moments(opt_state, fn.opt_units)
+        return opt_state
+
+    def _recover_from_oom(self) -> None:
+        """Free what a failed attempt left: its gradients, the lane's
+        in-flight copies and pooled pinned buffers, reference cycles
+        that hold its graph, and the allocator's cached blocks (so a
+        fragmented cache is not a second, false OOM).  Called after the
+        ``except`` block, so the attempt's frames are already gone."""
+        for p in self.params.values():
+            p.grad = None
+        for lane in {self.transfer_lane,
+                     getattr(self.lm, "transfer_lane", None)} - {None}:
+            lane.close()
+        gc.collect()
+        if self.lm.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # -- snapshots ------------------------------------------------------
+    def save_snapshot(self, opt_state: AdamWState, snapshots=None) -> str:
+        """Write the live state through ``snapshots`` (default: the
+        trainer's manager): parameters, optimizer state (parked moments
+        from their host buffers), planner state, and which units'
+        moments are parked."""
+        sm = snapshots if snapshots is not None else self.snapshots
+        return sm.save(step=self.global_step, params=self.params,
+                       opt_state=opt_state, planner=self.planner,
+                       data_cursor=self.data_cursor,
+                       extra={"parked": sorted(self._parked)})
+
+    def restore(self, opt_state: AdamWState, snapshots=None):
+        """Restore the newest valid snapshot into this run: parameters
+        copied into the live tensors in place (the step cache and the
+        lane keep pointing at them), the moments onto the parameters'
+        device and the snapshot's parked units back on the host, the
+        planner's state, ``global_step`` and ``data_cursor``.  Returns
+        ``(opt_state, Restored)``."""
+        sm = snapshots if snapshots is not None else self.snapshots
+        r = sm.restore_latest(params_like=self.params, opt_like=opt_state,
+                              planner=self.planner)
+        with torch.no_grad():
+            for n, p in self.params.items():
+                p.copy_(r.params[n])
+        dev = {n: p.device for n, p in self.params.items()}
+        opt_state = AdamWState(
+            r.opt_state.step,
+            {n: t.to(dev[n]) for n, t in r.opt_state.m.items()},
+            {n: t.to(dev[n]) for n, t in r.opt_state.v.items()})
+        self._parked = set()
+        opt_state = self._park_moments(
+            opt_state, tuple(r.meta.get("extra", {}).get("parked", ())))
+        r.params, r.opt_state = self.params, opt_state
+        self.global_step, self.data_cursor = r.step, r.data_cursor
+        self.restores += 1
+        return opt_state, r
 
     # ------------------------------------------------------------------
     def prewarm(self, seq_lens: Iterable[int], batch_size: int,
@@ -331,34 +437,74 @@ class Trainer:
             actions, info = self.planner.plan(batch)
         t_plan = time.perf_counter() - t0
         bucket = self.planner.bucket_key(batch)
-        plan = info.plan
-        k = max(int(plan.microbatch), 1)
-        t_c0 = time.perf_counter()
-        fn, is_new = self._get_step_fn(actions, batch, k)
-        if is_new:
-            tracer.complete("build_step", t_c0, time.perf_counter() - t_c0,
-                            TRACK_STEP, args={"bucket": bucket}
-                            if tel.trace_on else None)
-        if plan.n_offload or plan.n_opt or self._parked:
-            self._lane()
-        if self.transfer_lane is not None:
-            self.transfer_lane.reset_stats()
         cuda = self.lm.device.type == "cuda"
-        if cuda:
-            torch.cuda.synchronize(self.lm.device)
-            torch.cuda.reset_peak_memory_stats(self.lm.device)
-        t1 = time.perf_counter()
-        with tracer.span("execute", TRACK_STEP):
-            if isinstance(fn, tuple):
-                opt_state, loss, metrics = self._run_opt_split(
-                    fn, opt_state, batch)
-            else:
-                # a plan without OFFLOAD_OPT updates every moment
-                opt_state = self._unpark_moments(opt_state)
-                opt_state, loss, metrics = fn(opt_state, batch)
-            loss = float(loss.detach())            # waits for the device
+        wd = self.watchdog
+        attempt = 0
+        while True:
+            plan = info.plan
+            k = max(int(plan.microbatch), 1)
+            t_c0 = time.perf_counter()
+            fn, is_new = self._get_step_fn(actions, batch, k)
+            if is_new:
+                tracer.complete("build_step", t_c0,
+                                time.perf_counter() - t_c0, TRACK_STEP,
+                                args={"bucket": bucket}
+                                if tel.trace_on else None)
+            if plan.n_offload or plan.n_opt or self._parked:
+                self._lane()
+            if self.transfer_lane is not None:
+                self.transfer_lane.reset_stats()
             if cuda:
                 torch.cuda.synchronize(self.lm.device)
+                torch.cuda.reset_peak_memory_stats(self.lm.device)
+            t1 = time.perf_counter()
+            retryable = True
+            try:
+                with tracer.span("execute", TRACK_STEP):
+                    if wd is not None:
+                        # an injected fault fires before any work
+                        wd.maybe_inject(step=self.global_step,
+                                        bucket=bucket)
+                    # the allocator raises an OOM on the host when the
+                    # allocation is made, so it surfaces in this call
+                    loss, metrics, grads = fn.grads(batch)
+                    # the update writes in place: no retry past here
+                    retryable = False
+                    opt_state = self._update(fn, grads, opt_state)
+                    del grads
+                    loss = float(loss.detach())    # waits for the device
+                    if cuda:
+                        torch.cuda.synchronize(self.lm.device)
+            except RuntimeError as e:      # every OOM is one
+                if not retryable or wd is None or not wd.is_oom(e):
+                    raise
+                # the plan said the bucket fits and the device disagreed:
+                # book it (the planner's stats read the same counter),
+                # drop the failed step function, and ask the planner for
+                # a more aggressive plan
+                wd.on_oom(bucket)
+                self._step_cache.pop(self._step_key(actions, batch, k))
+                if tel.events_on:
+                    tel.events.emit("oom", step=self.global_step,
+                                    bucket=bucket, attempt=attempt + 1,
+                                    error=type(e).__name__)
+                tracer.instant("oom", TRACK_STEP, args={"bucket": bucket})
+                attempt += 1
+                if (attempt > wd.max_retries
+                        or not self.planner.escalate(batch)):
+                    wd.on_retry_failure()
+                    raise
+            else:
+                break
+            # out of the except block: the failed attempt's frames (and
+            # the activations they hold) are released
+            self._recover_from_oom()
+            t0 = time.perf_counter()
+            with tracer.span("plan", TRACK_STEP):
+                actions, info = self.planner.plan(batch)
+            t_plan += time.perf_counter() - t0
+        if wd is not None and attempt:
+            wd.on_retry_success()
         t_step = time.perf_counter() - t1
         peak = torch.cuda.max_memory_allocated(self.lm.device) if cuda else 0
         predicted = (float(self.planner.fixed_bytes or 0.0)
@@ -405,7 +551,7 @@ class Trainer:
             recompute_layers=sum(n for n, _ in recomputed),
             recompute_dec_layers=sum(n for n, dec in recomputed if dec)))
         if tel.events_on:
-            tel.events.emit("train_step", step=len(self.history) - 1,
+            tel.events.emit("train_step", step=self.global_step,
                             bucket=bucket, loss=loss, k=k,
                             compile=bool(is_new),
                             plan_source=plan.source,
@@ -418,6 +564,11 @@ class Trainer:
                             exposed_transfer_s=exposed_s,
                             max_memory_bytes=int(peak),
                             predicted_peak_bytes=predicted)
+        self.global_step += 1
+        self.data_cursor += 1
+        if self.snapshots is not None and self.snapshots.due(
+                self.global_step):
+            self.save_snapshot(opt_state)
         return opt_state, loss
 
     def run(self, batches, opt_state: Optional[AdamWState] = None):
@@ -468,6 +619,16 @@ class Trainer:
             "final_loss": h[-1].loss,
             "final_ce": h[-1].ce,
             "final_aux": h[-1].aux,
+            # resilience counters (0 without a watchdog / snapshots)
+            "snapshots_written": (int(self.snapshots.written)
+                                  if self.snapshots is not None else 0),
+            "restores": int(self.restores),
+            **{key: (int(self.watchdog.stats[key])
+                     if self.watchdog is not None else 0)
+               for key in ("oom_events", "escalations", "retry_successes",
+                           "retry_failures")},
+            "escalations_by_bucket": dict(stats.get("escalations_by_bucket",
+                                                    {})),
             # background-solver counters (0 without the solver tier)
             **{key: int(stats.get(key, 0))
                for key in ("solves", "solver_swaps", "solver_wins",
