@@ -9,7 +9,9 @@ Phases (each raises on failure; the script then exits non-zero):
 
 1. card identity (``nvidia-smi`` name and power limit);
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together; log the flash instances'
+   registers and stack (``cuobjdump -res-usage``), failing if a bf16
+   hd-80 or hd-256 instance uses local memory;
 3. bert path: hold each flash kernel (the forward, dq and dk/dv kernels
    on the tensor cores, and the fp32 FMA kernels they replaced) against
    its plain PyTorch version on the card, and the tensor-core kernels
@@ -64,7 +66,9 @@ Phases (each raises on failure; the script then exits non-zero):
    restore, one restored plan per bucket of the first 8 steps; then
    ``launch.train`` in a subprocess with a snapshot every 6 of 12 steps
    and the first 2 executions failing (``--inject-oom 2``), and again
-   with ``--resume`` (resumes at cursor 12); R2, the fixed plan with the
+   with ``--resume --save`` (resumes at cursor 12; the saved parameters
+   load back bitwise equal to the final snapshot's); R2, the fixed plan
+   with the
    last unit's moments parked on the host, 4 steps against 2 + a
    snapshot + 2: losses, parameters and moments bitwise equal; R3, a
    real ``torch.OutOfMemoryError``: the most common bucket's plan and
@@ -140,12 +144,25 @@ Phases (each raises on failure; the script then exits non-zero):
    ``arange(S)`` for M-RoPE); full-width ``qwen2_vl_7b`` at 8 of its 28
    layers in 2 scan chunks of 4 trains 8 steps under Mimose: K1 = sum k
    (8 + recomputed layers), K2 = K3 = sum 8 k; profile and memory;
+13. stablelm and gemma3 paths (head dims 80 and 256; ``run_wide_path``):
+   K1-K3 at each bucket in the path's bf16 and in fp32 (stablelm 32 x
+   80; gemma3 16 / 8 x 256, window 1024 and 0, and a case at S = 2048
+   that the window reaches); bitwise padded versus unpadded at the
+   path's head dim, fp32 and bf16; the 2-layer checks beside the
+   wrong-kv-head control; full-width ``stablelm_3b`` (32 layers,
+   through the launcher) and ``gemma3_12b`` (12 of 48 layers, through
+   ``Trainer.run``) 8 steps each under Mimose with launch counts read
+   around them; profile, memory; the three kernels timed at the most
+   common bucket beside their bound, plain versions and
+   ``scaled_dot_product_attention``;
 
 then prints the card line, one ``{"kernels": [...]}`` JSON line (no new
 kernel on the offload and resilience paths: they run K1-K3; K1-K3
-launches are the bert, resilience, hymba, granite, seamless and qwen2-vl
-paths', with each bf16 family's
-``<family>_max_abs_err`` beside the maximum; K4's are the mamba2 path's
+launches are the bert, resilience, hymba, granite, seamless, qwen2-vl,
+stablelm and gemma3 paths', with each bf16 family's
+``<family>_max_abs_err`` beside the maximum and the stablelm and gemma3
+instances' launches, ms, plain, bound and library ms as
+``<family>_<key>``; K4's are the mamba2 path's
 tensor-core kernel's, with the hymba path's FMA launches as
 ``hymba_launches``), and, as the last line, ``{"ok": true, "device":
 {...}}``.  Exits non-zero without
@@ -199,6 +216,15 @@ SEAMLESS_ARGS = dict(arch="seamless_m4t_large_v2", dataset="squad",
 QWEN2VL_ARGS = dict(arch="qwen2_vl_7b", dataset="squad", batch_size=4,
                     steps=8, quantum=32,
                     over=dict(num_layers=8, scan_chunks=2))
+# the head-dim 80 and 256 paths: stablelm at full width and depth (32
+# layers, 8 scan units), through the launcher; gemma3 at full width, 12
+# of its 48 layers (two cycles of 5 local + 1 global layers, 4 plan
+# units; all 48 would hold 141 GB of fixed bytes), through
+# ``Trainer.run`` (the launcher has no depth flag)
+STABLELM_ARGS = dict(arch="stablelm_3b", dataset="squad", batch_size=8,
+                     steps=8, quantum=32)
+GEMMA3_ARGS = dict(arch="gemma3_12b", dataset="squad", batch_size=8,
+                   steps=8, quantum=32, over=dict(num_layers=12))
 # profile groups after each family's own kernels: first match wins
 OTHER_GROUPS = [("gemm", ("gemm", "cutlass", "xmma", "sm90_", "nvjet")),
                 ("elementwise", ("elementwise",)), ("reductions", ("reduce",))]
@@ -271,6 +297,13 @@ REFERENCE_CASES = [
     (2, 2048, 25, 5, 64, True, 1024, "bfloat16", True),
     (2, 512, 16, 8, 64, True, 0, "bfloat16", True),
     (2, 512, 16, 8, 128, True, 0, "bfloat16", True),
+    # head dims 80 (stablelm) and 256 (gemma3), which no reference test
+    # takes: GQA, ragged, windowed and non-causal, in fp32 and bf16
+    *[(B, S, H, Hkv, hd, causal, window, dtype, ragged)
+      for hd in (80, 256) for dtype in ("float32", "bfloat16")
+      for B, S, H, Hkv, causal, window, ragged in (
+          (2, 160, 4, 2, True, 0, True), (2, 96, 4, 4, True, 32, True),
+          (1, 128, 2, 2, False, 0, False), (2, 200, 4, 1, True, 64, True))],
 ]
 # |kernel - plain| <= atol + rtol * |plain|: fp32 sums in another order
 # (forward), the exp(s - lse) recombination (backward), one bf16
@@ -321,12 +354,13 @@ def _one_launch(ops, name, fn):
 
 
 def check_case(fa, ops, case, lens=None, seed=0):
-    """Run K1-K3 (each on the tensor cores and on its FMA kernel) and
-    their plain versions on one case; returns the max abs error
-    against the plain version per kernel.  Raises on a tolerance miss,
-    against the plain version or between a tensor-core kernel and its
-    FMA predecessor."""
+    """Run K1-K3 (each on the tensor cores and, at the head dims it
+    takes, on its FMA kernel) and their plain versions on one case;
+    returns the max abs error against the plain version per kernel.
+    Raises on a tolerance miss, against the plain version or between a
+    tensor-core kernel and its FMA predecessor."""
     B, S, H, Hkv, hd, causal, window, dtype, ragged = case
+    kinds = ("", "_fma") if hd in fa.FMA_HEAD_DIMS else ("",)
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -354,8 +388,8 @@ def check_case(fa, ops, case, lens=None, seed=0):
         return e[0]
 
     fwd = {name: _one_launch(ops, name, lambda n=name: getattr(fa, n)(
-        q, k, v, kvl, causal, window)) for name in ("flash_fwd",
-                                                    "flash_fwd_fma")}
+        q, k, v, kvl, causal, window))
+        for name in ("flash_fwd" + x for x in kinds)}
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, kvl, causal, window)
     torch.cuda.synchronize()
     for name, (o, lse) in fwd.items():
@@ -364,24 +398,26 @@ def check_case(fa, ops, case, lens=None, seed=0):
         if e_l[1] > 0:
             raise AssertionError(f"{name} lse disagrees on {case}: {e_l}")
         errs[name] = max(held(name, o, o_p, "fwd"), e_l[0])
-    held("flash_fwd against flash_fwd_fma", fwd["flash_fwd"][0],
-         fwd["flash_fwd_fma"][0], "fwd")
+    if len(kinds) == 2:
+        held("flash_fwd against flash_fwd_fma", fwd["flash_fwd"][0],
+             fwd["flash_fwd_fma"][0], "fwd")
     o, lse = fwd["flash_fwd"]
 
     delta = (do.float() * o.float()).sum(-1)
     bwd_args = (q, k, v, do, lse, delta, kvl, causal, window)
     dqs = {name: _one_launch(ops, name, lambda n=name: getattr(fa, n)(
-        *bwd_args)) for name in ("flash_bwd_dq", "flash_bwd_dq_fma")}
+        *bwd_args)) for name in ("flash_bwd_dq" + x for x in kinds)}
     dkv = {name: _one_launch(ops, name, lambda n=name: getattr(fa, n)(
-        *bwd_args)) for name in ("flash_bwd_dkv", "flash_bwd_dkv_fma")}
+        *bwd_args)) for name in ("flash_bwd_dkv" + x for x in kinds)}
     torch.cuda.synchronize()
     dq_p = fa.flash_bwd_dq_plain(*bwd_args)
     dk_p, dv_p = fa.flash_bwd_dkv_plain(*bwd_args)
     torch.cuda.synchronize()
     for name, dq in dqs.items():
         errs[name] = held(name, dq, dq_p, "bwd")
-    held("flash_bwd_dq against flash_bwd_dq_fma", dqs["flash_bwd_dq"],
-         dqs["flash_bwd_dq_fma"], "bwd")
+    if len(kinds) == 2:
+        held("flash_bwd_dq against flash_bwd_dq_fma", dqs["flash_bwd_dq"],
+             dqs["flash_bwd_dq_fma"], "bwd")
     for name, (dk, dv) in dkv.items():
         errs[name] = max(held(name + " dk", dk, dk_p, "bwd", rows=False),
                          held(name + " dv", dv, dv_p, "bwd", rows=False))
@@ -389,7 +425,7 @@ def check_case(fa, ops, case, lens=None, seed=0):
             if bool(dk[b, :, L:].any()) or bool(dv[b, :, L:].any()):
                 raise AssertionError(f"{name}: dk/dv not exactly 0 past "
                                      f"length {L}: {case}")
-    for i, part in enumerate(("dk", "dv")):
+    for i, part in enumerate(("dk", "dv") if len(kinds) == 2 else ()):
         held(f"flash_bwd_dkv {part} against flash_bwd_dkv_fma",
              dkv["flash_bwd_dkv"][i], dkv["flash_bwd_dkv_fma"][i], "bwd",
              rows=False)
@@ -414,7 +450,7 @@ def check_case(fa, ops, case, lens=None, seed=0):
     return errs
 
 
-def check_flash_bitwise(fa, B, S, H, hd, L, seed=2):
+def check_flash_bitwise(fa, B, S, H, hd, L, seed=2, dtype="float32"):
     """Padded with ``kv_len = L`` against the unpadded call at length L,
     on the valid rows, bit for bit, for the forward (o, lse), dq and
     dk/dv kernels (tests/test_ragged.py::
@@ -422,7 +458,7 @@ def check_flash_bitwise(fa, B, S, H, hd, L, seed=2):
     forward): masking changes nothing but trip counts."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn((B, H, S, hd), generator=gen, device="cuda")
-                   for _ in range(4))
+                   .to(getattr(torch, dtype)) for _ in range(4))
     kvl = torch.full((B,), L, dtype=torch.int32, device="cuda")
     out = {}
     for name, ins, lens in (("padded", (q, k, v, do), kvl),
@@ -430,7 +466,7 @@ def check_flash_bitwise(fa, B, S, H, hd, L, seed=2):
                                        for t in (q, k, v, do)], None)):
         q_, k_, v_, do_ = ins
         o, lse = fa.flash_fwd(q_, k_, v_, lens, True, 0)
-        delta = (do_ * o).sum(-1)
+        delta = (do_.float() * o.float()).sum(-1)
         args = (q_, k_, v_, do_, lse, delta, lens, True, 0)
         out[name] = (o, lse, fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
     torch.cuda.synchronize()
@@ -440,7 +476,7 @@ def check_flash_bitwise(fa, B, S, H, hd, L, seed=2):
             raise AssertionError(f"flash {part}: padded with kv_len={L} "
                                  f"differs bitwise from the unpadded call "
                                  f"(B={B} S={S} H={H} hd={hd})")
-    log(f"flash bitwise check (B={B} S={S} H={H} hd={hd} fp32 causal, "
+    log(f"flash bitwise check (B={B} S={S} H={H} hd={hd} {dtype} causal, "
         f"L={L}): padded with kv_len == unpadded for o, lse, dq, dk, dv, "
         f"bit for bit")
 
@@ -1711,11 +1747,15 @@ def run_kill_and_resume(args, budget_mb, batches):
 def run_launcher_drill(args, budget_mb):
     """``launch.train`` with a snapshot every 6 steps and the first 2
     executions failing (injected), then the same command with
-    ``--resume``: two subprocesses, each with one card."""
+    ``--resume`` and ``--save``: two subprocesses, each with one card;
+    the saved parameters load back (``checkpoint.load``, strict) equal,
+    bit for bit, to the resumed run's final snapshot's."""
     import ast
     import os
     import tempfile
+    from repro_torch.train import checkpoint
     with tempfile.TemporaryDirectory() as tmp:
+        saved = os.path.join(tmp, "final.pt")
         argv = [sys.executable, "-m", "repro_torch.launch.train",
                 "--arch", args["arch"], "--dataset", args["dataset"],
                 "--planner", "mimose", "--attn-impl", "flash",
@@ -1728,7 +1768,7 @@ def run_launcher_drill(args, budget_mb):
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         out = {}
         for name, extra in (("first", ["--inject-oom", "2"]),
-                            ("resumed", ["--resume"])):
+                            ("resumed", ["--resume", "--save", saved])):
             log("R1 drill: python -m repro_torch.launch.train "
                 + " ".join(argv[3:] + extra))
             t0 = time.perf_counter()
@@ -1749,6 +1789,14 @@ def run_launcher_drill(args, budget_mb):
                                                      "snapshot"))]}
             log(f"R1 drill ({name}, {out[name]['s']:.1f} s): "
                 + " | ".join(out[name]["lines"]))
+        final = sorted(d for d in os.listdir(tmp) if d.startswith("snap-"))[-1]
+        want = torch.load(os.path.join(tmp, final, "params.ckpt"),
+                          map_location="cpu", weights_only=True)["leaves"]
+        got = checkpoint.load(saved, want)
+        same_save = all(torch.equal(got[n], t) for n, t in want.items())
+        log(f"R1 drill --save: {len(got)} tensors, "
+            f"{os.path.getsize(saved)} bytes, loaded back bitwise equal to "
+            f"{final}'s parameters: {same_save}")
     first = out["first"]["summary"]
     checks = {
         "first run: oom_events == 2": first.get("oom_events") == 2,
@@ -1758,6 +1806,7 @@ def run_launcher_drill(args, budget_mb):
         f"resumed at cursor {DRILL_STEPS}": any(
             f"at step {DRILL_STEPS} (cursor={DRILL_STEPS}," in ln
             for ln in out["resumed"]["lines"]),
+        "--save loads back equal to the final snapshot": same_save,
     }
     log("R1 drill checks: " + json.dumps(checks))
     if not all(checks.values()):
@@ -2220,30 +2269,47 @@ def check_dma(ops, dma, logits_shape):
 # timings
 # ---------------------------------------------------------------------------
 
+# flash kernel instances whose resources are logged: (dtype, head dim)
+# -> kernels; bert's fp32 HD 64 and the bf16 HD 80 (stablelm) and HD 256
+# (gemma3) instances of the paths, which must use no local memory
+RESOURCE_INSTANCES = {
+    ("float", 64): ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                    "flash_bwd_dkv_tc_kernel", "flash_fwd_fma_kernel",
+                    "flash_bwd_dq_fma_kernel", "flash_bwd_dkv_fma_kernel"),
+    **{(dt, hd): ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+                  "flash_bwd_dkv_tc_kernel")
+       for dt in ("float", "__nv_bfloat16") for hd in (80, 256)}}
+NO_LOCAL_MEMORY = [("__nv_bfloat16", 80), ("__nv_bfloat16", 256)]
+
+
 def log_flash_resources(kb, lib):
-    """Registers and local (spilled) memory per thread of the fp32 HD-64
-    flash kernels (the main path's instances) in the built library, as
+    """Registers, stack and local (spilled) memory per thread of the flash
+    kernel instances of ``RESOURCE_INSTANCES`` in the built library, as
     ``cuobjdump -res-usage`` reads them (their shared memory is dynamic,
-    so it shows as 0 there); logged, checked nowhere."""
+    so it shows as 0 there).  Raises if an instance of
+    ``NO_LOCAL_MEMORY`` is missing or has a nonzero stack or local
+    size."""
+    import re
     exe = Path(kb.nvcc()).with_name("cuobjdump")
-    try:
-        out = subprocess.run([str(exe), "-res-usage", str(lib)],
-                             capture_output=True, text=True,
-                             timeout=60).stdout.splitlines()
-    except (OSError, subprocess.TimeoutExpired) as e:
-        log(f"resources: cuobjdump did not run ({e})")
-        return
-    found = 0
+    out = subprocess.run([str(exe), "-res-usage", str(lib)],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.splitlines()
+    mangled = {"float": "f", "__nv_bfloat16": "13__nv_bfloat16"}
+    found = {}
     for name, usage in zip(out, out[1:]):
-        for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
-                       "flash_bwd_dkv_tc_kernel", "flash_fwd_fma_kernel",
-                       "flash_bwd_dq_fma_kernel", "flash_bwd_dkv_fma_kernel"):
-            if f"{kernel}IfLi64E" in name:
-                found += 1
-                log(f"resources {kernel}<float, 64>: {usage.strip()}")
-    if not found:
-        log(f"resources: no fp32 HD-64 flash kernel in cuobjdump's output "
-            f"({len(out)} lines)")
+        for (dt, hd), kernels in RESOURCE_INSTANCES.items():
+            for kernel in kernels:
+                if f"{kernel}I{mangled[dt]}Li{hd}E" in name:
+                    found[(kernel, dt, hd)] = usage.strip()
+                    log(f"resources {kernel}<{dt}, {hd}>: {usage.strip()}")
+    for dt, hd in NO_LOCAL_MEMORY:
+        for kernel in RESOURCE_INSTANCES[(dt, hd)]:
+            usage = found.get((kernel, dt, hd))
+            sizes = usage and {k: int(v) for k, v in re.findall(
+                r"(STACK|LOCAL):(\d+)", usage)}
+            if not sizes or any(sizes.values()):
+                raise AssertionError(f"{kernel}<{dt}, {hd}>: local memory "
+                                     f"in use or not reported ({usage})")
 
 
 def _time_ms(fn, reps):
@@ -2259,51 +2325,64 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
-    """Each kernel at the main path's shape (B = len(lens), S, H, hd,
-    fp32, causal, these lengths), with its plain version, the library
-    call (``scaled_dot_product_attention``, timed here only) and its
-    bound; each tensor-core kernel in turns with its FMA predecessor (tc,
-    fma, fma, tc; each time the mean of its two)."""
+def time_flash_kernels(fa, kb, S, lens, H=12, hd=64, Hkv=None,
+                       dtype="float32"):
+    """Each kernel at a main path's shape (B = len(lens), S, H query and
+    Hkv kv heads, hd, ``dtype``, causal, these lengths), with its plain
+    version, the library call (``scaled_dot_product_attention``, timed
+    here only) and its bound; at the FMA kernels' head dims in fp32 each
+    tensor-core kernel in turns with its FMA predecessor (tc, fma, fma,
+    tc; each time the mean of its two), else in two turns of its own."""
     import torch.nn.functional as F
-    B = len(lens)
+    B, Hkv = len(lens), Hkv or H
+    dt = getattr(torch, dtype)
+    es = torch.finfo(dt).bits // 8
+    fma = dtype == "float32" and hd in fa.FMA_HEAD_DIMS
     gen = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v, do = (torch.randn((B, H, S, hd), generator=gen, device="cuda")
-                   for _ in range(4))
+
+    def rnd(heads):
+        return torch.randn((B, heads, S, hd), generator=gen,
+                           device="cuda").to(dt)
+    q, k, v, do = rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
     kvl = torch.tensor(lens, dtype=torch.int32, device="cuda")
     o, lse = fa.flash_fwd(q, k, v, kvl, True, 0)
-    delta = (do * o).sum(-1)
+    delta = (do.float() * o.float()).sum(-1)
     lib = fa.library()
     stream = torch.cuda.current_stream().cuda_stream
-    dims = (B, H, H, S, hd, 1, 0, 1.0 / math.sqrt(hd), 0, stream)
+    dims = (B, H, Hkv, S, hd, 1, 0, 1.0 / math.sqrt(hd),
+            fa._DTYPE_CODE[dt], stream)
     o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     fwd_ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), kvl.data_ptr(),
                 o2.data_ptr(), lse2.data_ptr())
     bwd_ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), kvl.data_ptr())
     launch = {
         "flash_fwd": lambda: lib.flash_fwd(*fwd_ptrs, *dims),
-        "flash_fwd_fma": lambda: lib.flash_fwd_fma(*fwd_ptrs, *dims),
         "flash_bwd_dq": lambda: lib.flash_bwd_dq(*bwd_ptrs, dq.data_ptr(),
                                                  *dims),
-        "flash_bwd_dq_fma": lambda: lib.flash_bwd_dq_fma(
-            *bwd_ptrs, dq.data_ptr(), *dims),
         "flash_bwd_dkv": lambda: lib.flash_bwd_dkv(
             *bwd_ptrs, dk.data_ptr(), dv.data_ptr(), *dims),
-        "flash_bwd_dkv_fma": lambda: lib.flash_bwd_dkv_fma(
-            *bwd_ptrs, dk.data_ptr(), dv.data_ptr(), *dims),
     }
+    if fma:
+        launch.update({
+            "flash_fwd_fma": lambda: lib.flash_fwd_fma(*fwd_ptrs, *dims),
+            "flash_bwd_dq_fma": lambda: lib.flash_bwd_dq_fma(
+                *bwd_ptrs, dq.data_ptr(), *dims),
+            "flash_bwd_dkv_fma": lambda: lib.flash_bwd_dkv_fma(
+                *bwd_ptrs, dk.data_ptr(), dv.data_ptr(), *dims)})
 
     # the library yardstick: the same masked attention, forward, and its
-    # backward (one autograd call computing dq, dk and dv together)
+    # backward (one autograd call computing dq, dk and dv together), on
+    # k and v expanded to the H query heads (made outside the timing)
     pos = torch.arange(S, device="cuda")
     mask = ((pos[:, None] >= pos[None, :])[None]
             & (pos[None, None, :] < kvl[:, None, None]))[:, None]
-    ql, kl, vl = (t.clone().requires_grad_() for t in (q, k, v))
+    ke, ve = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, ke, ve))
 
     def lib_fwd():
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        return F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
     ol = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
 
     def lib_bwd():
@@ -2323,51 +2402,58 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64):
     # mask and the lengths; FLOPs per pair per head: 4 hd (q.k, p.v)
     # forward, 6 hd for dq (q.k, do.v, ds.k), 8 hd for dk/dv; at the
     # bf16 tensor-core rate, where the kernels run.  Bytes: the
-    # inputs (q, k, v, do, lse, delta) over the 64-row tiles that hold
-    # valid rows (min(ceil(L / 64) 64, S) rows of each sequence; no
-    # tile past kv_len is needed), the lengths once, the outputs (o, lse,
-    # dq, dk, dv) in full (rows past the valid tiles are written as
-    # zeros), each once
+    # inputs (q, do over H heads, k, v over Hkv, lse, delta) over the
+    # 64-row tiles that hold valid rows (min(ceil(L / 64) 64, S) rows of
+    # each sequence; no tile past kv_len is needed), the lengths once,
+    # the outputs (o, lse, dq over H heads, dk, dv over Hkv) in full
+    # (rows past the valid tiles are written as zeros), each once
     pairs = H * sum(L * (L + 1) // 2 for L in lens)
     run = sum(min(-(-L // 64) * 64, S) for L in lens)
-    tensor_in, rows_in = run * H * hd * 4, run * H * 4
-    tensor_out, rows_out = B * S * H * hd * 4, B * S * H * 4
+    q_in, kv_in, rows_in = run * H * hd * es, run * Hkv * hd * es, run * H * 4
+    q_out, kv_out, rows_out = (B * S * H * hd * es, B * S * Hkv * hd * es,
+                               B * S * H * 4)
     work = {
-        "flash_fwd": (4 * hd * pairs, 3 * tensor_in + 4 * B + tensor_out
-                      + rows_out, BF16_TC_FLOPS),
-        "flash_bwd_dq": (6 * hd * pairs, 4 * tensor_in + 2 * rows_in + 4 * B
-                         + tensor_out, BF16_TC_FLOPS),
-        "flash_bwd_dkv": (8 * hd * pairs, 4 * tensor_in + 2 * rows_in + 4 * B
-                          + 2 * tensor_out, BF16_TC_FLOPS),
+        "flash_fwd": (4 * hd * pairs, q_in + 2 * kv_in + 4 * B + q_out
+                      + rows_out),
+        "flash_bwd_dq": (6 * hd * pairs, 2 * q_in + 2 * kv_in + 2 * rows_in
+                         + 4 * B + q_out),
+        "flash_bwd_dkv": (8 * hd * pairs, 2 * q_in + 2 * kv_in + 2 * rows_in
+                          + 4 * B + 2 * kv_out),
     }
     for name, fn in launch.items():
         kb.raise_on(fn(), name)
     out = {}
+    shape = (f"B={B} S={S} H={H} Hkv={Hkv} hd={hd} {dtype} "
+             f"lens={lens}")
     for name in FLASH_KERNELS:
         turns = {}
-        for n in (name, FMA_OF[name], FMA_OF[name], name):
+        for n in ((name, FMA_OF[name], FMA_OF[name], name) if fma
+                  else (name, name)):
             turns.setdefault(n, []).append(_time_ms(launch[n], 20))
         ms = sum(turns[name]) / len(turns[name])
         plain_ms = _time_ms(plain[name], 5)
-        flops, nbytes, rate = work[name]
-        t_ops, t_bytes = flops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        flops, nbytes = work[name]
+        t_ops = flops / BF16_TC_FLOPS * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms[name],
                          bound_ms=max(t_ops, t_bytes),
                          bound_by="operations" if t_ops >= t_bytes
                          else "bytes", flops=flops, bytes=nbytes)
-        f = turns[FMA_OF[name]]
-        out[name]["fma_ms"] = sum(f) / len(f)
-        fma = (f" (turns {turns[name][0]:.4f}, {turns[name][1]:.4f}); "
-               f"FMA kernel {FMA_OF[name]} {out[name]['fma_ms']:.4f} ms "
-               f"(turns {f[0]:.4f}, {f[1]:.4f}), bound at the 67 TFLOP/s "
-               f"fp32 rate {max(flops / FP32_FLOPS * 1e3, t_bytes):.4f} ms")
-        log(f"timing {name} B={B} S={S} H={H} hd={hd} fp32 lens={lens}: "
-            f"kernel {ms:.4f} ms{fma}, plain {plain_ms:.4f} ms, library "
-            f"{lib_ms[name]:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-            f"({out[name]['bound_by']}; {flops / 1e9:.3f} GFLOP at "
-            f"{rate / 1e12:.0f} TFLOP/s = {t_ops:.4f} ms, {nbytes / 1e6:.2f} "
-            f"MB at 3.35 TB/s = {t_bytes:.4f} ms), {flops / ms / 1e9:.2f} "
-            f"TFLOP/s achieved")
+        extra = ""
+        if fma:
+            f = turns[FMA_OF[name]]
+            out[name]["fma_ms"] = sum(f) / len(f)
+            extra = (f"; FMA kernel {FMA_OF[name]} "
+                     f"{out[name]['fma_ms']:.4f} ms (turns {f[0]:.4f}, "
+                     f"{f[1]:.4f}), bound at the 67 TFLOP/s fp32 rate "
+                     f"{max(flops / FP32_FLOPS * 1e3, t_bytes):.4f} ms")
+        log(f"timing {name} {shape}: kernel {ms:.4f} ms (turns "
+            f"{turns[name][0]:.4f}, {turns[name][1]:.4f}){extra}, plain "
+            f"{plain_ms:.4f} ms, library {lib_ms[name]:.4f} ms, bound "
+            f"{max(t_ops, t_bytes):.4f} ms ({out[name]['bound_by']}; "
+            f"{flops / 1e9:.3f} GFLOP at 989 TFLOP/s = {t_ops:.4f} ms, "
+            f"{nbytes / 1e6:.2f} MB at 3.35 TB/s = {t_bytes:.4f} ms), "
+            f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
     return out
 
 
@@ -2808,11 +2894,12 @@ def run_trainer_path(args, budget_mb, batches):
 def run_family_path(args, batches, profile_groups, rtol):
     """One family's path on its main-path ``batches``: ``check_model`` at
     2 layers, then the main path's run (the launcher; ``Trainer.run``
-    for the stub-input families) with launch counts read around it, one
+    for the stub-input families and for a path cut in depth, which the
+    launcher has no flag for) with launch counts read around it, one
     profiled warm step and the memory phase; returns the launches."""
     check_model_at_depth(args, batches[0], rtol)
     budget_mb = derive_budget_mb(args, batches[0])
-    if stub_inputs(path_config(args)):
+    if stub_inputs(path_config(args)) or args.get("over"):
         trainer, launches = run_trainer_path(args, budget_mb, batches)
     else:
         trainer, launches = run_main_path(args, budget_mb)
@@ -2823,6 +2910,35 @@ def run_family_path(args, batches, profile_groups, rtol):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def run_wide_path(fa, ops, kb, args, batches, extra_cases):
+    """A head-dim 80 or 256 family's path: K1-K3 at each bucket's shape
+    with its true lengths (``flash_main_cases``) in the path's bf16 and
+    in fp32, and ``extra_cases``; the bitwise padded-versus-unpadded
+    check at the path's head dim in both dtypes; the family path
+    (``run_family_path``: 2-layer checks with their controls, the main
+    run with launch counts, profile, memory); the kernels timed at the
+    most common bucket.  Returns the max abs errors at the path's
+    shapes, the launches and the timings."""
+    cfg = path_config(args)
+    hd, H, Hkv = cfg.resolved_head_dim(), cfg.num_heads, cfg.num_kv_heads
+    cases = flash_main_cases(args, batches)
+    lens_of = dict(cases)
+    lens_of.update({c[:7] + ("float32",) + c[8:]: lens
+                    for c, lens in cases.items()})
+    errs = check_kernels(fa, ops, list(lens_of) + extra_cases, lens_of)
+    log(f"flash kernel checks at the {cfg.name} path's shapes (hd {hd}; "
+        f"bf16 and fp32) passed; max abs error {errs}")
+    for dt in ("float32", "bfloat16"):
+        check_flash_bitwise(fa, 2, 448, 2, hd, 338, dtype=dt)
+    launches = run_family_path(args, batches, [("flash kernels",
+                                                ("flash_",))]
+                               + OTHER_GROUPS, BF16_MODEL_RTOL)
+    S, _ = most_common_bucket(batches)
+    timing = time_flash_kernels(fa, kb, S, lengths_by_bucket(batches)[S],
+                                H=H, hd=hd, Hkv=Hkv, dtype=cfg.dtype)
+    return {"errs": errs, "launches": launches, "timing": timing}
 
 
 def time_dma(dma, kb, shape, chunk_elems=1 << 15):
@@ -3067,10 +3183,25 @@ def main() -> int:
         + OTHER_GROUPS, BF16_MODEL_RTOL)
     log(f"qwen2-vl path: {time.perf_counter() - t0:.1f} s")
 
+    # -- stablelm and gemma3 paths: head dims 80 and 256, K1-K3 --------
+    wide = {}
+    for fam, args, extra_cases in (
+            ("stablelm", STABLELM_ARGS, []),
+            # squad lengths never reach the window: one case that does
+            ("gemma3", GEMMA3_ARGS,
+             [(2, 2048, 16, 8, 256, True, 1024, dt, True)
+              for dt in ("bfloat16", "float32")])):
+        t0 = time.perf_counter()
+        f_batches = main_path_batches(args)
+        wide[fam] = run_wide_path(fa, ops, kb, args, f_batches, extra_cases)
+        family_errs[fam] = wide[fam]["errs"]
+        log(f"{fam} path: {time.perf_counter() - t0:.1f} s")
+
     for name in FLASH_KERNELS:
         launches[name] += (h_launches[name] + g_launches[name]
                            + s_launches[name] + v_launches[name]
-                           + r_launches[name])
+                           + r_launches[name]
+                           + sum(w["launches"][name] for w in wide.values()))
         errs[name] = max([errs[name]] + [e[name]
                                          for e in family_errs.values()])
     kernels = []
@@ -3089,6 +3220,12 @@ def main() -> int:
             # family's part of it
             row.update({f"{f}_max_abs_err": e[name]
                         for f, e in family_errs.items()})
+            # the head-dim 80 and 256 instances at their paths' shapes
+            for f, w in wide.items():
+                row[f"{f}_launches"] = w["launches"][name]
+                row.update({f"{f}_{k}": w["timing"][name][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")})
         if name == "ssd_scan":
             # the hymba path's instance (the FMA kernel at P = 50)
             row.update({f"hymba_{k}": hymba_k4[k] for k in (

@@ -81,9 +81,10 @@ from repro_torch.launch.roofline import (MICROBATCH_OVERHEAD_S, PCIE_BW,
                                          recompute_scale)
 from repro_torch.obs import StatsView, Telemetry, TRACK_PLANNER
 
-# the reference's defaults, fixed here: estimator degree (paper §4.3),
-# scheduler bucket tolerance (Algorithm 1), plan-cache bound, and the
-# relative drift that triggers a refit
+# the reference's defaults of MimosePlanner's keywords (the baselines
+# use them as they are): estimator degree (paper §4.3), scheduler bucket
+# tolerance (Algorithm 1), plan-cache bound, and the relative drift that
+# triggers a refit
 DEGREE = 2
 BUCKET_TOL = 0.10
 MAX_PLANS = 256
@@ -193,7 +194,8 @@ class PlannerBase:
     # -- shared hybrid remat+offload state (Mimose + Sublinear) ----------
     def _init_hybrid(self, *, offload: bool, pcie_gbps: Optional[float],
                      offload_overlap: float, cost_aware: bool,
-                     min_samples: int, opt_offload: bool = False) -> None:
+                     min_samples: int, opt_offload: bool = False,
+                     degree: int = DEGREE) -> None:
         """The offload knobs and the two extra per-unit fits (boundary
         and offloadable bytes) the hybrid scheduler needs."""
         if offload and not cost_aware:
@@ -208,8 +210,8 @@ class PlannerBase:
         self.opt_offload = opt_offload
         self.pcie_gbps = pcie_gbps
         self.offload_overlap = offload_overlap
-        self.est_output = PolyEstimator(DEGREE, min_samples=min_samples)
-        self.est_offload = PolyEstimator(DEGREE, min_samples=min_samples)
+        self.est_output = PolyEstimator(degree, min_samples=min_samples)
+        self.est_offload = PolyEstimator(degree, min_samples=min_samples)
         # not an estimator: moment bytes depend only on the parameter
         # shapes, so the first collection pins the vector exactly
         self._opt_vector = None
@@ -366,10 +368,16 @@ class MimosePlanner(PlannerBase):
     name = "mimose"
 
     def __init__(self, lm, budget_bytes: float, *,
+                 fixed_bytes: Optional[float] = None,
                  quantum: int = 256,
+                 degree: int = DEGREE,
                  warmup_samples: int = 4,
+                 bucket_tol: float = BUCKET_TOL,
                  cost_aware: bool = True,
+                 max_plans: int = MAX_PLANS,
                  audit_every: int = 0,
+                 audit_tol: float = AUDIT_TOL,
+                 escalate_shrink: float = ESCALATE_SHRINK,
                  max_microbatches: int = 1,
                  microbatch_overhead_s: Optional[float] = None,
                  solver: str = "off",
@@ -386,9 +394,10 @@ class MimosePlanner(PlannerBase):
         self.telemetry = (telemetry if telemetry is not None
                           else Telemetry.disabled())
         self.budget_bytes = float(budget_bytes)
-        self.fixed_bytes = None                 # resolved lazily from params
+        self.fixed_bytes = fixed_bytes          # None: resolved lazily from params
         self.quantum = quantum
         self.warmup_samples = warmup_samples
+        self.bucket_tol = bucket_tol
         # cost-aware selection (bytes freed per recompute-FLOP, floored
         # by the byte-only oracle); False = the paper's Algorithm 1
         self.cost_aware = cost_aware
@@ -397,18 +406,21 @@ class MimosePlanner(PlannerBase):
         self._init_hybrid(offload=offload, pcie_gbps=pcie_gbps,
                           offload_overlap=offload_overlap,
                           cost_aware=cost_aware, min_samples=warmup_samples,
-                          opt_offload=opt_offload)
+                          opt_offload=opt_offload, degree=degree)
         # every ``audit_every``-th unseen size, re-collect and re-fit if
-        # the prediction drifted beyond AUDIT_TOL
+        # the prediction drifted beyond ``audit_tol``
         self.audit_every = audit_every
+        self.audit_tol = audit_tol
         # adaptive microbatching: up to this many accumulation
         # microbatches per bucket, each extra one priced at the overhead
         self.max_microbatches = max(int(max_microbatches), 1)
         self.microbatch_overhead_s = microbatch_overhead_s
         self.collector = ShuttlingCollector(lm)
-        self.estimator = PolyEstimator(DEGREE, min_samples=warmup_samples)
-        self.cache = LRUCache(MAX_PLANS)
-        # OOM recovery: the escalation level per plan key
+        self.estimator = PolyEstimator(degree, min_samples=warmup_samples)
+        self.cache = LRUCache(max_plans)
+        # OOM recovery: the escalation level per plan key, and the budget
+        # shrink per rung
+        self.escalate_shrink = float(escalate_shrink)
         self._escalation: dict = {}
         # every (input size, batch geometry) the estimators were fed: a
         # snapshot carries it, and a restore under another signature
@@ -573,12 +585,14 @@ class MimosePlanner(PlannerBase):
             self.stats["estimate_time_s"] += t_est
             if (self.audit_every
                     and self.stats["cache_misses"] % self.audit_every == 0):
-                # drift audit: exact re-collection for this size
+                # drift audit: exact re-collection for this size,
+                # booked under ``audits`` only, as in the reference
                 self.stats["audits"] += 1
-                audit = self._collect(batch)
+                with tel.tracer.span("collect", TRACK_PLANNER):
+                    audit = self.collector.collect(batch)
                 truth = self.collected_vector(audit)
                 err = abs(truth.sum() - est.sum()) / max(truth.sum(), 1.0)
-                refit = err > AUDIT_TOL
+                refit = err > self.audit_tol
                 audited = True
                 self._record_drift_point(qs, s, est, truth, rel_err=err,
                                          refit=refit)
@@ -608,7 +622,7 @@ class MimosePlanner(PlannerBase):
             if ks == [1]:
                 plan = greedy_plan(est, self.budget_bytes,
                                    self.resolve_fixed_bytes(),
-                                   tol=BUCKET_TOL,
+                                   tol=self.bucket_tol,
                                    flops=self.planning_flops(flops),
                                    **self._hybrid_kwargs(s, res))
             else:
@@ -616,7 +630,7 @@ class MimosePlanner(PlannerBase):
                     lambda k: self._microbatch_vectors(batch, k, est,
                                                        flops, res),
                     self.budget_bytes, self.resolve_fixed_bytes(),
-                    candidate_ks=ks, tol=BUCKET_TOL,
+                    candidate_ks=ks, tol=self.bucket_tol,
                     pcie_bytes_per_s=self.link_bytes_per_s(),
                     offload_overlap=self.offload_overlap,
                     accum_overhead_s=self.accum_overhead_s())
@@ -693,7 +707,7 @@ class MimosePlanner(PlannerBase):
 
         The plan predicted the bucket fits and the device disagreed, so
         each call replaces the cached plan with a more aggressive one,
-        planned against the budget shrunk by ``ESCALATE_SHRINK ** level``.
+        planned against the budget shrunk by ``escalate_shrink ** level``.
         Rungs, in order:
 
           1. more remat — a remat-only replan at the shrunken budget;
@@ -723,7 +737,7 @@ class MimosePlanner(PlannerBase):
         flops = (res.flops_vector() if res is not None
                  else plan_unit_flops(self.lm, batch))
         fixed = self.resolve_fixed_bytes()
-        budget = self.budget_bytes * (ESCALATE_SHRINK ** level)
+        budget = self.budget_bytes * (self.escalate_shrink ** level)
         with self._cache_lock:
             prev = self.cache.get(key)
         prev_k = max(int(getattr(prev, "microbatch", 1) or 1), 1)
@@ -731,7 +745,7 @@ class MimosePlanner(PlannerBase):
         if level == 1 and prev_k == 1:
             # rung 1: the cost-aware replan at the shrunken budget frees
             # more bytes than the plan that ran out of memory
-            plan = greedy_plan(est, budget, fixed, tol=BUCKET_TOL,
+            plan = greedy_plan(est, budget, fixed, tol=self.bucket_tol,
                                flops=self.planning_flops(flops))
         elif level == 2 and prev_k == 1:
             # rung 2: upgrade the failed plan's actions until the
@@ -759,7 +773,7 @@ class MimosePlanner(PlannerBase):
             plan = greedy_plan_adaptive(
                 lambda k: self._microbatch_vectors(batch, k, est, flops,
                                                    res),
-                budget, fixed, candidate_ks=[k_new], tol=BUCKET_TOL,
+                budget, fixed, candidate_ks=[k_new], tol=self.bucket_tol,
                 pcie_bytes_per_s=self.link_bytes_per_s(),
                 offload_overlap=self.offload_overlap,
                 accum_overhead_s=self.accum_overhead_s())

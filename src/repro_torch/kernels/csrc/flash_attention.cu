@@ -44,8 +44,12 @@
 //   score tiles p, ds -- is split into bf16 hi + lo = hi + bf16(x - hi)
 //   and each product is issued as hi.hi + hi.lo + lo.hi: about 16
 //   mantissa bits survive (tests/test_torch_flash_tc.py emulates this
-//   arithmetic against the JAX reference).  bf16 inputs are exact and
-//   take one product; their p and ds are rounded to bf16 once.
+//   arithmetic against the JAX reference).  The forward's q k^T adds
+//   lo.lo: a causal tile's rows with few keys carry a score's error
+//   into o nearly whole, and without it the fp32 check at stablelm's
+//   and gemma3's full shapes (B 8, 32 or 16 heads) missed TOL by 3e-6
+//   in 2 of 15 cases on the card.  bf16 inputs are exact and take one
+//   product; their p and ds are rounded to bf16 once.
 // - Score tiles stay in registers.  The fp32 accumulator of two adjacent
 //   m16n8 score tiles has the layout of one m16k16 A operand, so p (the
 //   forward), ds (dq) and p^T, ds^T (dk/dv) feed the next product
@@ -59,8 +63,21 @@
 //   forward, k in dq's ds k, and q, do in dk/dv's second products), free
 //   of bank conflicts.  Each operand is split once per CTA, not once per
 //   warp.  The forward keeps q's fragments in registers, dq keeps q's and
-//   do's (up to HD 64; at HD 128 they would spill, so they are split once
-//   into operand tiles); dk/dv splits its k and v tile once.
+//   do's (up to HD 64; at HD 80 and 128 they would spill, so they are
+//   split once into operand tiles); dk/dv splits its k and v tile once.
+// - Head dims 16, 32, 64, 80 (5 k-steps of 16), 128 and 256.  At HD 256
+//   a warp's 16 rows of every output column (128 fp32 registers a
+//   thread; dk/dv holds two such) and the operand tiles (fp32: 270 KB
+//   for dq's or dk/dv's four) do not fit, so each tile is split over two
+//   CTAs that each write 128 output columns and recompute the scores
+//   over all 256 (four CTAs of 64 columns for dk/dv and fp32 dq); the
+//   operands fixed over a CTA's loop (the forward's q, dq's q and do,
+//   dk/dv's k and v) are read per k-step from global memory, where L1
+//   and L2 hold them; and a streamed tile is staged by
+//   cp.async only where it fits beside the operand tiles (bf16; fp32 dq
+//   and dk/dv split it straight from global memory).  The score sums
+//   keep their order over the 16 k-steps, so the padded-equals-unpadded
+//   property holds at every head dim.
 // - Masks are applied only on tiles that are not wholly visible (the
 //   causal diagonal, the kv_len edge, the window's edge).  On the causal
 //   diagonal a warp skips the 16-key (forward, dq) or 16-query (dk/dv)
@@ -646,6 +663,14 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB&
   }
 }
 
+// d += a b as mma3 and lo.lo besides (SPLIT): the forward's scores,
+// whose error the few-key rows of a causal tile pass on to o undamped
+template <bool SPLIT>
+__device__ __forceinline__ void mma4(float (&d)[4], const FragA& a, const FragB& b) {
+  mma3<SPLIT>(d, a, b);
+  if (SPLIT) mma(d, a.lo, b.lo[0], b.lo[1]);
+}
+
 // the A operand of k-step j from the fp32 accumulators of score tiles 2j
 // and 2j+1 (their m16n8 layout is the m16k16 operand's)
 template <bool SPLIT>
@@ -673,34 +698,35 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// rows [row0, row0 + 64) of an (S, HD) matrix into shared memory (row
-// stride LD elements) by 16-byte cp.async; rows at or past S zero-filled
-template <typename T, int HD, int LD>
+// W columns of rows [row0, row0 + 64) of a matrix with row stride SLD
+// into shared memory (row stride LD elements) by 16-byte cp.async; rows
+// at or past S zero-filled
+template <typename T, int W, int LD, int SLD = W>
 __device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src, int row0,
                                            int S) {
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = HD / VEC;
+  constexpr int PER_ROW = W / VEC;
   for (int i = threadIdx.x; i < 64 * PER_ROW; i += TPB) {
     const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
     const bool ok = row0 + r < S;
-    cp_async16(dst + r * LD + c, src + (size_t)(ok ? row0 + r : 0) * HD + c, ok);
+    cp_async16(dst + r * LD + c, src + (size_t)(ok ? row0 + r : 0) * SLD + c, ok);
   }
 }
 
-// 64 contiguous rows of HD elements (rows at or past n_valid read as 0)
-// into bf16 operand rows of stride HD + 8: hi, and for fp32 lo; all the
+// 64 contiguous rows of W elements (rows at or past n_valid read as 0)
+// into bf16 operand rows of stride W + 8: hi, and for fp32 lo; all the
 // CTA's threads, 16 bytes of the source each
-template <typename T, int HD>
+template <typename T, int W>
 __device__ __forceinline__ void split_rows(__nv_bfloat16* hi, __nv_bfloat16* lo,
                                            const T* src, int n_valid) {
   constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = HD / VEC;
+  constexpr int PER_ROW = W / VEC;
   for (int i = threadIdx.x; i < 64 * PER_ROW; i += TPB) {
     const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
     const bool ok = r < n_valid;
-    __nv_bfloat16* dst = hi + r * (HD + 8) + c;
+    __nv_bfloat16* dst = hi + r * (W + 8) + c;
     if constexpr (sizeof(T) == 4) {
-      const float4 x = ok ? *reinterpret_cast<const float4*>(src + (size_t)r * HD + c)
+      const float4 x = ok ? *reinterpret_cast<const float4*>(src + (size_t)r * W + c)
                           : make_float4(0.f, 0.f, 0.f, 0.f);
       uint2 h, l;
       split<true>(x.x, x.y, h.x, l.x);
@@ -709,17 +735,49 @@ __device__ __forceinline__ void split_rows(__nv_bfloat16* hi, __nv_bfloat16* lo,
       *reinterpret_cast<uint2*>(lo + (dst - hi)) = l;
     } else {
       *reinterpret_cast<uint4*>(dst) =
-          ok ? *reinterpret_cast<const uint4*>(src + (size_t)r * HD + c) : make_uint4(0, 0, 0, 0);
+          ok ? *reinterpret_cast<const uint4*>(src + (size_t)r * W + c) : make_uint4(0, 0, 0, 0);
     }
   }
 }
 
+// an A operand (rows row, row + 8; columns col, col + 1, col + 8, col + 9
+// with col = 16 ks + 2t) straight from an (S, HD) matrix in global
+// memory, rows at or past S as 0
+template <typename T, int HD>
+__device__ __forceinline__ void a_global(FragA& a, const T* __restrict__ src, int row, int S,
+                                         int col) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int rr = row + (r & 1) * 8;
+    a.hi[r] = a.lo[r] = 0u;
+    if (rr < S) pair_of(src + (size_t)rr * HD + col + (r >> 1) * 8, a.hi[r], a.lo[r]);
+  }
+}
+
+// shared memory a block can use on the card (227 KB)
+constexpr size_t SMEM_MAX = 232448;
+
+// Above HD 128 (HD 256) a thread cannot hold a warp's 16 rows of every
+// output column and what the scores need beside them: each (b, h, tile)
+// is split over NSPLIT = HD / HO CTAs, each of which recomputes the
+// scores over all of HD and writes HO output columns (128 in the forward
+// and bf16 dq; 64 in fp32 dq and in dk/dv, which holds two
+// accumulators), and the operands that stay fixed over the loop (the
+// forward's q, dq's q and do, dk/dv's k and v) are read per k-step from
+// global memory (L1 and L2 hold them) instead of registers or operand
+// tiles.  Up to HD 128, NSPLIT = 1 and HO = HD.
 template <typename T, int HD> struct FwdLayout {
   static constexpr bool SPLIT = sizeof(T) == 4;
-  static constexpr int LDS = HD + 8;                          // bf16 operand rows
-  static constexpr size_t PLANE = (size_t)64 * LDS;           // one operand tile
-  static constexpr size_t RAW = (size_t)2 * 64 * HD * sizeof(T);          // staged k, v
-  static constexpr size_t SMEM = RAW + (SPLIT ? 4 : 2) * PLANE * 2;
+  static constexpr int HO = HD > 128 ? 128 : HD;              // o columns per CTA
+  static constexpr int NSPLIT = HD / HO;
+  static constexpr bool QREG = HD <= 128;                     // q in registers
+  static constexpr int LDS = HD + 8;                          // bf16 operand rows: k
+  static constexpr int LDV = HO + 8;                          // v's HO columns
+  static constexpr size_t KPLANE = (size_t)64 * LDS;          // one operand tile
+  static constexpr size_t VPLANE = (size_t)64 * LDV;
+  static constexpr size_t RAW = (size_t)64 * (HD + HO) * sizeof(T);       // staged k, v
+  static constexpr size_t SMEM = RAW + (SPLIT ? 2 : 1) * (KPLANE + VPLANE) * 2;
+  static_assert(SMEM <= SMEM_MAX, "forward shared memory");
 };
 
 // ---------------------------------------------------------------------------
@@ -735,15 +793,17 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using L = FwdLayout<T, HD>;
   constexpr bool SPLIT = L::SPLIT;
   constexpr int KS = HD / 16;       // k-steps over HD
-  constexpr int DN = HD / 8;        // n8 tiles over HD
+  constexpr int DN = L::HO / 8;     // n8 tiles over this CTA's o columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* raw = reinterpret_cast<T*>(smem_raw);
-  // k, v as bf16 operands: k hi, v hi (, k lo, v lo)
+  // k (all HD columns) and v (this CTA's HO) as bf16 operands: k hi, v hi
+  // (, k lo, v lo)
   __nv_bfloat16* ops = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::RAW);
-  const __nv_bfloat16 *kh = ops, *vh = ops + L::PLANE;
-  const __nv_bfloat16 *kl = ops + 2 * L::PLANE, *vl = ops + 3 * L::PLANE;
+  __nv_bfloat16 *kh = ops, *vh = ops + L::KPLANE;
+  __nv_bfloat16 *kl = vh + L::VPLANE, *vl = kl + L::KPLANE;
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x / L::NSPLIT, b = blockIdx.y;
+  const int n0 = (blockIdx.x % L::NSPLIT) * L::HO;   // this CTA's first o column
   const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // longest first
   const int q0 = qt * BQ;
   const int hk = h / (H / Hkv);
@@ -758,22 +818,18 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   auto stage_kv = [&](int kt) {
     stage_rows<T, HD, HD>(raw, k + koff, kt * BK, S);
-    stage_rows<T, HD, HD>(raw + 64 * HD, v + koff, kt * BK, S);
+    stage_rows<T, L::HO, L::HO, HD>(raw + 64 * HD, v + koff + n0, kt * BK, S);
     cp_async_commit();
   };
   if (n_kt > 0) stage_kv(0);
 
-  // q as A operands, kept in registers: rows r0 (+8), columns 16 ks + 2t
-  // (+1, +8, +9)
-  FragA qa[KS];
+  // q as A operands: rows r0 (+8), columns 16 ks + 2t (+1, +8, +9); kept
+  // in registers up to HD 128
+  FragA qa[L::QREG ? KS : 1];
+  if constexpr (L::QREG) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = r0 + (r & 1) * 8, col = 16 * ks + 2 * t + (r >> 1) * 8;
-      qa[ks].hi[r] = qa[ks].lo[r] = 0u;
-      if (row < S) pair_of(q + qoff + (size_t)row * HD + col, qa[ks].hi[r], qa[ks].lo[r]);
-    }
+    for (int ks = 0; ks < KS; ++ks) a_global<T, HD>(qa[ks], q + qoff, r0, S, 16 * ks + 2 * t);
+  }
 
   float acc[DN][4], m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
 #pragma unroll
@@ -785,8 +841,8 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = kt * BK;
     cp_async_wait<0>();
     __syncthreads();                   // tile kt staged; tile kt-1's operands read
-    split_rows<T, HD>(ops, ops + 2 * L::PLANE, raw, 64);
-    split_rows<T, HD>(ops + L::PLANE, ops + 3 * L::PLANE, raw + 64 * HD, 64);
+    split_rows<T, HD>(kh, kl, raw, 64);
+    split_rows<T, L::HO>(vh, vl, raw + 64 * HD, 64);
     __syncthreads();
     if (kt + 1 < n_kt) stage_kv(kt + 1);   // in flight while tile kt computes
     // on the causal diagonal this warp's rows see keys < 16 (warp + 1)
@@ -800,15 +856,18 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      if (2 * np >= n_nt) continue;
-      const int at = (16 * np + (lm >> 1) * 8 + lr) * L::LDS + (lm & 1) * 8;
+    for (int ks = 0; ks < KS; ++ks) {
+      FragA qk;
+      if constexpr (L::QREG) qk = qa[ks];
+      else a_global<T, HD>(qk, q + qoff, r0, S, 16 * ks + 2 * t);
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
+      for (int np = 0; np < 4; ++np) {
+        if (2 * np >= n_nt) continue;
+        const int at = (16 * np + (lm >> 1) * 8 + lr) * L::LDS + (lm & 1) * 8 + 16 * ks;
         FragB b0, b1;
-        load_b(b0, b1, kh + at + 16 * ks, kl + at + 16 * ks, SPLIT, false);
-        mma3<SPLIT>(sc[2 * np], qa[ks], b0);
-        mma3<SPLIT>(sc[2 * np + 1], qa[ks], b1);
+        load_b(b0, b1, kh + at, kl + at, SPLIT, false);
+        mma4<SPLIT>(sc[2 * np], qk, b0);
+        mma4<SPLIT>(sc[2 * np + 1], qk, b1);
       }
     }
 
@@ -860,7 +919,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (2 * j >= n_nt) continue;
       FragA pa;
       acc_to_a<SPLIT>(pa, sc[2 * j], sc[2 * j + 1]);
-      const int at = (16 * j + (lm & 1) * 8 + lr) * L::LDS + (lm >> 1) * 8;
+      const int at = (16 * j + (lm & 1) * 8 + lr) * L::LDV + (lm >> 1) * 8;
 #pragma unroll
       for (int np = 0; np < DN / 2; ++np) {
         FragB b0, b1;
@@ -878,19 +937,30 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= S) continue;
 #pragma unroll
     for (int n = 0; n < DN; ++n)
-      store_pair(o + qoff + (size_t)row * HD + 8 * n + 2 * t, acc[n][2 * i] / lc,
+      store_pair(o + qoff + (size_t)row * HD + n0 + 8 * n + 2 * t, acc[n][2 * i] / lc,
                  acc[n][2 * i + 1] / lc);
-    if (t == 0) lse[((size_t)b * H + h) * S + row] = m[i] + logf(lc);
+    if (t == 0 && n0 == 0) lse[((size_t)b * H + h) * S + row] = m[i] + logf(lc);
   }
 }
 
 template <typename T, int HD> struct DkvLayout {
   static constexpr bool SPLIT = sizeof(T) == 4;
+  static constexpr int HO = HD > 128 ? 64 : HD;               // dk, dv columns per CTA
+  static constexpr int NSPLIT = HD / HO;
+  static constexpr bool KGLOBAL = HD > 128;                   // k, v read from global
   static constexpr int LDS = HD + 8;                          // bf16 operand rows
   static constexpr size_t PLANE = (size_t)64 * LDS;           // one operand tile
-  static constexpr size_t OPS = (SPLIT ? 8 : 4) * PLANE * 2;  // k, v, q, do hi (, lo)
-  static constexpr size_t RAW = (size_t)2 * 64 * HD * sizeof(T) + 2 * 64 * sizeof(float);
-  static constexpr size_t SMEM = OPS + RAW + 2 * 64 * sizeof(float);
+  static constexpr int NH = KGLOBAL ? 2 : 4;                  // (k, v,) q, do hi
+  static constexpr size_t LO = NH * PLANE;                    // lo plane after its hi
+  static constexpr size_t OPS = (SPLIT ? 2 : 1) * LO * 2;
+  static constexpr size_t ROWS = 2 * 64 * sizeof(float);      // lse, delta of a tile
+  static constexpr size_t RAW0 = (size_t)2 * 64 * HD * sizeof(T) + ROWS;  // staged q, do
+  // the next item's q, do staged by cp.async where they fit beside the
+  // operands (else split straight from global memory)
+  static constexpr bool STAGE = OPS + RAW0 + ROWS <= SMEM_MAX;
+  static constexpr size_t RAW = STAGE ? RAW0 : 0;
+  static constexpr size_t SMEM = OPS + RAW + ROWS;
+  static_assert(SMEM <= SMEM_MAX, "dk/dv shared memory");
 };
 
 // ---------------------------------------------------------------------------
@@ -911,22 +981,24 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using L = DkvLayout<T, HD>;
   constexpr bool SPLIT = L::SPLIT;
   constexpr int KS = HD / 16;
-  constexpr int DN = HD / 8;
+  constexpr int DN = L::HO / 8;            // n8 tiles over this CTA's columns
   constexpr int QW = HD <= 64 ? 64 : 32;   // query columns per pass (registers)
-  constexpr size_t LO = 4 * L::PLANE;      // lo plane of an operand, after its hi
+  constexpr size_t LO = L::LO;             // lo plane of an operand, after its hi
+  constexpr int QP = L::KGLOBAL ? 0 : 2;   // q's plane
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // bf16 operands: k, v, q, do hi (then k, v, q, do lo); then the staged
-  // q, do, lse, delta of the next tile; then this tile's lse, delta
+  // bf16 operands: (k, v,) q, do hi (then their lo); then the staged q,
+  // do, lse, delta of the next tile; then this tile's lse, delta
   __nv_bfloat16* ops = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   const __nv_bfloat16 *kh = ops, *vh = ops + L::PLANE;
-  const __nv_bfloat16 *qh = ops + 2 * L::PLANE, *dh = ops + 3 * L::PLANE;
+  __nv_bfloat16 *qh = ops + QP * L::PLANE, *dh = ops + (QP + 1) * L::PLANE;
   T* raw = reinterpret_cast<T*>(smem_raw + L::OPS);
   float* raw_rows = reinterpret_cast<float*>(raw + 2 * 64 * HD);
-  float* rows = raw_rows + 2 * 64;          // lse (64), then delta (64)
+  float* rows = reinterpret_cast<float*>(smem_raw + L::OPS + L::RAW);   // lse, delta
 
   // the grid's slowest axis walks the key tiles from the first: under
   // causal masking the longest first
-  const int k0 = blockIdx.z * BK, hk = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BK, hk = blockIdx.x / L::NSPLIT, b = blockIdx.y;
+  const int n0 = (blockIdx.x % L::NSPLIT) * L::HO;   // this CTA's first column
   const int group = H / Hkv;
   const int kvl = kv_len[b];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -953,10 +1025,14 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     cp_async_commit();
   };
-  if (n_items > 0) stage_item(0);
+  if constexpr (L::STAGE) {
+    if (n_items > 0) stage_item(0);
+  }
   // this tile's k and v as operands, zero past S
-  split_rows<T, HD>(ops, ops + LO, k + koff + (size_t)k0 * HD, S - k0);
-  split_rows<T, HD>(ops + L::PLANE, ops + L::PLANE + LO, v + koff + (size_t)k0 * HD, S - k0);
+  if constexpr (!L::KGLOBAL) {
+    split_rows<T, HD>(ops, ops + LO, k + koff + (size_t)k0 * HD, S - k0);
+    split_rows<T, HD>(ops + L::PLANE, ops + L::PLANE + LO, v + koff + (size_t)k0 * HD, S - k0);
+  }
 
   float gk[DN][4], gv[DN][4];
 #pragma unroll
@@ -968,13 +1044,27 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = 0; i < n_items; ++i) {
     const int q0 = (lo + i % n_it) * BQ;
-    cp_async_wait<0>();
-    __syncthreads();                   // item i staged; item i-1's operands read
-    split_rows<T, HD>(ops + 2 * L::PLANE, ops + 2 * L::PLANE + LO, raw, 64);
-    split_rows<T, HD>(ops + 3 * L::PLANE, ops + 3 * L::PLANE + LO, raw + 64 * HD, 64);
-    for (int r = threadIdx.x; r < 2 * BQ; r += TPB) rows[r] = raw_rows[r];
-    __syncthreads();
-    if (i + 1 < n_items) stage_item(i + 1);   // in flight while item i computes
+    if constexpr (L::STAGE) {
+      cp_async_wait<0>();
+      __syncthreads();                 // item i staged; item i-1's operands read
+      split_rows<T, HD>(qh, qh + LO, raw, 64);
+      split_rows<T, HD>(dh, dh + LO, raw + 64 * HD, 64);
+      for (int r = threadIdx.x; r < 2 * BQ; r += TPB) rows[r] = raw_rows[r];
+      __syncthreads();
+      if (i + 1 < n_items) stage_item(i + 1);   // in flight while item i computes
+    } else {
+      const int h = hk * group + i / n_it;
+      const size_t qoff = ((size_t)b * H + h) * S * HD;
+      const size_t roff = ((size_t)b * H + h) * S;
+      __syncthreads();                 // item i-1's operands read
+      split_rows<T, HD>(qh, qh + LO, q + qoff + (size_t)q0 * HD, S - q0);
+      split_rows<T, HD>(dh, dh + LO, dout + qoff + (size_t)q0 * HD, S - q0);
+      for (int r = threadIdx.x; r < 2 * BQ; r += TPB) {
+        const int qp = q0 + (r % BQ);
+        rows[r] = qp < S ? (r < BQ ? lse : delta)[roff + qp] : 0.f;
+      }
+      __syncthreads();
+    }
     const bool full = k0 + BK <= kvl && q0 + BQ <= kvl && (!causal || k0 + BK <= q0 + 1) &&
                       (window <= 0 || q0 + BQ - 1 - k0 < window);
     // on the causal diagonal this warp's keys are seen by queries >= 16 warp
@@ -991,11 +1081,16 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
         FragA ka, va;
-        ldsm_x4(ka.hi, kh + a_at + 16 * ks);
-        ldsm_x4(va.hi, vh + a_at + 16 * ks);
-        if (SPLIT) {
-          ldsm_x4(ka.lo, kh + LO + a_at + 16 * ks);
-          ldsm_x4(va.lo, vh + LO + a_at + 16 * ks);
+        if constexpr (L::KGLOBAL) {
+          a_global<T, HD>(ka, k + koff, k0 + kr0, S, 16 * ks + 2 * t);
+          a_global<T, HD>(va, v + koff, k0 + kr0, S, 16 * ks + 2 * t);
+        } else {
+          ldsm_x4(ka.hi, kh + a_at + 16 * ks);
+          ldsm_x4(va.hi, vh + a_at + 16 * ks);
+          if (SPLIT) {
+            ldsm_x4(ka.lo, kh + LO + a_at + 16 * ks);
+            ldsm_x4(va.lo, vh + LO + a_at + 16 * ks);
+          }
         }
 #pragma unroll
         for (int np = 0; np < QW / 16; ++np) {
@@ -1030,7 +1125,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
         FragA pa, da;
         acc_to_a<SPLIT>(pa, sc[2 * j], sc[2 * j + 1]);
         acc_to_a<SPLIT>(da, dp[2 * j], dp[2 * j + 1]);
-        const int at = (c0 + 16 * j + (lm & 1) * 8 + lr) * L::LDS + (lm >> 1) * 8;
+        const int at = (c0 + 16 * j + (lm & 1) * 8 + lr) * L::LDS + (lm >> 1) * 8 + n0;
 #pragma unroll
         for (int np = 0; np < DN / 2; ++np) {
           FragB o0b, o1b, q0b, q1b;
@@ -1051,7 +1146,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (kp >= S) continue;
 #pragma unroll
     for (int n = 0; n < DN; ++n) {
-      const size_t at = koff + (size_t)kp * HD + 8 * n + 2 * t;
+      const size_t at = koff + (size_t)kp * HD + n0 + 8 * n + 2 * t;
       store_pair(dk + at, gk[n][2 * i], gk[n][2 * i + 1]);
       store_pair(dv + at, gv[n][2 * i], gv[n][2 * i + 1]);
     }
@@ -1060,13 +1155,22 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD> struct DqLayout {
   static constexpr bool SPLIT = sizeof(T) == 4;
+  static constexpr int HO = HD <= 128 ? HD : SPLIT ? 64 : 128;  // dq columns per CTA
+  static constexpr int NSPLIT = HD / HO;
   static constexpr bool QREG = HD <= 64;                      // q, do in registers
+  static constexpr bool QGLOBAL = HD > 128;                   // q, do read from global
   static constexpr int LDS = HD + 8;                          // bf16 operand rows
   static constexpr size_t PLANE = (size_t)64 * LDS;           // one operand tile
-  static constexpr int NH = QREG ? 2 : 4;                     // k, v (, q, do) hi
+  static constexpr int NH = QREG || QGLOBAL ? 2 : 4;          // k, v (, q, do) hi
   static constexpr size_t LO = NH * PLANE;                    // lo plane after its hi
-  static constexpr size_t RAW = (size_t)2 * 64 * HD * sizeof(T);          // staged k, v
-  static constexpr size_t SMEM = RAW + (SPLIT ? 2 : 1) * LO * 2;
+  static constexpr size_t OPS = (SPLIT ? 2 : 1) * LO * 2;
+  // the next tile's k, v staged by cp.async where they fit beside the
+  // operands (else split straight from global memory)
+  static constexpr size_t RAW0 = (size_t)2 * 64 * HD * sizeof(T);
+  static constexpr bool STAGE = RAW0 + OPS <= SMEM_MAX;
+  static constexpr size_t RAW = STAGE ? RAW0 : 0;
+  static constexpr size_t SMEM = RAW + OPS;
+  static_assert(SMEM <= SMEM_MAX, "dq shared memory");
 };
 
 // ---------------------------------------------------------------------------
@@ -1084,15 +1188,16 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using L = DqLayout<T, HD>;
   constexpr bool SPLIT = L::SPLIT;
   constexpr int KS = HD / 16;       // k-steps over HD
-  constexpr int DN = HD / 8;        // n8 tiles over HD
+  constexpr int DN = L::HO / 8;     // n8 tiles over this CTA's dq columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* raw = reinterpret_cast<T*>(smem_raw);
   // bf16 operands: k hi, v hi (, q hi, do hi); then their lo planes
   __nv_bfloat16* ops = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::RAW);
-  const __nv_bfloat16 *kh = ops, *vh = ops + L::PLANE;
+  __nv_bfloat16 *kh = ops, *vh = ops + L::PLANE;
   const __nv_bfloat16 *qh = ops + 2 * L::PLANE, *dh = ops + 3 * L::PLANE;
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x / L::NSPLIT, b = blockIdx.y;
+  const int n0 = (blockIdx.x % L::NSPLIT) * L::HO;   // this CTA's first dq column
   const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;  // longest first
   const int q0 = qt * BQ;
   const int hk = h / (H / Hkv);
@@ -1111,28 +1216,27 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     stage_rows<T, HD, HD>(raw + 64 * HD, v + koff, kt * BK, S);
     cp_async_commit();
   };
-  if (n_kt > 0) stage_kv(0);
+  if constexpr (L::STAGE) {
+    if (n_kt > 0) stage_kv(0);
+  }
 
-  // q and do as A operands: in registers (rows r0 (+8), columns 16 ks +
-  // 2t (+1, +8, +9)), or at HD 128 as operand tiles read by ldmatrix
+  // q and do as A operands (rows r0 (+8), columns 16 ks + 2t (+1, +8,
+  // +9)): in registers up to HD 64, operand tiles read by ldmatrix at HD
+  // 80 and 128, read from global memory per k-step above
   FragA qreg[L::QREG ? KS : 1], dreg[L::QREG ? KS : 1];
   if constexpr (L::QREG) {
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = r0 + (r & 1) * 8, col = 16 * ks + 2 * t + (r >> 1) * 8;
-        qreg[ks].hi[r] = qreg[ks].lo[r] = dreg[ks].hi[r] = dreg[ks].lo[r] = 0u;
-        if (row < S) {
-          pair_of(q + qoff + (size_t)row * HD + col, qreg[ks].hi[r], qreg[ks].lo[r]);
-          pair_of(dout + qoff + (size_t)row * HD + col, dreg[ks].hi[r], dreg[ks].lo[r]);
-        }
-      }
-  } else if (n_kt > 0) {
-    split_rows<T, HD>(ops + 2 * L::PLANE, ops + 2 * L::PLANE + L::LO,
-                      q + qoff + (size_t)q0 * HD, S - q0);
-    split_rows<T, HD>(ops + 3 * L::PLANE, ops + 3 * L::PLANE + L::LO,
-                      dout + qoff + (size_t)q0 * HD, S - q0);
+    for (int ks = 0; ks < KS; ++ks) {
+      a_global<T, HD>(qreg[ks], q + qoff, r0, S, 16 * ks + 2 * t);
+      a_global<T, HD>(dreg[ks], dout + qoff, r0, S, 16 * ks + 2 * t);
+    }
+  } else if constexpr (!L::QGLOBAL) {
+    if (n_kt > 0) {
+      split_rows<T, HD>(ops + 2 * L::PLANE, ops + 2 * L::PLANE + L::LO,
+                        q + qoff + (size_t)q0 * HD, S - q0);
+      split_rows<T, HD>(ops + 3 * L::PLANE, ops + 3 * L::PLANE + L::LO,
+                        dout + qoff + (size_t)q0 * HD, S - q0);
+    }
   }
   // this lane's rows of lse and delta
   float ls[2], dl[2];
@@ -1153,12 +1257,19 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    cp_async_wait<0>();
-    __syncthreads();                   // tile kt staged; tile kt-1's operands read
-    split_rows<T, HD>(ops, ops + L::LO, raw, 64);
-    split_rows<T, HD>(ops + L::PLANE, ops + L::PLANE + L::LO, raw + 64 * HD, 64);
-    __syncthreads();
-    if (kt + 1 < n_kt) stage_kv(kt + 1);   // in flight while tile kt computes
+    if constexpr (L::STAGE) {
+      cp_async_wait<0>();
+      __syncthreads();                 // tile kt staged; tile kt-1's operands read
+      split_rows<T, HD>(kh, kh + L::LO, raw, 64);
+      split_rows<T, HD>(vh, vh + L::LO, raw + 64 * HD, 64);
+      __syncthreads();
+      if (kt + 1 < n_kt) stage_kv(kt + 1);   // in flight while tile kt computes
+    } else {
+      __syncthreads();                 // tile kt-1's operands read
+      split_rows<T, HD>(kh, kh + L::LO, k + koff + (size_t)k0 * HD, S - k0);
+      split_rows<T, HD>(vh, vh + L::LO, v + koff + (size_t)k0 * HD, S - k0);
+      __syncthreads();
+    }
     // on the causal diagonal this warp's rows see keys < 16 (warp + 1)
     const int n_nt = causal && k0 == q0 ? 2 * warp + 2 : 8;
     // masks only where the tile is not wholly visible
@@ -1177,6 +1288,9 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if constexpr (L::QREG) {
         qa = qreg[ks];
         da = dreg[ks];
+      } else if constexpr (L::QGLOBAL) {
+        a_global<T, HD>(qa, q + qoff, r0, S, 16 * ks + 2 * t);
+        a_global<T, HD>(da, dout + qoff, r0, S, 16 * ks + 2 * t);
       } else {
         ldsm_x4(qa.hi, qh + a_at + 16 * ks);
         ldsm_x4(da.hi, dh + a_at + 16 * ks);
@@ -1217,7 +1331,7 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (2 * j >= n_nt) continue;
       FragA a;
       acc_to_a<SPLIT>(a, sc[2 * j], sc[2 * j + 1]);
-      const int at = (16 * j + (lm & 1) * 8 + lr) * L::LDS + (lm >> 1) * 8;
+      const int at = (16 * j + (lm & 1) * 8 + lr) * L::LDS + (lm >> 1) * 8 + n0;
 #pragma unroll
       for (int np = 0; np < DN / 2; ++np) {
         FragB b0, b1;
@@ -1234,7 +1348,7 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= S) continue;
 #pragma unroll
     for (int n = 0; n < DN; ++n)
-      store_pair(dq + qoff + (size_t)row * HD + 8 * n + 2 * t, acc[n][2 * i],
+      store_pair(dq + qoff + (size_t)row * HD + n0 + 8 * n + 2 * t, acc[n][2 * i],
                  acc[n][2 * i + 1]);
   }
 }
@@ -1245,7 +1359,7 @@ cudaError_t run_fwd(const Args& a) {
   auto kern = flash_fwd_tc_kernel<T, HD>;
   cudaError_t e = prepare(kern, L::SMEM);
   if (e != cudaSuccess) return e;
-  dim3 grid(a.H, a.B, (a.S + BQ - 1) / BQ);
+  dim3 grid(a.H * L::NSPLIT, a.B, (a.S + BQ - 1) / BQ);
   kern<<<grid, TPB, L::SMEM, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.kv_len,
       (T*)a.o, (float*)a.lse_out, a.H, a.Hkv, a.S, a.causal, a.window, a.scale);
@@ -1258,7 +1372,7 @@ cudaError_t run_dkv(const Args& a) {
   auto kern = flash_bwd_dkv_tc_kernel<T, HD>;
   cudaError_t e = prepare(kern, L::SMEM);
   if (e != cudaSuccess) return e;
-  dim3 grid(a.Hkv, a.B, (a.S + BK - 1) / BK);
+  dim3 grid(a.Hkv * L::NSPLIT, a.B, (a.S + BK - 1) / BK);
   kern<<<grid, TPB, L::SMEM, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
       (const float*)a.lse, (const float*)a.delta, (const int*)a.kv_len,
@@ -1272,7 +1386,7 @@ cudaError_t run_dq(const Args& a) {
   auto kern = flash_bwd_dq_tc_kernel<T, HD>;
   cudaError_t e = prepare(kern, L::SMEM);
   if (e != cudaSuccess) return e;
-  dim3 grid(a.H, a.B, (a.S + BQ - 1) / BQ);
+  dim3 grid(a.H * L::NSPLIT, a.B, (a.S + BQ - 1) / BQ);
   kern<<<grid, TPB, L::SMEM, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
       (const float*)a.lse, (const float*)a.delta, (const int*)a.kv_len,
@@ -1321,19 +1435,27 @@ cudaError_t run_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-// which kernel: 0 forward, 1 dq, 2 dk/dv on the tensor cores; 3 forward,
-// 4 dk/dv, 5 dq on the CUDA cores
+// which kernel: 0 forward, 1 dq, 2 dk/dv on the tensor cores (every head
+// dim of run_hd); 3 forward, 4 dk/dv, 5 dq on the CUDA cores (head dims
+// 16, 32, 64, 128 only: no FMA case is built at 80 or 256)
 template <typename T, int HD>
 cudaError_t run(int which, const Args& a) {
+  constexpr bool FMA = HD == 16 || HD == 32 || HD == 64 || HD == 128;
   switch (which) {
     case 0: return tc::run_fwd<T, HD>(a);
     case 1: return tc::run_dq<T, HD>(a);
     case 2: return tc::run_dkv<T, HD>(a);
-    case 3: return run_fwd<T, HD>(a);
-    case 4: return run_dkv<T, HD>(a);
-    case 5: return run_dq<T, HD>(a);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (FMA) {
+    switch (which) {
+      case 3: return run_fwd<T, HD>(a);
+      case 4: return run_dkv<T, HD>(a);
+      case 5: return run_dq<T, HD>(a);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -1342,7 +1464,9 @@ cudaError_t run_hd(int which, int hd, const Args& a) {
     case 16: return run<T, 16>(which, a);
     case 32: return run<T, 32>(which, a);
     case 64: return run<T, 64>(which, a);
+    case 80: return run<T, 80>(which, a);
     case 128: return run<T, 128>(which, a);
+    case 256: return run<T, 256>(which, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1368,9 +1492,9 @@ int dispatch(int which, int hd, int dtype, const Args& a) {
 // Each returns the cudaError_t of the launch (0 = launched;
 // cudaErrorInvalidValue, launching nothing, for a case it does not take).
 // flash_fwd, flash_bwd_dq and flash_bwd_dkv run the tensor-core kernels
-// and take every head dim 16, 32, 64, 128 with 16-byte aligned tensors;
-// flash_fwd_fma, flash_bwd_dq_fma and flash_bwd_dkv_fma the fp32 FMA
-// kernels of the same functions.
+// and take every head dim 16, 32, 64, 80, 128, 256 with 16-byte aligned
+// tensors; flash_fwd_fma, flash_bwd_dq_fma and flash_bwd_dkv_fma the fp32
+// FMA kernels of the same functions, at head dims 16, 32, 64, 128.
 
 namespace {
 

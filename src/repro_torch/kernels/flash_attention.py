@@ -26,7 +26,8 @@ wrappers take -- fp32 and bf16, head dims ``HEAD_DIMS``, GQA, causal or
 not, window, ragged -- and ``flash_bwd`` and ``FlashAttention`` launch
 them.  The fp32 FMA kernels they replaced are reached only through
 their own entry points ``flash_fwd_fma``, ``flash_bwd_dq_fma`` and
-``flash_bwd_dkv_fma`` (a second fp32 witness on the card).  Each kernel
+``flash_bwd_dkv_fma`` (a second fp32 witness on the card), at the head
+dims ``FMA_HEAD_DIMS`` only.  Each kernel
 has its own launch count in ``LAUNCHES``, and no entry point hands a
 call to another kernel.  The tensor-core kernels read 16-byte pieces, so
 every entry point copies an input whose address is not 16-byte aligned
@@ -57,7 +58,9 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 
 _SRC = build.CSRC / "flash_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+# head dims the tensor-core kernels take, and the FMA kernels
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+FMA_HEAD_DIMS = (16, 32, 64, 128)
 # C entry point -> number of pointer arguments
 _ENTRY_POINTS = {"flash_fwd": 6, "flash_fwd_fma": 6, "flash_bwd_dq": 8,
                  "flash_bwd_dq_fma": 8, "flash_bwd_dkv": 9,
@@ -89,16 +92,17 @@ def _alloc(shape, dtype, device) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=device)
 
 
-def _kernel_args(q, k, v, kv_len) -> Tuple[tuple, torch.Tensor]:
-    """Validate the common operands of the three launches; returns the
-    integer arguments and the clamped int32 lengths."""
+def _kernel_args(name, q, k, v, kv_len) -> Tuple[tuple, torch.Tensor]:
+    """Validate the common operands of the launch of ``name``; returns
+    the integer arguments and the clamped int32 lengths."""
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash kernels take float32 or bfloat16, "
                          f"not {q.dtype}")
     B, H, S, hd = q.shape
     Hkv = k.shape[1]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    dims = FMA_HEAD_DIMS if name.endswith("_fma") else HEAD_DIMS
+    if hd not in dims:
+        raise ValueError(f"{name}: head dim {hd} not in {dims}")
     if S == 0 or Hkv == 0 or H % Hkv:
         raise ValueError(f"bad heads/length: H={H} Hkv={Hkv} S={S}")
     build.check("q", q, (B, H, S, hd), q.dtype, q.device)
@@ -206,7 +210,7 @@ def _fwd(name, q, k, v, kv_len, causal, window):
     if route == "meta":
         return (torch.empty_like(q),
                 torch.empty((B, H, S), dtype=torch.float32, device="meta"))
-    dims, kvl = _kernel_args(q, k, v, kv_len)
+    dims, kvl = _kernel_args(name, q, k, v, kv_len)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = _alloc(q.shape, q.dtype, q.device)
     lse = _alloc((B, H, S), torch.float32, q.device)
@@ -226,8 +230,8 @@ def flash_fwd_fma(q, k, v, kv_len=None, causal: bool = True,
     return _fwd("flash_fwd_fma", q, k, v, kv_len, causal, window)
 
 
-def _bwd_args(q, k, v, do, lse, delta, kv_len):
-    dims, kvl = _kernel_args(q, k, v, kv_len)
+def _bwd_args(name, q, k, v, do, lse, delta, kv_len):
+    dims, kvl = _kernel_args(name, q, k, v, kv_len)
     B, H, S, hd = q.shape
     build.check("do", do, q.shape, q.dtype, q.device)
     build.check("lse", lse, (B, H, S), torch.float32, q.device)
@@ -242,7 +246,7 @@ def _dq(name, q, k, v, do, lse, delta, kv_len, causal, window):
                                   window)
     if route == "meta":
         return torch.empty_like(q)
-    dims, kvl = _bwd_args(q, k, v, do, lse, delta, kv_len)
+    dims, kvl = _bwd_args(name, q, k, v, do, lse, delta, kv_len)
     q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     dq = _alloc(q.shape, q.dtype, q.device)
     _launch(name, (q, k, v, do, lse, delta, kvl, dq), dims, causal, window,
@@ -272,7 +276,7 @@ def _dkv(name, q, k, v, do, lse, delta, kv_len, causal, window):
                                    window)
     if route == "meta":
         return torch.empty_like(k), torch.empty_like(v)
-    dims, kvl = _bwd_args(q, k, v, do, lse, delta, kv_len)
+    dims, kvl = _bwd_args(name, q, k, v, do, lse, delta, kv_len)
     q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     dk = _alloc(k.shape, k.dtype, k.device)
     dv = _alloc(v.shape, v.dtype, v.device)

@@ -110,6 +110,7 @@ def microbatch_overhead(trainer, batch, rounds: int = 2,
     actions, _ = trainer.planner.plan(tb)
     opt_state = trainer.optimizer.init(trainer.params)
     fns = {k: trainer._get_step_fn(actions, tb, k)[0] for k in (1, 2)}
+    bucket = trainer.planner.bucket_key(tb)
     times = {1: [], 2: []}
 
     def one(k):
@@ -117,7 +118,8 @@ def microbatch_overhead(trainer, batch, rounds: int = 2,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, _, grads = fns[k].grads(tb)
-        opt_state = trainer._update(fns[k], grads, opt_state)
+        opt_state, _ = trainer._update(fns[k], grads, opt_state, tb, bucket,
+                                       trainer._step_key(actions, tb, k), 0)
         float(loss)
         torch.cuda.synchronize()
         return time.perf_counter() - t0

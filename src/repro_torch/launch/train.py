@@ -57,6 +57,10 @@ watchdog (``--inject-oom`` drives deterministic faults; a real
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
         --steps 12 --checkpoint-dir ckpt --resume
 
+``--save PATH`` writes the final parameters with ``train/checkpoint.py``'s
+save; ``checkpoint.load(PATH, like)`` reads them back, strictly, into a
+model of the same configuration.
+
 ``--pcie-gbps`` defaults to ``MIMOSE_PCIE_GBPS``, else this host's
 calibration file (``python -m repro_torch.launch.bench_offload_bw``
 writes it), else ``launch/roofline.PCIE_BW``.  At exit the run prints
@@ -80,6 +84,7 @@ from repro_torch.models.registry import (ARCH_IDS, REDUCED_ONLY,
                                          canonical, get_config)
 from repro_torch.obs import build_telemetry, flush_telemetry
 from repro_torch.optim.adamw import AdamW, cosine_schedule
+from repro_torch.train import checkpoint
 from repro_torch.train.resilience import (FaultInjector, OOMWatchdog,
                                          SnapshotManager)
 from repro_torch.train.trainer import Trainer
@@ -142,6 +147,11 @@ def main(argv=None) -> Trainer:
                     help="reduced model variant (CPU demo)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--save", default=None,
+                    help="write the final parameters to this file at exit "
+                         "(train/checkpoint.py: load it back with "
+                         "checkpoint.load into a model of the same "
+                         "configuration)")
     # resilience (repro_torch.train.resilience)
     ap.add_argument("--checkpoint-dir", default=None,
                     help="directory for periodic full-state snapshots "
@@ -316,6 +326,9 @@ def main(argv=None) -> Trainer:
     if hasattr(planner, "stats"):
         print("planner:", planner.stats, "plans cached:",
               len(getattr(planner, "cache", {})))
+    if args.save:
+        checkpoint.save(args.save, trainer.params)
+        print("saved", args.save)
     for kind, path in flush_telemetry(telemetry).items():
         print(f"{kind} written to {path}")
     return trainer

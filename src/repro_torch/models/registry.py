@@ -1,8 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> ``ModelConfig``.
 
-Holds the configurations the port runs, under the reference's ids and
-its dashed public names.  The reference's other configurations wait for
-work the port has not done yet; asking for one says which.
+Holds the configurations the port runs -- every one of the
+reference's -- under the reference's ids and its dashed public names.
 """
 from __future__ import annotations
 
@@ -20,6 +19,8 @@ ARCH_IDS = [
     "yi_9b",
     "seamless_m4t_large_v2",
     "qwen2_vl_7b",
+    "stablelm_3b",
+    "gemma3_12b",
 ]
 
 # configurations that train only reduced: their full-size weights do
@@ -40,13 +41,6 @@ ALIASES = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
-# the reference's configurations the port does not run yet, and what
-# each waits for
-WAITING = {
-    "stablelm_3b": "flash kernels at head dim 80 (ROADMAP queue B)",
-    "gemma3_12b": "flash kernels at head dim 256 (ROADMAP queue B)",
-}
-
 
 def canonical(arch: str) -> str:
     return ALIASES.get(arch, arch.replace("-", "_").replace(".", "p"))
@@ -54,9 +48,6 @@ def canonical(arch: str) -> str:
 
 def get_config(arch: str) -> ModelConfig:
     name = canonical(arch)
-    if name in WAITING:
-        raise KeyError(f"arch {arch!r} is not ported yet: it waits for "
-                       f"{WAITING[name]}; the port runs: {ARCH_IDS}")
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; the port runs: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}").CONFIG

@@ -193,6 +193,12 @@ class OOMWatchdog:
     def on_oom(self, bucket: int) -> None:
         self.stats.inc("oom_events", bucket=int(bucket))
 
+    def on_escalation(self) -> None:
+        """For standalone use; the trainer does not call it: the
+        planner's ``escalate`` bumps the shared ``train_escalations``
+        counter already, and this view reads the same metric."""
+        self.stats.inc("escalations")
+
     def on_retry_success(self) -> None:
         self.stats["retry_successes"] += 1
 

@@ -313,34 +313,72 @@ class Trainer:
         return AdamWState(opt_state.step, self._moment_set(m, host["m"]),
                           self._moment_set(v, host["v"]))
 
-    def _unpark_moments(self, opt_state: AdamWState) -> AdamWState:
-        """Bring every parked moment back to the device (called with
-        the backward already enqueued, so the uploads ride behind it)."""
-        if not self._parked:
-            return opt_state
-        lane = self._lane()
-        m, v = opt_state.m, opt_state.v
-        pending = [(which, n, lane.upload(x))
-                   for u in sorted(self._parked)
-                   for which, tree in (("m", m), ("v", v))
-                   for n, x in self._moment_get(tree, u).items()]
-        dev = {"m": {}, "v": {}}
-        for which, n, h in pending:
-            dev[which][n] = lane.fetch(h)
-        self._parked = set()
-        return AdamWState(opt_state.step, self._moment_set(m, dev["m"]),
-                          self._moment_set(v, dev["v"]))
+    def _update(self, fn: StepFn, grads, opt_state: AdamWState, batch,
+                bucket: int, step_key, attempt: int):
+        """The update after the gradients: AdamW one parameter at a
+        time, each all or nothing (``AdamW.apply``), a parked moment
+        brought home just before its parameter's update; then the
+        moments of the plan's OFFLOAD_OPT units back out.  An OOM in it
+        is booked and escalated as one in the step (``_book_oom``), the
+        cache freed, and the update resumed at the first parameter not
+        written, with the same gradients, clip scale, step and learning
+        rate: bit for bit the update that did not fail.  Returns
+        ``(opt_state, attempt)``."""
+        wd = self.watchdog
+        parked = {n for u in self._parked for n in self._unit_names[u]}
+        away = {"m": set(parked), "v": set(parked)}     # still on the host
+        state = AdamWState(opt_state.step, dict(opt_state.m),
+                           dict(opt_state.v))
 
-    def _update(self, fn: StepFn, grads, opt_state: AdamWState
-                ) -> AdamWState:
-        """The update after the gradients: every parked moment home,
-        AdamW, and the moments of the plan's OFFLOAD_OPT units back
-        out."""
-        opt_state = self._unpark_moments(opt_state)
-        opt_state = self.optimizer.update(grads, opt_state, self.params)
+        def moments(name):
+            # a parked moment comes home into the state once its upload
+            # landed; until then the state keeps the host buffer
+            for which, tree in (("m", state.m), ("v", state.v)):
+                if name in away[which]:
+                    lane = self._lane()
+                    tree[name] = lane.fetch(lane.upload(tree[name]))
+                    away[which].discard(name)
+            return state.m[name], state.v[name]
+
+        cursor = None
+        while True:
+            try:
+                if cursor is None:
+                    cursor = self.optimizer.begin(grads, state)
+                opt_state = self.optimizer.apply(cursor, grads, state,
+                                                 self.params, moments)
+                break
+            except RuntimeError as e:
+                if wd is None or not wd.is_oom(e):
+                    raise
+                attempt += 1
+                if not self._book_oom(e, batch, bucket, step_key, attempt):
+                    raise
+            # out of the except block, as in ``step``
+            self._recover_from_oom()
+        self._parked = set()
         if fn.opt_units:
             opt_state = self._park_moments(opt_state, fn.opt_units)
-        return opt_state
+        return opt_state, attempt
+
+    def _book_oom(self, e: BaseException, batch, bucket: int, step_key,
+                  attempt: int) -> bool:
+        """The plan said the bucket fits and the device disagreed: book
+        the OOM (the planner's stats read the same counter), drop the
+        failed step function, and ask the planner for a more aggressive
+        plan.  Returns whether to retry; False (retries spent or the
+        ladder exhausted) books the failure."""
+        wd, tel = self.watchdog, self.telemetry
+        wd.on_oom(bucket)
+        self._step_cache.pop(step_key, None)
+        if tel.events_on:
+            tel.events.emit("oom", step=self.global_step, bucket=bucket,
+                            attempt=attempt, error=type(e).__name__)
+        tel.tracer.instant("oom", TRACK_STEP, args={"bucket": bucket})
+        if attempt > wd.max_retries or not self.planner.escalate(batch):
+            wd.on_retry_failure()
+            return False
+        return True
 
     def _recover_from_oom(self) -> None:
         """Free what a failed attempt left: its gradients, the lane's
@@ -458,7 +496,8 @@ class Trainer:
                 torch.cuda.synchronize(self.lm.device)
                 torch.cuda.reset_peak_memory_stats(self.lm.device)
             t1 = time.perf_counter()
-            retryable = True
+            step_key = self._step_key(actions, batch, k)
+            in_update = False
             try:
                 with tracer.span("execute", TRACK_STEP):
                     if wd is not None:
@@ -468,31 +507,21 @@ class Trainer:
                     # the allocator raises an OOM on the host when the
                     # allocation is made, so it surfaces in this call
                     loss, metrics, grads = fn.grads(batch)
-                    # the update writes in place: no retry past here
-                    retryable = False
-                    opt_state = self._update(fn, grads, opt_state)
+                    # the update writes in place: it retries itself,
+                    # resuming where it stopped
+                    in_update = True
+                    opt_state, attempt = self._update(
+                        fn, grads, opt_state, batch, bucket, step_key,
+                        attempt)
                     del grads
                     loss = float(loss.detach())    # waits for the device
                     if cuda:
                         torch.cuda.synchronize(self.lm.device)
             except RuntimeError as e:      # every OOM is one
-                if not retryable or wd is None or not wd.is_oom(e):
+                if in_update or wd is None or not wd.is_oom(e):
                     raise
-                # the plan said the bucket fits and the device disagreed:
-                # book it (the planner's stats read the same counter),
-                # drop the failed step function, and ask the planner for
-                # a more aggressive plan
-                wd.on_oom(bucket)
-                self._step_cache.pop(self._step_key(actions, batch, k))
-                if tel.events_on:
-                    tel.events.emit("oom", step=self.global_step,
-                                    bucket=bucket, attempt=attempt + 1,
-                                    error=type(e).__name__)
-                tracer.instant("oom", TRACK_STEP, args={"bucket": bucket})
                 attempt += 1
-                if (attempt > wd.max_retries
-                        or not self.planner.escalate(batch)):
-                    wd.on_retry_failure()
+                if not self._book_oom(e, batch, bucket, step_key, attempt):
                     raise
             else:
                 break

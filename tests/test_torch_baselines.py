@@ -263,3 +263,91 @@ def test_launcher_rejects_inconsistent_arguments(bad):
     with pytest.raises(SystemExit):
         launch_train.main(["--device", "cpu", "--reduced", "--steps", "1"]
                           + bad)
+
+
+# ---------------------------------------------------------------------------
+# MimosePlanner's keywords (the reference's, with its defaults) against
+# the reference's planner built with the same values, on the stub vectors
+# ---------------------------------------------------------------------------
+
+def _keyword_pair(lms, budget, **kw):
+    """The two packages' Mimose planners built with the same keywords,
+    ``fixed_bytes`` among them, on the stub collectors."""
+    jlm, lm = lms
+    common = dict(fixed_bytes=FIXED, quantum=32, warmup_samples=3, **kw)
+    ref, ours = RefMimose(jlm, budget, **common), MimosePlanner(lm, budget,
+                                                                **common)
+    ref.collector = StubCollector(jlm, ref_flops)
+    ours.collector = StubCollector(lm, plan_unit_flops)
+    return ref, ours
+
+
+def test_mimose_keywords_default_to_the_reference_values(lms):
+    ours = MimosePlanner(lms[1], 1e9)
+    ref = RefMimose(lms[0], 1e9)
+    assert ours.fixed_bytes is None                  # resolved lazily
+    for key in ("bucket_tol", "audit_tol", "escalate_shrink"):
+        assert getattr(ours, key) == getattr(ref, key), key
+    assert ours.estimator.degree == ref.estimator.degree == 2
+    assert ours.est_output.degree == ours.est_offload.degree == 2
+    assert ours.cache.maxsize == ref.cache.maxsize == 256
+
+
+@pytest.mark.parametrize("bucket_tol", [0.0, 0.3])
+def test_mimose_bucket_tol_and_escalate_shrink_match_reference(
+        lms, monkeypatch, bucket_tol):
+    """Plans at a non-default scheduler tolerance, then three rungs of
+    one bucket's ladder at a non-default shrink, as the reference's."""
+    pin_reference_constants(monkeypatch)
+    ref, ours = _keyword_pair(lms, _budget(lms, 0.2), bucket_tol=bucket_tol,
+                              escalate_shrink=0.6)
+    assert ours.fixed_bytes == FIXED
+    _run(ref, ours)
+    jb, tb = _batches(SIZES[2])
+    for rung in range(1, 4):
+        assert ref.escalate(None, jb) is ours.escalate(tb) is True
+        rp, p = ref.cache[ref.plan_key(jb)], ours.cache[ours.plan_key(tb)]
+        assert tuple(int(a) for a in rp.actions) == tuple(
+            int(a) for a in p.actions), rung
+        assert rp.microbatch == p.microbatch
+
+
+@pytest.mark.parametrize("audit_tol", [1e-4, 0.05, 1e9])
+def test_mimose_audit_tol_refits_match_reference(lms, monkeypatch,
+                                                 audit_tol):
+    """A drift audit on every unseen size, a linear fit of quadratic
+    vectors: the same audits, refits and plans as the reference at each
+    tolerance, and none past a tolerance nothing reaches."""
+    pin_reference_constants(monkeypatch)
+    ref, ours = _keyword_pair(lms, _budget(lms, 0.2), degree=1,
+                              audit_every=1, audit_tol=audit_tol)
+    _run(ref, ours)
+    for key in ("audits", "refits", "collections", "cache_hits"):
+        assert ref.stats[key] == ours.stats[key], key
+    assert ours.stats["audits"] > 0
+    assert (ours.stats["refits"] > 0) == (audit_tol < 1.0)
+
+
+def test_mimose_max_plans_evicts_like_reference(lms, monkeypatch):
+    pin_reference_constants(monkeypatch)
+    ref, ours = _keyword_pair(lms, _budget(lms, 0.2), max_plans=2)
+    _run(ref, ours)
+    assert ours.stats["evictions"] == ref.stats["evictions"] > 0
+    assert len(ours.cache) == len(ref.cache) == 2
+    for key in ("cache_hits", "cache_misses", "collections"):
+        assert ref.stats[key] == ours.stats[key], key
+
+
+def test_mimose_degree_fits_like_reference(lms, monkeypatch):
+    """A cubic fit: the same predictions from the same samples, and the
+    same plans."""
+    pin_reference_constants(monkeypatch)
+    ref, ours = _keyword_pair(lms, _budget(lms, 0.2), degree=3)
+    _run(ref, ours)
+    assert ours.estimator.degree == ours.est_output.degree == 3
+    for S in (80, 250, 400):
+        np.testing.assert_allclose(ours.estimator.predict(B * S),
+                                   ref.estimator.predict(B * S), rtol=1e-9)
+        np.testing.assert_allclose(ours.est_offload.predict(B * S),
+                                   ref.est_offload.predict(B * S),
+                                   rtol=1e-9)

@@ -1,5 +1,10 @@
 """The tensor-core flash-attention kernels' arithmetic, emulated on the
 CPU, and the dispatch between them and the FMA kernels they replaced.
+The tensor-core kernels take head dims 16, 32, 64, 80, 128 and 256
+(``fa.HEAD_DIMS``), the FMA kernels 16, 32, 64 and 128
+(``fa.FMA_HEAD_DIMS``).  At 256 a kernel splits each tile's output
+columns over several CTAs that each recompute the scores; that changes
+no sum's order, so the emulation below stands for every head dim.
 
 ``csrc/flash_attention.cu``'s forward (``flash_fwd_tc_kernel``), dq
 kernel (``flash_bwd_dq_tc_kernel``) and dk/dv kernel
@@ -63,7 +68,17 @@ RAGGED_CASES = [
     (2, 160, 4, 2, 128, True, 0, "float32", [97, 160]),
 ]
 MAIN_HEAD = (1, 416, 1, 1, 64, True, 0, "float32", [338])
-TC_CASES = FLASH_CASES + RAGGED_CASES + [MAIN_HEAD]
+# head dims 80 (stablelm) and 256 (gemma3), which no reference test
+# takes: GQA, ragged and windowed, fp32 (hi/lo) and bf16
+WIDE_CASES = [
+    (2, 160, 4, 2, 80, True, 0, "float32", "drawn"),
+    (2, 96, 4, 4, 80, True, 32, "float32", "drawn"),
+    (2, 128, 4, 1, 80, True, 64, "bfloat16", "drawn"),
+    (2, 160, 4, 2, 256, True, 0, "float32", "drawn"),
+    (2, 128, 4, 1, 256, True, 64, "float32", "drawn"),
+    (2, 160, 4, 2, 256, True, 64, "bfloat16", [100, 160]),
+]
+TC_CASES = FLASH_CASES + RAGGED_CASES + [MAIN_HEAD] + WIDE_CASES
 
 # chip_smoke.py's TOL: (rtol, atol)
 TOL = {"float32": {"fwd": (2e-4, 2e-5), "bwd": (2e-3, 2e-4)},
@@ -413,12 +428,15 @@ def _call(name, q, k, v, do, lse, delta, lens, causal=True, window=0):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
-@pytest.mark.parametrize("name", list(ENTRIES))
+@pytest.mark.parametrize("name,hd", [
+    (name, hd) for name in ENTRIES
+    for hd in (fa.FMA_HEAD_DIMS if name.endswith("_fma") else fa.HEAD_DIMS)])
 def test_flash_entry_launches_its_kernel_and_count(fake_lib, name, hd, dtype):
-    """Every entry point, at every head dim and dtype the wrappers take,
-    launches its own C function once with the case's integers, adds one
-    to its own count only, and returns the kernel's buffers."""
+    """Every entry point, at every head dim (the tensor-core kernels'
+    ``HEAD_DIMS``, the FMA kernels' ``FMA_HEAD_DIMS``) and dtype it
+    takes, launches its own C function once with the case's integers,
+    adds one to its own count only, and returns the kernel's
+    buffers."""
     lib = fake_lib(0)
     q, k, v, do, lse, delta, lens = _fake_inputs(dtype, hd)
     before = dict(ops.LAUNCHES)
@@ -432,6 +450,19 @@ def test_flash_entry_launches_its_kernel_and_count(fake_lib, name, hd, dtype):
     assert _count_changes(before) == {c_name: 1}
     for t in (out if isinstance(out, tuple) else (out,)):
         assert torch.isnan(t.as_subclass(torch.Tensor).float()).all()
+
+
+@pytest.mark.parametrize("hd", [80, 256])
+@pytest.mark.parametrize("name", [n for n in ENTRIES if n.endswith("_fma")])
+def test_flash_fma_entry_refuses_head_dims_80_and_256(fake_lib, name, hd):
+    """The FMA kernels are not built at 80 or 256: their entry points
+    raise before any launch, and count nothing."""
+    lib = fake_lib(0)
+    ins = _fake_inputs("float32", hd)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match=f"head dim {hd}"):
+        _call(name, *ins)
+    assert lib.calls == [] and ops.LAUNCHES == before
 
 
 def test_flash_bwd_and_autograd_use_the_tensor_core_dkv_kernel(fake_lib):

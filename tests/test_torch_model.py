@@ -256,10 +256,13 @@ def test_formerly_refused_setting_builds_and_gives_the_reference_loss(
     np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["stablelm_3b", "gemma3_12b"])
-def test_registry_names_what_a_waiting_config_waits_for(arch):
-    with pytest.raises(KeyError, match="waits for"):
-        get_config(arch)
+@pytest.mark.parametrize("arch", ["stablelm_3b", "gemma3_12b", "stablelm-3b",
+                                  "gemma3-12b"])
+def test_registry_resolves_the_head_dim_80_and_256_configs(arch):
+    """stablelm (hd 80) and gemma3 (hd 256), under their ids and dashed
+    names, are the reference's configurations field by field."""
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+        jax_get_config(arch))
 
 
 @pytest.mark.parametrize("arch,key", [("seamless-m4t-large-v2", "frames"),
@@ -278,7 +281,8 @@ def test_launcher_refuses_the_stub_input_families_by_name(arch, key, capsys):
 
 # ---------------------------------------------------------------------------
 # the dense variants the other decoder-only configs need: qk-norm, GQA
-# kv = 4, head dim 128, an untied lm head
+# kv = 4, head dims 80, 128 and 256, an untied lm head, gemma3's local
+# and global layers
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("impl", ["xla", "flash"])
@@ -309,16 +313,26 @@ def test_qk_norm_attention_matches_reference(impl):
                                    rtol=1e-5, atol=1e-5)
 
 
+# arch -> (its reduced() keywords beyond dtype and mode, the batch's
+# length before padding to 64): stablelm at its head dim 80, gemma3 at
+# 256 with reduced()'s window 64 and global interval 2 and sequences
+# past the window, so its local layers mask
+DENSE_VARIANTS = {"qwen3_1p7b": ({}, 48), "yi_9b": ({}, 48),
+                  "stablelm_3b": (dict(head_dim=80), 48),
+                  "gemma3_12b": (dict(head_dim=256), 112)}
+
+
 @pytest.fixture(scope="module",
-                params=[(a, m) for a in ("qwen3_1p7b", "yi_9b")
+                params=[(a, m) for a in DENSE_VARIANTS
                         for m in ("unrolled", "scan")],
                 ids=lambda p: f"{p[0]}-{p[1]}")
 def dense_variant(request):
     arch, mode = request.param
-    over = dict(dtype="float32", remat_mode=mode)
+    extra, S = DENSE_VARIANTS[arch]
+    over = dict(dtype="float32", remat_mode=mode, **extra)
     jlm = build_model(jax_get_config(arch).reduced(**over), attn_impl="xla")
     params = jlm.init(jax.random.PRNGKey(0))
-    batch = pad_batch(_ragged(), 64)
+    batch = pad_batch(_ragged(S), 64)
     loss, grads = jax.jit(jax.value_and_grad(
         lambda p: jlm.loss(p, _to_jax(batch))[0]))(params)
     return (get_config(arch).reduced(**over), params, batch, float(loss),
@@ -327,9 +341,13 @@ def dense_variant(request):
 
 @pytest.mark.parametrize("impl", ["xla", "flash"])
 def test_dense_variant_loss_and_grads_match_reference(dense_variant, impl):
-    """qwen3 (qk-norm, tied) and yi (GQA, untied ``lm_head``), reduced,
-    unrolled and in scan mode."""
+    """qwen3 (qk-norm, tied), yi (GQA, untied ``lm_head``), stablelm (hd
+    80, untied) and gemma3 (hd 256, tied, local layers windowed),
+    reduced, unrolled and in scan mode."""
     tcfg, params, batch, want_loss, want_grads = dense_variant
+    if tcfg.sliding_window:
+        assert tcfg.global_interval == 2 and batch["tokens"].shape[1] > \
+            tcfg.sliding_window
     lm = _torch_lm(tcfg, params, impl)
     assert (lm.lm_head is None) == tcfg.tie_embeddings
     loss, _ = lm.loss(_to_torch(batch), (Action.REMAT,)

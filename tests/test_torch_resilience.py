@@ -28,6 +28,7 @@ from repro.models.lm import build_model
 from repro.models.registry import get_config as jax_get_config
 from repro.optim.adamw import AdamW as JaxAdamW
 from repro.train.resilience import FaultInjector as RefInjector
+from repro.train.resilience import OOMWatchdog as RefWatchdog
 from repro.train.resilience import SnapshotManager as RefSnapshots
 from repro.train.resilience import planner_state as ref_planner_state
 from repro.train.trainer import Trainer as JaxTrainer
@@ -561,6 +562,17 @@ def test_watchdog_escalation_ladder_and_recovery():
     assert tr.global_step == tr.data_cursor == 2
 
 
+def test_watchdog_on_escalation_matches_reference():
+    """``on_escalation`` books one escalation on the watchdog's view, as
+    the reference's does."""
+    wd, ref = OOMWatchdog(injector=FaultInjector(None)), RefWatchdog(
+        injector=RefInjector(None))
+    for w in (wd, ref):
+        w.on_escalation()
+        w.on_escalation()
+    assert wd.stats["escalations"] == ref.stats["escalations"] == 2
+
+
 def test_watchdog_poisons_plan_and_step_cache():
     lm = _lm()
     planner = MimosePlanner(lm, HBM, quantum=64, warmup_samples=1)
@@ -642,23 +654,157 @@ def test_oom_mid_backward_recovers_like_the_escalated_plan(one_thread):
     _assert_same(opt_state.m, st2.m)
 
 
-def test_oom_in_the_optimizer_update_is_not_retried(monkeypatch):
+class _UpdateFault:
+    """Raises a ``torch.OutOfMemoryError`` inside AdamW's update at the
+    ``nth`` parameter (in the params dict's order), after its new m and
+    v were allocated (at its ``torch.sqrt``), ``fires`` times."""
+
+    def __init__(self, monkeypatch, nth, fires=1):
+        self.nth, self.fires, self.fired, self.passes = nth, fires, 0, 0
+        self._base, self._n, self._in = 0, 0, False
+        real_sqrt, real_apply = torch.sqrt, AdamW.apply
+
+        def sqrt(x, *a, **kw):
+            if self._in:
+                self._n += 1
+                if (self._base + self._n - 1 == self.nth
+                        and self.fired < self.fires):
+                    self.fired += 1
+                    raise torch.OutOfMemoryError(
+                        "CUDA out of memory. Tried to allocate 2.00 MiB")
+            return real_sqrt(x, *a, **kw)
+
+        def apply(opt, cur, *a, **kw):
+            self._in, self._base, self._n = True, cur.done, 0
+            self.passes += 1
+            try:
+                return real_apply(opt, cur, *a, **kw)
+            finally:
+                self._in = False
+        monkeypatch.setattr(torch, "sqrt", sqrt)
+        monkeypatch.setattr(AdamW, "apply", apply)
+
+
+def _mimose_trainer(max_retries=3):
     lm = _lm()
     planner = MimosePlanner(lm, HBM, quantum=64, warmup_samples=1)
-    wd = OOMWatchdog(max_retries=3, injector=FaultInjector(None))
-    tr = Trainer(lm, planner, AdamW(), watchdog=wd)
-    calls = []
+    wd = OOMWatchdog(max_retries=max_retries, injector=FaultInjector(None))
+    return Trainer(lm, planner, AdamW(lr=1e-3), watchdog=wd)
 
-    def update(self, grads, state, params):
-        calls.append(1)
-        raise torch.OutOfMemoryError("CUDA out of memory in the update")
-    monkeypatch.setattr(AdamW, "update", update)
+
+@pytest.mark.parametrize("nth", [0, 5, -1])
+def test_oom_in_the_optimizer_update_resumes_bitwise(monkeypatch, one_thread,
+                                                     nth):
+    """An OOM at the nth parameter of the second step's update (after
+    the first nth were written) is booked and escalated as one in the
+    step, and the update resumes at that parameter: parameters and
+    moments bitwise those of the same two steps with no fault, one OOM,
+    one escalation, one retry success, the bucket's ladder at rung 1."""
+    batch = _batch(64, B=4)
+    clean = _mimose_trainer()
+    st = clean.optimizer.init(clean.params)
+    for _ in range(2):
+        st, _ = clean.step(st, batch)
+
+    tr = _mimose_trainer()
+    n_params = len(tr.params)
+    st_f = tr.optimizer.init(tr.params)
+    st_f, _ = tr.step(st_f, batch)
+    fault = _UpdateFault(monkeypatch, nth % n_params)
+    st_f, _ = tr.step(st_f, batch)
+    assert fault.fired == 1 and fault.passes == 2
+    _assert_same(_params(tr), _params(clean))
+    _assert_same(st_f.m, st.m)
+    _assert_same(st_f.v, st.v)
+    assert st_f.step == st.step == 2
+    wd, planner = tr.watchdog, tr.planner
+    assert wd.stats["oom_events"] == wd.stats["escalations"] == 1
+    assert wd.stats["retry_successes"] == 1
+    assert wd.stats["retry_failures"] == 0
+    key = planner.plan_key(tr._prepare(batch))
+    assert planner._escalation == {key: 1}
+    assert planner.cache[key].source == "escalated"
+    assert all(p.grad is None for p in tr.params.values())
+    assert tr.global_step == 2 and len(tr.history) == 2
+
+
+def test_oom_in_the_update_escalates_as_the_reference_step(monkeypatch):
+    """One OOM in a bucket leaves the port's ladder (an OOM in its
+    update) on the rung the reference's (an OOM in its jitted step,
+    whose update is inside) stands on, with the same counters."""
+    batch = _batch(64, B=4)
+    tr = _mimose_trainer()
+    _UpdateFault(monkeypatch, 2)
+    tr.step(tr.optimizer.init(tr.params), batch)
+
+    jlm = build_model(jax_get_config("bert_base_paper").reduced(**REDUCED))
+    ref_planner = RefMimose(jlm, HBM, quantum=64, warmup_samples=1)
+    bucket = ref_planner.bucket_key(batch)
+    ref_wd = RefWatchdog(max_retries=3,
+                         injector=RefInjector({"bucket": {bucket: 1}}))
+    jtr = JaxTrainer(jlm, ref_planner, JaxAdamW(lr=1e-3), watchdog=ref_wd)
+    params = jlm.init(jax.random.PRNGKey(0))
+    jtr.step(params, jtr.optimizer.init(params), batch)
+    assert list(ref_planner._escalation.values()) == list(
+        tr.planner._escalation.values()) == [1]
+    for k in ("oom_events", "escalations", "retry_successes",
+              "retry_failures"):
+        assert tr.watchdog.stats[k] == ref_wd.stats[k], k
+
+
+def test_persistent_oom_in_the_update_reraises(monkeypatch):
+    """An OOM at the same parameter on every pass counts against
+    ``max_retries`` and ends in one retry failure and the re-raise."""
+    tr = _mimose_trainer(max_retries=2)
+    fault = _UpdateFault(monkeypatch, 3, fires=100)
     with pytest.raises(torch.OutOfMemoryError):
         tr.step(tr.optimizer.init(tr.params), _batch(64, B=4))
-    assert calls == [1]                    # one attempt, no retry
-    assert wd.stats["oom_events"] == wd.stats["escalations"] == 0
-    assert wd.stats["retry_failures"] == 0
-    assert planner.stats["escalations"] == 0
+    wd = tr.watchdog
+    assert fault.passes == 3 == wd.stats["oom_events"]  # 1 + 2 retries
+    assert wd.stats["retry_failures"] == 1
+    assert wd.stats["retry_successes"] == 0
+    assert wd.stats["escalations"] == 2
+    assert tr.global_step == 0 and not tr.history
+
+
+class _RetryingFixedPlanner(FixedPlanner):
+    """A fixed plan whose ladder keeps the plan (for the parked
+    moments' resume)."""
+
+    def escalate(self, batch):
+        return True
+
+
+def test_oom_in_the_update_brings_parked_moments_home(monkeypatch,
+                                                      one_thread):
+    """With the last unit's moments parked (OFFLOAD_OPT), an OOM at its
+    first parameter's update leaves them parked; the resumed pass brings
+    them home parameter by parameter and parks them again: parameters
+    and moments bitwise the fault-free run's."""
+    acts = (Action.OFFLOAD, Action.OFFLOAD_OPT)
+    batches = _batches(3)
+
+    def fresh():
+        lm = _lm()
+        return Trainer(lm, _RetryingFixedPlanner(lm, acts), AdamW(lr=1e-3),
+                       watchdog=OOMWatchdog(max_retries=3,
+                                            injector=FaultInjector(None)))
+    clean = fresh()
+    st = clean.run(batches)
+    tr = fresh()
+    st_f = tr.run(batches[:2])
+    assert tr._parked == {1}
+    first_parked = next(i for i, n in enumerate(tr.params)
+                        if n in tr._unit_names[1])
+    fault = _UpdateFault(monkeypatch, first_parked)
+    st_f = tr.run(batches[2:], st_f)
+    assert fault.fired == 1 and tr._parked == {1}
+    assert tr.watchdog.stats["retry_successes"] == 1
+    _assert_same(_params(tr), _params(clean))
+    host = [n for n in tr._unit_names[1]]
+    assert all(not st_f.m[n].is_cuda for n in host)
+    _assert_same(st_f.m, st.m)
+    _assert_same(st_f.v, st.v)
 
 
 def test_engine_report_shows_resilience_counters():
@@ -811,3 +957,25 @@ def test_launcher_checkpoint_inject_and_resume(tmp_path, capsys):
     assert tr2.restores == 1 and tr2.global_step == 6 and not tr2.history
     with pytest.raises(SystemExit):
         launch_train.main(["--device", "cpu", "--reduced", "--resume"])
+
+
+def test_launcher_save_roundtrips_bitwise(tmp_path, capsys):
+    """``--save`` writes the final parameters; ``checkpoint.load`` reads
+    them back into a fresh model of the same configuration, bit for
+    bit."""
+    path = str(tmp_path / "final.pt")
+    tr = launch_train.main(["--device", "cpu", "--reduced", "--steps", "3",
+                            "--batch-size", "2", "--save", path])
+    assert f"saved {path}" in capsys.readouterr().out
+    fresh = LM(tr.lm.cfg, device="cpu", seed=7)
+    like = dict(fresh.named_parameters())
+    assert not all(torch.equal(like[n], p) for n, p in tr.params.items())
+    got = checkpoint.load(path, like)
+    assert set(got) == set(tr.params)
+    for n, p in tr.params.items():
+        assert torch.equal(got[n], p.detach()), n
+    with torch.no_grad():
+        for n, t in got.items():
+            like[n].copy_(t)
+    _assert_same({n: p.detach() for n, p in fresh.named_parameters()},
+                 _params(tr))
