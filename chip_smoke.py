@@ -11,7 +11,9 @@ Phases (each raises on failure; the script then exits non-zero):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` per source, all started together; log the flash instances'
    registers and stack (``cuobjdump -res-usage``), failing if a bf16
-   hd-80 or hd-256 instance uses local memory;
+   hd-80 or hd-256 instance uses local memory (bf16 dq and dk/dv at 256
+   are the wgmma kernels), and each instance's threads per CTA, dynamic
+   shared memory and registers;
 3. bert path: hold each flash kernel (the forward, dq and dk/dv kernels
    on the tensor cores, and the fp32 FMA kernels they replaced) against
    its plain PyTorch version on the card, and the tensor-core kernels
@@ -154,7 +156,8 @@ Phases (each raises on failure; the script then exits non-zero):
    ``Trainer.run``) 8 steps each under Mimose with launch counts read
    around them; profile, memory; the three kernels timed at the most
    common bucket beside their bound, plain versions and
-   ``scaled_dot_product_attention``;
+   ``scaled_dot_product_attention``, and dq + dk/dv beside the library's
+   backward;
 
 then prints the card line, one ``{"kernels": [...]}`` JSON line (no new
 kernel on the offload and resilience paths: they run K1-K3; K1-K3
@@ -2271,22 +2274,28 @@ def check_dma(ops, dma, logits_shape):
 
 # flash kernel instances whose resources are logged: (dtype, head dim)
 # -> kernels; bert's fp32 HD 64 and the bf16 HD 80 (stablelm) and HD 256
-# (gemma3) instances of the paths, which must use no local memory
+# (gemma3) instances of the paths, which must use no local memory (bf16
+# dq and dk/dv at 256 are the wgmma kernels)
 RESOURCE_INSTANCES = {
     ("float", 64): ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
                     "flash_bwd_dkv_tc_kernel", "flash_fwd_fma_kernel",
                     "flash_bwd_dq_fma_kernel", "flash_bwd_dkv_fma_kernel"),
     **{(dt, hd): ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
                   "flash_bwd_dkv_tc_kernel")
-       for dt in ("float", "__nv_bfloat16") for hd in (80, 256)}}
+       for dt, hd in (("float", 80), ("__nv_bfloat16", 80), ("float", 256))},
+    ("__nv_bfloat16", 256): ("flash_fwd_tc_kernel",
+                             "flash_bwd_dq_wgmma_kernel",
+                             "flash_bwd_dkv_wgmma_kernel")}
 NO_LOCAL_MEMORY = [("__nv_bfloat16", 80), ("__nv_bfloat16", 256)]
 
 
-def log_flash_resources(kb, lib):
+def log_flash_resources(kb, fa, lib):
     """Registers, stack and local (spilled) memory per thread of the flash
     kernel instances of ``RESOURCE_INSTANCES`` in the built library, as
     ``cuobjdump -res-usage`` reads them (their shared memory is dynamic,
-    so it shows as 0 there).  Raises if an instance of
+    so it shows as 0 there), then each instance's launch configuration
+    (threads per CTA, dynamic shared memory, registers and local memory
+    as the runtime reports them).  Raises if an instance of
     ``NO_LOCAL_MEMORY`` is missing or has a nonzero stack or local
     size."""
     import re
@@ -2310,6 +2319,11 @@ def log_flash_resources(kb, lib):
             if not sizes or any(sizes.values()):
                 raise AssertionError(f"{kernel}<{dt}, {hd}>: local memory "
                                      f"in use or not reported ({usage})")
+    dtypes = {"float": torch.float32, "__nv_bfloat16": torch.bfloat16}
+    for dt, hd in RESOURCE_INSTANCES:
+        for entry in FLASH_KERNELS:
+            log(f"launch config {entry} <{dt}, {hd}>: "
+                f"{fa.kernel_config(entry, hd, dtypes[dt])}")
 
 
 def _time_ms(fn, reps):
@@ -2454,6 +2468,10 @@ def time_flash_kernels(fa, kb, S, lens, H=12, hd=64, Hkv=None,
             f"{flops / 1e9:.3f} GFLOP at 989 TFLOP/s = {t_ops:.4f} ms, "
             f"{nbytes / 1e6:.2f} MB at 3.35 TB/s = {t_bytes:.4f} ms), "
             f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
+    bwd = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
+    log(f"timing backward {shape}: K2 + K3 {bwd:.4f} ms against the "
+        f"library backward (dq, dk, dv) {lib_ms['flash_bwd_dq']:.4f} ms, "
+        f"{bwd / lib_ms['flash_bwd_dq']:.3f}x")
     return out
 
 
@@ -3024,7 +3042,7 @@ def main() -> int:
     fa.library(), ssd.library(), dma.library()
     log(f"build: {[str(p.relative_to(ROOT)) for p in paths]} in "
         f"{time.perf_counter() - t0:.1f} s")
-    log_flash_resources(kb, paths[0])
+    log_flash_resources(kb, fa, paths[0])
     launches, errs, timings = {}, {}, {}
 
     # -- bert path: the flash kernels -------------------------------------

@@ -5,9 +5,9 @@ Each source ``csrc/<name>.cu`` has a plain C interface (every pointer
 and the stream as ``void*``, the launch's ``cudaError_t`` returned).  It
 is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/repro_torch/`` at the repository root, keyed by a hash of the
-source and the flags, and loaded with ``ctypes``.  ``build`` starts one
-``nvcc`` per source that is not built yet, all at once, and waits for
-them.
+source, the headers beside it (``csrc/*.cuh``) and the flags, and loaded
+with ``ctypes``.  ``build`` starts one ``nvcc`` per source that is not
+built yet, all at once, and waits for them.
 
 ``LAUNCHES`` counts each kernel's launches; a wrapper adds one right
 after its kernel launched, and nowhere else.
@@ -48,7 +48,11 @@ def nvcc() -> str:
 
 
 def library_path(src: Path) -> Path:
-    tag = hashlib.sha256(src.read_bytes()
+    """The library built from ``src``, keyed by its bytes, the headers
+    beside it (``*.cuh``, which a source may include) and the flags."""
+    parts = [src.read_bytes()]
+    parts += [h.read_bytes() for h in sorted(src.parent.glob("*.cuh"))]
+    tag = hashlib.sha256(b"".join(parts)
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}_{tag}.so"
 

@@ -5,10 +5,12 @@
 //   flash_fwd_tc_kernel      <- _flash_kernel          (C entry flash_fwd)
 //   flash_bwd_dq_tc_kernel   <- _flash_bwd_dq_kernel   (C entry flash_bwd_dq)
 //   flash_bwd_dkv_tc_kernel  <- _flash_bwd_dkv_kernel  (C entry flash_bwd_dkv)
-// and keeps the first fp32 FMA version of each (flash_fwd_fma_kernel,
-// flash_bwd_dq_fma_kernel, flash_bwd_dkv_fma_kernel; C entries
-// flash_fwd_fma, flash_bwd_dq_fma, flash_bwd_dkv_fma) as a second fp32
-// witness.
+// with bf16 dq and dk/dv at head dim 256 on Hopper's wgmma and TMA
+// (flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel, in
+// flash_bwd_wgmma.cuh), and keeps the first fp32 FMA version of each
+// (flash_fwd_fma_kernel, flash_bwd_dq_fma_kernel, flash_bwd_dkv_fma_kernel;
+// C entries flash_fwd_fma, flash_bwd_dq_fma, flash_bwd_dkv_fma) as a
+// second fp32 witness.
 //
 // Layout: q, o, do (B, H, S, HD); k, v, dk, dv (B, Hkv, S, HD); lse, delta
 // (B, H, S) fp32; kv_len (B,) int32.  All row-major and contiguous.  GQA:
@@ -68,16 +70,35 @@
 // - Head dims 16, 32, 64, 80 (5 k-steps of 16), 128 and 256.  At HD 256
 //   a warp's 16 rows of every output column (128 fp32 registers a
 //   thread; dk/dv holds two such) and the operand tiles (fp32: 270 KB
-//   for dq's or dk/dv's four) do not fit, so each tile is split over two
-//   CTAs that each write 128 output columns and recompute the scores
-//   over all 256 (four CTAs of 64 columns for dk/dv and fp32 dq); the
-//   operands fixed over a CTA's loop (the forward's q, dq's q and do,
-//   dk/dv's k and v) are read per k-step from global memory, where L1
-//   and L2 hold them; and a streamed tile is staged by
-//   cp.async only where it fits beside the operand tiles (bf16; fp32 dq
-//   and dk/dv split it straight from global memory).  The score sums
-//   keep their order over the 16 k-steps, so the padded-equals-unpadded
-//   property holds at every head dim.
+//   for dq's or dk/dv's four) do not fit, so the forward and the fp32 dq
+//   and dk/dv kernels split each tile over CTAs that each write 128
+//   output columns (the forward) or 64 (fp32 dq and dk/dv) and recompute
+//   the scores over all 256; the operands fixed over a CTA's loop (the
+//   forward's q, dq's q and do, dk/dv's k and v) are read per k-step from
+//   global memory, where L1 and L2 hold them; and the forward's streamed
+//   tile is staged by cp.async (fp32 dq and dk/dv split it straight from
+//   global memory).  The score sums keep their order over the 16
+//   k-steps, so the padded-equals-unpadded property holds at every head
+//   dim.
+// - bf16 dq and dk/dv at HD 256 (gemma3's backward) are the Hopper kernels
+//   of flash_bwd_wgmma.cuh (flash_bwd_dq_wgmma_kernel,
+//   flash_bwd_dkv_wgmma_kernel; the same TPU kernels, _flash_bwd_dq_kernel
+//   and _flash_bwd_dkv_kernel).  At gemma3's shape (B 8, S 448, 16 / 8
+//   heads, causal, squad lengths) each must move 105 MB, 0.0314 ms at
+//   3.35 TB/s, against 13.1 and 17.4 GFLOP, 0.013 and 0.018 ms at the
+//   bf16 rate: the bytes bound both.  The split design above reached 12x
+//   and 33x that bound, computing each tile's scores 2 and 4 times and
+//   re-reading operands from global memory per k-step.  Here one CTA of
+//   two warpgroups owns a 64-row tile and all 256 output columns: the
+//   scores are computed once, on wgmma (m64nNk16) from shared-memory
+//   operands that TMA copies in once per CTA (the tile's own k and v,
+//   or q and do) or per item through a two-stage ring (q and do, or k
+//   and v), with 128-byte swizzle; p and ds feed their products from
+//   registers.  One warpgroup computes s (and p), the other dp (and
+//   ds); p crosses between them in shared memory as fp32, so the
+//   arithmetic is the split design's.  Each output has one owner (dv,
+//   dk; or half of dq's columns), the GQA group and the tiles are summed
+//   in the same fixed order, and there are no atomics.
 // - Masks are applied only on tiles that are not wholly visible (the
 //   causal diagonal, the kv_len edge, the window's edge).  On the causal
 //   diagonal a warp skips the 16-key (forward, dq) or 16-query (dk/dv)
@@ -86,10 +107,14 @@
 //   grid's slowest axis walks the forward's and dq's q-tiles from the
 //   last and the dk/dv kernel's key tiles from the first, so the short
 //   tail of diagonal-only tiles runs last.
-// - Costs they keep: three products per pair of operands; few CTAs of
-//   4 warps per SM (the dk/dv kernel's 107.5 KB of shared memory at HD
-//   64 allows 2), likely too few to hide the products' latency.
-//   chip_smoke.py logs each kernel's registers and shared memory.
+// - Costs they keep: three products per pair of operands (fp32); few
+//   CTAs of 4 warps per SM (the dk/dv kernel's 107.5 KB of shared memory
+//   at HD 64 allows 2), likely too few to hide the products' latency;
+//   the HD-256 split of the forward and fp32 backward recomputes the
+//   scores.  The wgmma kernels keep one CTA of 8 warps per SM (214 KB
+//   and 222 KB of shared memory), each warpgroup waiting on its own
+//   products, and diagonal tiles computed whole.  chip_smoke.py logs
+//   each kernel's registers, shared memory and threads.
 
 // The FMA kernels compute in fp32 on the CUDA cores: one CTA of 256
 // threads per (b, h, 64-row tile); the other side's 64-row tiles stream
@@ -101,6 +126,8 @@
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
+#include <cuda.h>            // CUtensorMap and its enums only; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -550,11 +577,26 @@ struct Args {
   int B, H, Hkv, S, causal, window;
   float scale;
   cudaStream_t stream;
+  int* info;   // set: describe the kernel (describe) instead of launching it
 };
 
 template <typename Kern>
 cudaError_t prepare(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// threads per CTA, dynamic shared memory, registers and local memory a
+// thread, into info[0..3]
+template <typename Kern>
+cudaError_t describe(Kern kern, int threads, size_t smem, int* info) {
+  cudaFuncAttributes at;
+  const cudaError_t e = cudaFuncGetAttributes(&at, kern);
+  if (e != cudaSuccess) return e;
+  info[0] = threads;
+  info[1] = (int)smem;
+  info[2] = at.numRegs;
+  info[3] = (int)at.localSizeBytes;
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -760,12 +802,13 @@ constexpr size_t SMEM_MAX = 232448;
 // Above HD 128 (HD 256) a thread cannot hold a warp's 16 rows of every
 // output column and what the scores need beside them: each (b, h, tile)
 // is split over NSPLIT = HD / HO CTAs, each of which recomputes the
-// scores over all of HD and writes HO output columns (128 in the forward
-// and bf16 dq; 64 in fp32 dq and in dk/dv, which holds two
-// accumulators), and the operands that stay fixed over the loop (the
-// forward's q, dq's q and do, dk/dv's k and v) are read per k-step from
-// global memory (L1 and L2 hold them) instead of registers or operand
-// tiles.  Up to HD 128, NSPLIT = 1 and HO = HD.
+// scores over all of HD and writes HO output columns (128 in the forward;
+// 64 in fp32 dq and in fp32 dk/dv, which holds two accumulators), and
+// the operands that stay fixed over the loop (the forward's q, dq's q and
+// do, dk/dv's k and v) are read per k-step from global memory (L1 and L2
+// hold them) instead of registers or operand tiles.  Up to HD 128,
+// NSPLIT = 1 and HO = HD.  bf16 dq and dk/dv at HD 256 are the wgmma
+// kernels (flash_bwd_wgmma.cuh), which split nothing.
 template <typename T, int HD> struct FwdLayout {
   static constexpr bool SPLIT = sizeof(T) == 4;
   static constexpr int HO = HD > 128 ? 128 : HD;              // o columns per CTA
@@ -943,6 +986,8 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// dk/dv on mma.sync: every head dim in fp32, and up to 128 in bf16 (bf16
+// at 256 is flash_bwd_dkv_wgmma_kernel)
 template <typename T, int HD> struct DkvLayout {
   static constexpr bool SPLIT = sizeof(T) == 4;
   static constexpr int HO = HD > 128 ? 64 : HD;               // dk, dv columns per CTA
@@ -1153,9 +1198,11 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// dq on mma.sync: every head dim in fp32, and up to 128 in bf16 (bf16 at
+// 256 is flash_bwd_dq_wgmma_kernel)
 template <typename T, int HD> struct DqLayout {
   static constexpr bool SPLIT = sizeof(T) == 4;
-  static constexpr int HO = HD <= 128 ? HD : SPLIT ? 64 : 128;  // dq columns per CTA
+  static constexpr int HO = HD <= 128 ? HD : 64;              // dq columns per CTA
   static constexpr int NSPLIT = HD / HO;
   static constexpr bool QREG = HD <= 64;                      // q, do in registers
   static constexpr bool QGLOBAL = HD > 128;                   // q, do read from global
@@ -1359,6 +1406,7 @@ cudaError_t run_fwd(const Args& a) {
   auto kern = flash_fwd_tc_kernel<T, HD>;
   cudaError_t e = prepare(kern, L::SMEM);
   if (e != cudaSuccess) return e;
+  if (a.info) return describe(kern, TPB, L::SMEM, a.info);
   dim3 grid(a.H * L::NSPLIT, a.B, (a.S + BQ - 1) / BQ);
   kern<<<grid, TPB, L::SMEM, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const int*)a.kv_len,
@@ -1372,6 +1420,7 @@ cudaError_t run_dkv(const Args& a) {
   auto kern = flash_bwd_dkv_tc_kernel<T, HD>;
   cudaError_t e = prepare(kern, L::SMEM);
   if (e != cudaSuccess) return e;
+  if (a.info) return describe(kern, TPB, L::SMEM, a.info);
   dim3 grid(a.Hkv * L::NSPLIT, a.B, (a.S + BK - 1) / BK);
   kern<<<grid, TPB, L::SMEM, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
@@ -1386,6 +1435,7 @@ cudaError_t run_dq(const Args& a) {
   auto kern = flash_bwd_dq_tc_kernel<T, HD>;
   cudaError_t e = prepare(kern, L::SMEM);
   if (e != cudaSuccess) return e;
+  if (a.info) return describe(kern, TPB, L::SMEM, a.info);
   dim3 grid(a.H * L::NSPLIT, a.B, (a.S + BQ - 1) / BQ);
   kern<<<grid, TPB, L::SMEM, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
@@ -1395,6 +1445,8 @@ cudaError_t run_dq(const Args& a) {
 }
 
 }  // namespace tc
+
+#include "flash_bwd_wgmma.cuh"
 
 // the FMA kernels
 template <typename T, int HD>
@@ -1436,15 +1488,21 @@ cudaError_t run_dkv(const Args& a) {
 }
 
 // which kernel: 0 forward, 1 dq, 2 dk/dv on the tensor cores (every head
-// dim of run_hd); 3 forward, 4 dk/dv, 5 dq on the CUDA cores (head dims
-// 16, 32, 64, 128 only: no FMA case is built at 80 or 256)
+// dim of run_hd; dq and dk/dv in bf16 at 256 on wgmma); 3 forward, 4
+// dk/dv, 5 dq on the CUDA cores (head dims 16, 32, 64, 128 only: no FMA
+// case is built at 80 or 256)
 template <typename T, int HD>
 cudaError_t run(int which, const Args& a) {
   constexpr bool FMA = HD == 16 || HD == 32 || HD == 64 || HD == 128;
+  constexpr bool WGMMA = std::is_same<T, __nv_bfloat16>::value && HD == 256;
   switch (which) {
     case 0: return tc::run_fwd<T, HD>(a);
-    case 1: return tc::run_dq<T, HD>(a);
-    case 2: return tc::run_dkv<T, HD>(a);
+    case 1:
+      if constexpr (WGMMA) return wg::run_dq(a);
+      else return tc::run_dq<T, HD>(a);
+    case 2:
+      if constexpr (WGMMA) return wg::run_dkv(a);
+      else return tc::run_dkv<T, HD>(a);
     default: break;
   }
   if constexpr (FMA) {
@@ -1492,9 +1550,10 @@ int dispatch(int which, int hd, int dtype, const Args& a) {
 // Each returns the cudaError_t of the launch (0 = launched;
 // cudaErrorInvalidValue, launching nothing, for a case it does not take).
 // flash_fwd, flash_bwd_dq and flash_bwd_dkv run the tensor-core kernels
-// and take every head dim 16, 32, 64, 80, 128, 256 with 16-byte aligned
-// tensors; flash_fwd_fma, flash_bwd_dq_fma and flash_bwd_dkv_fma the fp32
-// FMA kernels of the same functions, at head dims 16, 32, 64, 128.
+// (bf16 dq and dk/dv at 256: the wgmma kernels) and take every head dim
+// 16, 32, 64, 80, 128, 256 with 16-byte aligned tensors; flash_fwd_fma,
+// flash_bwd_dq_fma and flash_bwd_dkv_fma the fp32 FMA kernels of the same
+// functions, at head dims 16, 32, 64, 128.
 
 namespace {
 
@@ -1571,6 +1630,19 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int causal, int window, float scale, int dtype, void* stream) {
   return dkv_entry(2, q, k, v, dout, lse, delta, kv_len, dk, dv, B, H, Hkv, S, hd, causal,
                    window, scale, dtype, stream);
+}
+
+// The launch configuration of the kernel that flash_fwd (which 0),
+// flash_bwd_dq (1) or flash_bwd_dkv (2) runs at this head dim and dtype:
+// threads per CTA, dynamic shared memory in bytes, registers and local
+// memory a thread, into info[0..3].  Launches nothing.
+extern "C" int flash_kernel_config(int which, int hd, int dtype, int* info) {
+  if (which < 0 || which > 2 || info == nullptr) return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.info = info;
+  if (dtype == 0) return (int)run_hd<float>(which, hd, a);
+  if (dtype == 1) return (int)run_hd<__nv_bfloat16>(which, hd, a);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_bwd_dkv_fma(const void* q, const void* k, const void* v,

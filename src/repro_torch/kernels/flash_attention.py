@@ -24,7 +24,10 @@ Which kernel: the forward, dq and dk/dv kernels on the tensor cores
 (bf16 hi/lo products, ``csrc/flash_attention.cu``) take every case these
 wrappers take -- fp32 and bf16, head dims ``HEAD_DIMS``, GQA, causal or
 not, window, ragged -- and ``flash_bwd`` and ``FlashAttention`` launch
-them.  The fp32 FMA kernels they replaced are reached only through
+them; bf16 dq and dk/dv at head dim 256 run on Hopper's ``wgmma`` and
+TMA (``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``,
+``csrc/flash_bwd_wgmma.cuh``) behind the same entry points and counts.
+The fp32 FMA kernels they replaced are reached only through
 their own entry points ``flash_fwd_fma``, ``flash_bwd_dq_fma`` and
 ``flash_bwd_dkv_fma`` (a second fp32 witness on the card), at the head
 dims ``FMA_HEAD_DIMS`` only.  Each kernel
@@ -79,9 +82,24 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         tail = [i] * 7 + [ctypes.c_float, i, p]
-        _lib = build.load(_SRC, {name: [p] * n_ptrs + tail
-                                 for name, n_ptrs in _ENTRY_POINTS.items()})
+        sigs = {name: [p] * n_ptrs + tail
+                for name, n_ptrs in _ENTRY_POINTS.items()}
+        sigs["flash_kernel_config"] = [i, i, i, ctypes.POINTER(i)]
+        _lib = build.load(_SRC, sigs)
     return _lib
+
+
+def kernel_config(entry: str, hd: int, dtype: torch.dtype) -> dict:
+    """The launch configuration of the kernel that ``entry``
+    (``flash_fwd``, ``flash_bwd_dq`` or ``flash_bwd_dkv``) runs at head
+    dim ``hd`` in ``dtype``: threads per CTA, dynamic shared memory in
+    bytes, registers and local memory a thread.  Launches nothing."""
+    which = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv").index(entry)
+    info = (ctypes.c_int * 4)()
+    build.raise_on(library().flash_kernel_config(which, hd,
+                                                 _DTYPE_CODE[dtype], info),
+                   "flash_kernel_config")
+    return dict(zip(("threads", "smem", "regs", "local"), info))
 
 
 def _stream_handle(device) -> int:

@@ -2,9 +2,16 @@
 CPU, and the dispatch between them and the FMA kernels they replaced.
 The tensor-core kernels take head dims 16, 32, 64, 80, 128 and 256
 (``fa.HEAD_DIMS``), the FMA kernels 16, 32, 64 and 128
-(``fa.FMA_HEAD_DIMS``).  At 256 a kernel splits each tile's output
-columns over several CTAs that each recompute the scores; that changes
-no sum's order, so the emulation below stands for every head dim.
+(``fa.FMA_HEAD_DIMS``).  At 256 the forward, and dq and dk/dv in fp32,
+split each tile's output columns over several CTAs that each recompute
+the scores.  dq and dk/dv in bf16 at 256 run on ``wgmma``
+(``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``): one CTA
+of two warpgroups owns a tile's 256 output columns and computes its
+scores once; p passes between the warpgroups in fp32, and ds as the bf16
+operand it is rounded to once.  Neither design changes which values are
+rounded where or what each tile sums, so the emulation below stands for
+every head dim; ``WGMMA_CASES`` hold the wgmma kernels' arithmetic on
+``chip_smoke.py``'s hd-256 shapes.
 
 ``csrc/flash_attention.cu``'s forward (``flash_fwd_tc_kernel``), dq
 kernel (``flash_bwd_dq_tc_kernel``) and dk/dv kernel
@@ -78,7 +85,16 @@ WIDE_CASES = [
     (2, 128, 4, 1, 256, True, 64, "float32", "drawn"),
     (2, 160, 4, 2, 256, True, 64, "bfloat16", [100, 160]),
 ]
-TC_CASES = FLASH_CASES + RAGGED_CASES + [MAIN_HEAD] + WIDE_CASES
+# bf16 at head dim 256 (the wgmma dq and dk/dv kernels) on the four shapes
+# chip_smoke.py checks there: GQA groups 2, 1, 1 and 4, windows 32 and 64,
+# non-causal, ragged
+WGMMA_CASES = [
+    (2, 160, 4, 2, 256, True, 0, "bfloat16", "drawn"),
+    (2, 96, 4, 4, 256, True, 32, "bfloat16", "drawn"),
+    (1, 128, 2, 2, 256, False, 0, "bfloat16", None),
+    (2, 200, 4, 1, 256, True, 64, "bfloat16", "drawn"),
+]
+TC_CASES = FLASH_CASES + RAGGED_CASES + [MAIN_HEAD] + WIDE_CASES + WGMMA_CASES
 
 # chip_smoke.py's TOL: (rtol, atol)
 TOL = {"float32": {"fwd": (2e-4, 2e-5), "bwd": (2e-3, 2e-4)},
@@ -450,6 +466,25 @@ def test_flash_entry_launches_its_kernel_and_count(fake_lib, name, hd, dtype):
     assert _count_changes(before) == {c_name: 1}
     for t in (out if isinstance(out, tuple) else (out,)):
         assert torch.isnan(t.as_subclass(torch.Tensor).float()).all()
+
+
+@pytest.mark.parametrize("entry,which", [("flash_fwd", 0), ("flash_bwd_dq", 1),
+                                         ("flash_bwd_dkv", 2)])
+def test_kernel_config_asks_for_the_entry_points_kernel(fake_lib, entry,
+                                                         which):
+    """``kernel_config`` asks the library for the launch configuration of
+    the kernel an entry point runs (its index, the head dim, the dtype
+    code), launches nothing, and raises when the library refuses."""
+    lib = fake_lib(0)
+    before = dict(ops.LAUNCHES)
+    got = fa.kernel_config(entry, 256, torch.bfloat16)
+    assert [c[0] for c in lib.calls] == ["flash_kernel_config"]
+    assert lib.calls[0][1][:3] == (which, 256, 1)
+    assert got == {"threads": 0, "smem": 0, "regs": 0, "local": 0}
+    assert ops.LAUNCHES == before
+    fake_lib(1)
+    with pytest.raises(RuntimeError, match="flash_kernel_config"):
+        fa.kernel_config(entry, 256, torch.bfloat16)
 
 
 @pytest.mark.parametrize("hd", [80, 256])

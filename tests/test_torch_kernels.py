@@ -961,3 +961,21 @@ def test_build_compiles_each_source_once_and_raises_on_failure(
     with pytest.raises(RuntimeError, match="(?s)nvcc failed.*bad source"):
         build.build(srcs[0], bad)
     assert not build.library_path(bad).exists()
+
+
+def test_library_path_follows_the_headers_beside_the_source(tmp_path):
+    """A source may include a ``.cuh`` beside it: the library's key
+    covers those headers, so a changed header is rebuilt, never loaded
+    stale."""
+    from repro_torch.kernels import build
+    src = tmp_path / "k.cu"
+    src.write_text('#include "k_part.cuh"\n')
+    header = tmp_path / "k_part.cuh"
+    header.write_text("// one\n")
+    first = build.library_path(src)
+    assert build.library_path(src) == first
+    header.write_text("// two\n")
+    second = build.library_path(src)
+    assert second != first
+    header.unlink()
+    assert build.library_path(src) not in (first, second)
