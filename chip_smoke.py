@@ -11,9 +11,12 @@ Phases (each raises on failure; the script then exits non-zero):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` per source, all started together; log the flash instances'
    registers and stack (``cuobjdump -res-usage``), failing if a bf16
-   hd-80 or hd-256 instance uses local memory (bf16 dq and dk/dv at 256
-   are the wgmma kernels), and each instance's threads per CTA, dynamic
-   shared memory and registers;
+   hd-80 or hd-256 instance uses local memory (bf16 at 256 runs the
+   wgmma kernels: the forward, dq and dk/dv), and each instance's
+   threads per CTA (failing where it is not the kernel's: 256 for the
+   wgmma kernels, 128 for the others), dynamic shared memory and
+   registers; then the SSD tensor-core instances' registers and stack
+   (failing on a stack or local size);
 3. bert path: hold each flash kernel (the forward, dq and dk/dv kernels
    on the tensor cores, and the fp32 FMA kernels they replaced) against
    its plain PyTorch version on the card, and the tensor-core kernels
@@ -104,12 +107,14 @@ Phases (each raises on failure; the script then exits non-zero):
    layers, through the kernels against the plain path, and each layer's
    mixer likewise beside two controls that must fail the same check (the
    wrong kv head; the SSD half skipped); K4 at hymba's SSD shape
-   (bf16, P = 50, N = 16: the FMA kernel) against its plain version,
-   timed beside its bound; then full-width, full-depth ``hymba_1p5b``
-   (32 layers, bf16, scan mode: 8 units of 7 local layers and 1 global)
-   trains 8 steps under Mimose with ``--attn-impl flash``, launch counts
-   read around it: K1 and K4 = sum k (32 + recomputed layers), K2 = K3 =
-   sum 32 k;
+   (bf16, P = 50, N = 16: the tensor-core kernel) against its plain
+   version and, in bf16 ulps, against the FMA kernel (the hi/lo split),
+   timed in turns with the FMA kernel beside its bound; then
+   full-width, full-depth ``hymba_1p5b`` (32 layers, bf16, scan mode: 8
+   units of 7 local layers and 1 global) trains 8 steps under Mimose
+   with ``--attn-impl flash``, launch counts read around it: K1 and K4
+   (``ssd_scan``, tensor cores) = sum k (32 + recomputed layers), no
+   ``ssd_scan_fma`` launch, K2 = K3 = sum 32 k;
 9. granite path: K1-K3 at each bucket shape (16 / 8 heads, bf16); one
    loss of ``granite_moe_1b_a400m`` at full width, 2 layers, and each
    layer's attention against the plain path, beside the wrong-kv-head
@@ -149,8 +154,9 @@ Phases (each raises on failure; the script then exits non-zero):
 13. stablelm and gemma3 paths (head dims 80 and 256; ``run_wide_path``):
    K1-K3 at each bucket in the path's bf16 and in fp32 (stablelm 32 x
    80; gemma3 16 / 8 x 256, window 1024 and 0, and a case at S = 2048
-   that the window reaches); bitwise padded versus unpadded at the
-   path's head dim, fp32 and bf16; the 2-layer checks beside the
+   that the window reaches); a bf16 batch at the path's heads with a
+   row of length 0; bitwise padded versus unpadded at the path's heads
+   and head dim, fp32 and bf16; the 2-layer checks beside the
    wrong-kv-head control; full-width ``stablelm_3b`` (32 layers,
    through the launcher) and ``gemma3_12b`` (12 of 48 layers, through
    ``Trainer.run``) 8 steps each under Mimose with launch counts read
@@ -165,10 +171,11 @@ launches are the bert, resilience, hymba, granite, seamless, qwen2-vl,
 stablelm and gemma3 paths', with each bf16 family's
 ``<family>_max_abs_err`` beside the maximum and the stablelm and gemma3
 instances' launches, ms, plain, bound and library ms as
-``<family>_<key>``; K4's are the mamba2 path's
-tensor-core kernel's, with the hymba path's FMA launches as
-``hymba_launches``), and, as the last line, ``{"ok": true, "device":
-{...}}``.  Exits non-zero without
+``<family>_<key>``; K4's are the mamba2 and hymba paths' launches of
+the tensor-core kernel, with the hymba path's part as
+``hymba_launches`` and its instance's times as ``hymba_<key>``, the FMA
+kernel's in turns as ``hymba_fma_ms``), and, as the last line,
+``{"ok": true, "device": {...}}``.  Exits non-zero without
 a CUDA device, and when the repository's ``src/`` is not beside it.
 """
 from __future__ import annotations
@@ -307,6 +314,9 @@ REFERENCE_CASES = [
       for B, S, H, Hkv, causal, window, ragged in (
           (2, 160, 4, 2, True, 0, True), (2, 96, 4, 4, True, 32, True),
           (1, 128, 2, 2, False, 0, False), (2, 200, 4, 1, True, 64, True))],
+    # an odd GQA group at 256: the wgmma forward's last pair of query
+    # heads has one head
+    (2, 160, 6, 2, 256, True, 0, "bfloat16", True),
 ]
 # |kernel - plain| <= atol + rtol * |plain|: fp32 sums in another order
 # (forward), the exp(s - lse) recombination (backward), one bf16
@@ -453,15 +463,18 @@ def check_case(fa, ops, case, lens=None, seed=0):
     return errs
 
 
-def check_flash_bitwise(fa, B, S, H, hd, L, seed=2, dtype="float32"):
+def check_flash_bitwise(fa, B, S, H, hd, L, seed=2, dtype="float32",
+                        Hkv=None):
     """Padded with ``kv_len = L`` against the unpadded call at length L,
     on the valid rows, bit for bit, for the forward (o, lse), dq and
     dk/dv kernels (tests/test_ragged.py::
     test_flash_ragged_bitwise_matches_unpadded_kernel, there for the
-    forward): masking changes nothing but trip counts."""
+    forward): masking changes nothing but trip counts.  k and v have
+    ``Hkv`` heads (default ``H``)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn((B, H, S, hd), generator=gen, device="cuda")
-                   .to(getattr(torch, dtype)) for _ in range(4))
+    q, k, v, do = (torch.randn((B, heads, S, hd), generator=gen,
+                               device="cuda").to(getattr(torch, dtype))
+                   for heads in (H, Hkv or H, Hkv or H, H))
     kvl = torch.full((B,), L, dtype=torch.int32, device="cuda")
     out = {}
     for name, ins, lens in (("padded", (q, k, v, do), kvl),
@@ -478,8 +491,10 @@ def check_flash_bitwise(fa, B, S, H, hd, L, seed=2, dtype="float32"):
         if not torch.equal(a[:, :, :L], b):
             raise AssertionError(f"flash {part}: padded with kv_len={L} "
                                  f"differs bitwise from the unpadded call "
-                                 f"(B={B} S={S} H={H} hd={hd})")
-    log(f"flash bitwise check (B={B} S={S} H={H} hd={hd} {dtype} causal, "
+                                 f"(B={B} S={S} H={H} Hkv={Hkv or H} "
+                                 f"hd={hd})")
+    log(f"flash bitwise check (B={B} S={S} H={H} Hkv={Hkv or H} hd={hd} "
+        f"{dtype} causal, "
         f"L={L}): padded with kv_len == unpadded for o, lse, dq, dk, dv, "
         f"bit for bit")
 
@@ -713,10 +728,10 @@ def check_main_path(trainer, launches):
     elif lm.kind == "hybrid":
         checks.update(flash)
         checks.update({
-            f"ssd_scan_fma (P = {lm.cfg.ssm_head_dim}) = sum k ({L} + "
-            f"recomputed layers)": launches["ssd_scan_fma"] == fwd,
-            "no tensor-core ssd or dma launches": all(
-                launches[k] == 0 for k in ("ssd_scan", "dma_copy")),
+            f"ssd_scan (tensor cores, P = {lm.cfg.ssm_head_dim}) = sum k "
+            f"({L} + recomputed layers)": launches["ssd_scan"] == fwd,
+            "no FMA ssd or dma launches": all(
+                launches[k] == 0 for k in ("ssd_scan_fma", "dma_copy")),
         })
     else:
         checks.update(flash)
@@ -999,16 +1014,17 @@ def check_microbatch_equivalence(lm, batch, quantum):
     return out
 
 
-def check_empty_row(fa, ops, S):
-    """K1-K3 (each on the tensor cores and on its FMA kernel) at the
-    main width on a batch with a row of length 0, the pad row of a
-    non-divisor split: ``check_case`` holds every kernel against its
-    plain version on the valid rows and requires that row's o, dq, dk
-    and dv to be exactly 0 and its lse finite."""
+def check_empty_row(fa, ops, S, H=12, Hkv=12, hd=64, dtype="float32"):
+    """K1-K3 (each on the tensor cores and, at the FMA kernels' head
+    dims, on its FMA kernel) on a batch with a row of length 0, the pad
+    row of a non-divisor split: ``check_case`` holds every kernel against
+    its plain version on the valid rows and requires that row's o, dq,
+    dk and dv to be exactly 0 and its lse finite."""
     lens = [S, S // 2, 0]
-    errs = check_case(fa, ops, (3, S, 12, 12, 64, True, 0, "float32", True),
+    errs = check_case(fa, ops, (3, S, H, Hkv, hd, True, 0, dtype, True),
                       lens)
-    log(f"empty-row check (B=3 S={S} H=12 hd=64 fp32, lens {lens}): the "
+    log(f"empty-row check (B=3 S={S} H={H} Hkv={Hkv} hd={hd} {dtype}, "
+        f"lens {lens}): the "
         f"row of length 0 has o, dq, dk, dv exactly 0 and a finite lse in "
         f"every kernel; max abs error against the plain versions "
         + " ".join(f"{n}={e:.3e}" for n, e in errs.items()))
@@ -2186,6 +2202,7 @@ def check_ssd(ops, ssd, cases):
     _ssd_split_check(ssd, *split_case)
     _ssd_bitwise(ops, 1, 96, 2, 16, 8, 16, "float32", 32, "ssd_scan_fma")
     _ssd_bitwise(ops, 2, 448, 8, 64, 128, 64, "bfloat16", 300, "ssd_scan")
+    _ssd_bitwise(ops, 2, 448, 8, 50, 16, 64, "bfloat16", 300, "ssd_scan")
     # SSDScan's gradient against autograd through the plain version
     x, dt, A, Bm, Cm = _ssd_inputs(2, 96, 4, 16, 8, "float32", seed=2)
     lens = torch.tensor([50, 96], dtype=torch.int32, device="cuda")
@@ -2275,7 +2292,7 @@ def check_dma(ops, dma, logits_shape):
 # flash kernel instances whose resources are logged: (dtype, head dim)
 # -> kernels; bert's fp32 HD 64 and the bf16 HD 80 (stablelm) and HD 256
 # (gemma3) instances of the paths, which must use no local memory (bf16
-# dq and dk/dv at 256 are the wgmma kernels)
+# at 256 runs the wgmma kernels)
 RESOURCE_INSTANCES = {
     ("float", 64): ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
                     "flash_bwd_dkv_tc_kernel", "flash_fwd_fma_kernel",
@@ -2283,10 +2300,12 @@ RESOURCE_INSTANCES = {
     **{(dt, hd): ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
                   "flash_bwd_dkv_tc_kernel")
        for dt, hd in (("float", 80), ("__nv_bfloat16", 80), ("float", 256))},
-    ("__nv_bfloat16", 256): ("flash_fwd_tc_kernel",
+    ("__nv_bfloat16", 256): ("flash_fwd_wgmma_kernel",
                              "flash_bwd_dq_wgmma_kernel",
                              "flash_bwd_dkv_wgmma_kernel")}
 NO_LOCAL_MEMORY = [("__nv_bfloat16", 80), ("__nv_bfloat16", 256)]
+# the SSD tensor-core kernel's instances, (P, N): mamba2's and hymba's
+SSD_TC_INSTANCES = [(64, 128), (50, 16)]
 
 
 def log_flash_resources(kb, fa, lib):
@@ -2322,8 +2341,35 @@ def log_flash_resources(kb, fa, lib):
     dtypes = {"float": torch.float32, "__nv_bfloat16": torch.bfloat16}
     for dt, hd in RESOURCE_INSTANCES:
         for entry in FLASH_KERNELS:
+            # kernel_config raises where the threads are not the kernel's
             log(f"launch config {entry} <{dt}, {hd}>: "
                 f"{fa.kernel_config(entry, hd, dtypes[dt])}")
+
+
+def log_ssd_resources(kb, lib):
+    """Registers and stack per thread of the SSD tensor-core kernel's
+    instances (``SSD_TC_INSTANCES``, each with fp32 and bf16 dt) in the
+    built library, as ``cuobjdump -res-usage`` reads them; raises if an
+    instance is missing or has a nonzero stack or local size."""
+    import re
+    exe = Path(kb.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(exe), "-res-usage", str(lib)],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.splitlines()
+    for P, N in SSD_TC_INSTANCES:
+        for dt, mangled in (("float", "f"), ("__nv_bfloat16", "13__nv_bfloat16")):
+            tag = f"ssd_scan_tc_kernelILi{P}ELi{N}E{mangled}E"
+            found = [u.strip() for name, u in zip(out, out[1:]) if tag in name]
+            if not found:
+                raise AssertionError(f"ssd_scan_tc_kernel<{P}, {N}, {dt}> is "
+                                     f"not in {lib.name}")
+            log(f"resources ssd_scan_tc_kernel<{P}, {N}, {dt}>: {found[0]}")
+            sizes = {k: int(v) for k, v in re.findall(r"(STACK|LOCAL):(\d+)",
+                                                      found[0])}
+            if not sizes or any(sizes.values()):
+                raise AssertionError(f"ssd_scan_tc_kernel<{P}, {N}, {dt}>: "
+                                     f"local memory in use or not reported "
+                                     f"({found[0]})")
 
 
 def _time_ms(fn, reps):
@@ -2559,10 +2605,12 @@ def time_ssd(ssd, kb, cfg, S, lens):
 def check_ssd_hymba(ops, ssd, kb, cfg, S, lens):
     """K4 at hymba's SSD shape (B = len(lens), S padded to the chunk, H =
     64, P = 50, N = 16, Q = 64, bf16 x/B/C, fp32 dt, these lengths)
-    through ``ops.ssd_scan``: it must launch the FMA kernel once (the
-    tensor-core kernel takes P = 64 only) and agree with the plain
-    version within ``SSD_TOL``; then the kernel timed beside the plain
-    version, ``ssd_chunked`` and the bound (no library call)."""
+    through ``ops.ssd_scan``: it must launch the tensor-core kernel once
+    and agree with the plain version within ``SSD_TOL``, and with the
+    FMA kernel in bf16 ulps (``_ssd_split_check``); then the tensor-core
+    and FMA kernels timed in turns (tc, fma, fma, tc; each time the mean
+    of its two) beside the plain version, ``ssd_chunked`` and the bound
+    (no library call)."""
     from repro_torch.models.mamba2 import mamba2_dims, mask_dt, ssd_chunked
     B, Q, P = len(lens), cfg.ssm_chunk, cfg.ssm_head_dim
     _, H, N, _ = mamba2_dims(cfg)
@@ -2573,7 +2621,7 @@ def check_ssd_hymba(ops, ssd, kb, cfg, S, lens):
     before = dict(ops.LAUNCHES)
     y = ops.ssd_scan(x, dt, A, Bm, Cm, kvl, chunk=Q)
     ran = _launched(ops, before)
-    n_launch = ops.LAUNCHES["ssd_scan_fma"] - before["ssd_scan_fma"]
+    n_launch = ops.LAUNCHES["ssd_scan"] - before["ssd_scan"]
     y_p = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, kvl)
     torch.cuda.synchronize()
     err, over = _err(_ssd_valid(y, lens), _ssd_valid(y_p, lens),
@@ -2581,35 +2629,44 @@ def check_ssd_hymba(ops, ssd, kb, cfg, S, lens):
     log(f"ssd check hymba (B={B} S={Sp} H={H} P={P} N={N} Q={Q} bf16, dt "
         f"fp32) lens={lens}: {ran} x{n_launch}, max abs err {err:.3e} "
         f"(rtol, atol {SSD_TOL['bfloat16']})")
-    if ran != ["ssd_scan_fma"] or n_launch != 1 or over > 0:
+    if ran != ["ssd_scan"] or n_launch != 1 or over > 0:
         raise AssertionError(f"K4 at hymba's shape: ran {ran} x{n_launch}, "
                              f"tolerance miss {over:.3e}")
+    _ssd_split_check(ssd, (B, Sp, H, P, N, Q, "bfloat16"), lens)
     lib = ssd.library()
     out = torch.empty_like(x)
     args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), kvl.data_ptr(), out.data_ptr(), B, Sp, H, P, N, Q,
             1, 0, torch.cuda.current_stream().cuda_stream)
-    kb.raise_on(lib.ssd_scan_fma(*args), "ssd_scan_fma")
-    ms = _time_ms(lambda: lib.ssd_scan_fma(*args), 20)
+    kernels = {"ssd_scan": lambda: lib.ssd_scan(*args),
+               "ssd_scan_fma": lambda: lib.ssd_scan_fma(*args)}
+    for name, fn in kernels.items():
+        kb.raise_on(fn(), name)
+    turns = {name: [] for name in kernels}
+    for name in ("ssd_scan", "ssd_scan_fma", "ssd_scan_fma", "ssd_scan"):
+        turns[name].append(_time_ms(kernels[name], 20))
+    ms, fma_ms = (sum(turns[n]) / 2 for n in ("ssd_scan", "ssd_scan_fma"))
     plain_ms = _time_ms(lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm, kvl), 3)
     chunked_ms = _time_ms(lambda: ssd_chunked(x, mask_dt(dt, kvl), A, Bm,
                                               Cm, Q), 5)
     flops, nbytes, rows, t_ops, t_bytes = _ssd_work(cfg, lens, x, dt, A, Bm,
                                                     kvl, out)
     fp32_ops = flops / FP32_FLOPS * 1e3
-    res = dict(ms=ms, plain_ms=plain_ms, chunked_ms=chunked_ms,
-               bound_ms=max(t_ops, t_bytes),
+    res = dict(ms=ms, fma_ms=fma_ms, plain_ms=plain_ms,
+               chunked_ms=chunked_ms, bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                max_abs_err=err)
-    log(f"timing ssd_scan_fma hymba B={B} S={Sp} H={H} P={P} N={N} Q={Q} "
-        f"bf16 (dt fp32): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"ssd_chunked {chunked_ms:.4f} ms, bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']}; {flops / 1e9:.3f} GFLOP at 989 TFLOP/s bf16 = "
-        f"{t_ops:.4f} ms, {nbytes / 1e6:.2f} MB ({rows} of {B * Sp} rows "
-        f"run) at 3.35 TB/s = {t_bytes:.4f} ms; the FMA kernel's own "
-        f"ceiling, 67 TFLOP/s fp32: {max(fp32_ops, t_bytes):.4f} ms, the "
-        f"kernel tiles P = {P} at {(P + 3) // 4 * 4}), "
-        f"{flops / ms / 1e9:.2f} TFLOP/s achieved")
+    log(f"timing ssd_scan hymba B={B} S={Sp} H={H} P={P} N={N} Q={Q} bf16 "
+        f"(dt fp32): tensor-core kernel {ms:.4f} ms ({turns['ssd_scan'][0]:.4f}"
+        f", {turns['ssd_scan'][1]:.4f}), FMA kernel {fma_ms:.4f} ms "
+        f"({turns['ssd_scan_fma'][0]:.4f}, {turns['ssd_scan_fma'][1]:.4f}), "
+        f"plain {plain_ms:.4f} ms, ssd_chunked {chunked_ms:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}; {flops / 1e9:.3f} "
+        f"GFLOP at 989 TFLOP/s bf16 = {t_ops:.4f} ms, {nbytes / 1e6:.2f} MB "
+        f"({rows} of {B * Sp} rows run) at 3.35 TB/s = {t_bytes:.4f} ms; the "
+        f"FMA kernel's own ceiling, 67 TFLOP/s fp32: "
+        f"{max(fp32_ops, t_bytes):.4f} ms), {flops / ms / 1e9:.2f} TFLOP/s "
+        f"achieved (FMA kernel {flops / fma_ms / 1e9:.2f})")
     return res
 
 
@@ -2933,8 +2990,10 @@ def run_family_path(args, batches, profile_groups, rtol):
 def run_wide_path(fa, ops, kb, args, batches, extra_cases):
     """A head-dim 80 or 256 family's path: K1-K3 at each bucket's shape
     with its true lengths (``flash_main_cases``) in the path's bf16 and
-    in fp32, and ``extra_cases``; the bitwise padded-versus-unpadded
-    check at the path's head dim in both dtypes; the family path
+    in fp32, and ``extra_cases``; a bf16 batch at the path's heads with a
+    row of length 0 (``check_empty_row``); the bitwise
+    padded-versus-unpadded check at the path's heads and head dim in both
+    dtypes; the family path
     (``run_family_path``: 2-layer checks with their controls, the main
     run with launch counts, profile, memory); the kernels timed at the
     most common bucket.  Returns the max abs errors at the path's
@@ -2948,8 +3007,9 @@ def run_wide_path(fa, ops, kb, args, batches, extra_cases):
     errs = check_kernels(fa, ops, list(lens_of) + extra_cases, lens_of)
     log(f"flash kernel checks at the {cfg.name} path's shapes (hd {hd}; "
         f"bf16 and fp32) passed; max abs error {errs}")
+    check_empty_row(fa, ops, 448, H, Hkv, hd, "bfloat16")
     for dt in ("float32", "bfloat16"):
-        check_flash_bitwise(fa, 2, 448, 2, hd, 338, dtype=dt)
+        check_flash_bitwise(fa, 2, 448, H, hd, 338, dtype=dt, Hkv=Hkv)
     launches = run_family_path(args, batches, [("flash kernels",
                                                 ("flash_",))]
                                + OTHER_GROUPS, BF16_MODEL_RTOL)
@@ -3043,6 +3103,7 @@ def main() -> int:
     log(f"build: {[str(p.relative_to(ROOT)) for p in paths]} in "
         f"{time.perf_counter() - t0:.1f} s")
     log_flash_resources(kb, fa, paths[0])
+    log_ssd_resources(kb, paths[1])
     launches, errs, timings = {}, {}, {}
 
     # -- bert path: the flash kernels -------------------------------------
@@ -3215,6 +3276,7 @@ def main() -> int:
         family_errs[fam] = wide[fam]["errs"]
         log(f"{fam} path: {time.perf_counter() - t0:.1f} s")
 
+    launches["ssd_scan"] += h_launches["ssd_scan"]
     for name in FLASH_KERNELS:
         launches[name] += (h_launches[name] + g_launches[name]
                            + s_launches[name] + v_launches[name]
@@ -3245,10 +3307,12 @@ def main() -> int:
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")})
         if name == "ssd_scan":
-            # the hymba path's instance (the FMA kernel at P = 50)
+            # the hymba path's instance (P = 50, N = 16) and the FMA
+            # kernel's time at its shape, in turns
             row.update({f"hymba_{k}": hymba_k4[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")})
-            row["hymba_launches"] = h_launches["ssd_scan_fma"]
+                "ms", "fma_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_abs_err")})
+            row["hymba_launches"] = h_launches["ssd_scan"]
         kernels.append(row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -5,9 +5,9 @@
 //   flash_fwd_tc_kernel      <- _flash_kernel          (C entry flash_fwd)
 //   flash_bwd_dq_tc_kernel   <- _flash_bwd_dq_kernel   (C entry flash_bwd_dq)
 //   flash_bwd_dkv_tc_kernel  <- _flash_bwd_dkv_kernel  (C entry flash_bwd_dkv)
-// with bf16 dq and dk/dv at head dim 256 on Hopper's wgmma and TMA
-// (flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel, in
-// flash_bwd_wgmma.cuh), and keeps the first fp32 FMA version of each
+// with all three in bf16 at head dim 256 on Hopper's wgmma and TMA
+// (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel,
+// flash_bwd_dkv_wgmma_kernel, in flash_bwd_wgmma.cuh), and keeps the first fp32 FMA version of each
 // (flash_fwd_fma_kernel, flash_bwd_dq_fma_kernel, flash_bwd_dkv_fma_kernel;
 // C entries flash_fwd_fma, flash_bwd_dq_fma, flash_bwd_dkv_fma) as a
 // second fp32 witness.
@@ -70,35 +70,41 @@
 // - Head dims 16, 32, 64, 80 (5 k-steps of 16), 128 and 256.  At HD 256
 //   a warp's 16 rows of every output column (128 fp32 registers a
 //   thread; dk/dv holds two such) and the operand tiles (fp32: 270 KB
-//   for dq's or dk/dv's four) do not fit, so the forward and the fp32 dq
-//   and dk/dv kernels split each tile over CTAs that each write 128
-//   output columns (the forward) or 64 (fp32 dq and dk/dv) and recompute
-//   the scores over all 256; the operands fixed over a CTA's loop (the
-//   forward's q, dq's q and do, dk/dv's k and v) are read per k-step from
-//   global memory, where L1 and L2 hold them; and the forward's streamed
-//   tile is staged by cp.async (fp32 dq and dk/dv split it straight from
-//   global memory).  The score sums keep their order over the 16
-//   k-steps, so the padded-equals-unpadded property holds at every head
-//   dim.
-// - bf16 dq and dk/dv at HD 256 (gemma3's backward) are the Hopper kernels
-//   of flash_bwd_wgmma.cuh (flash_bwd_dq_wgmma_kernel,
-//   flash_bwd_dkv_wgmma_kernel; the same TPU kernels, _flash_bwd_dq_kernel
-//   and _flash_bwd_dkv_kernel).  At gemma3's shape (B 8, S 448, 16 / 8
-//   heads, causal, squad lengths) each must move 105 MB, 0.0314 ms at
-//   3.35 TB/s, against 13.1 and 17.4 GFLOP, 0.013 and 0.018 ms at the
-//   bf16 rate: the bytes bound both.  The split design above reached 12x
-//   and 33x that bound, computing each tile's scores 2 and 4 times and
+//   for dq's or dk/dv's four) do not fit, so the fp32 forward, dq and
+//   dk/dv kernels split each tile over CTAs that each write 128 output
+//   columns (the forward) or 64 (dq and dk/dv) and recompute the scores
+//   over all 256; the operands fixed over a CTA's loop (the forward's q,
+//   dq's q and do, dk/dv's k and v) are read per k-step from global
+//   memory, where L1 and L2 hold them; and the forward's streamed tile
+//   is staged by cp.async (dq and dk/dv split it straight from global
+//   memory).  fp32 at 256 is on no path.  The score sums keep their
+//   order over the 16 k-steps, so the padded-equals-unpadded property
+//   holds at every head dim.
+// - bf16 at HD 256 (gemma3's attention) runs all three on the Hopper
+//   kernels of flash_bwd_wgmma.cuh (flash_fwd_wgmma_kernel,
+//   flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel; the same TPU
+//   kernels).  At gemma3's shape (B 8, S 448, 16 / 8 heads, causal,
+//   squad lengths) the forward must move 79.9 MB, 0.0239 ms at 3.35
+//   TB/s, against 8.7 GFLOP, 0.0088 ms at the bf16 rate; dq and dk/dv
+//   105 MB each, 0.0314 ms, against 13.1 and 17.4 GFLOP: the bytes
+//   bound all three.  The split design above reached 7.4x, 12x and 33x
+//   those bounds, computing each tile's scores 2, 2 and 4 times and
 //   re-reading operands from global memory per k-step.  Here one CTA of
 //   two warpgroups owns a 64-row tile and all 256 output columns: the
 //   scores are computed once, on wgmma (m64nNk16) from shared-memory
 //   operands that TMA copies in once per CTA (the tile's own k and v,
-//   or q and do) or per item through a two-stage ring (q and do, or k
-//   and v), with 128-byte swizzle; p and ds feed their products from
-//   registers.  One warpgroup computes s (and p), the other dp (and
-//   ds); p crosses between them in shared memory as fp32, so the
-//   arithmetic is the split design's.  Each output has one owner (dv,
-//   dk; or half of dq's columns), the GQA group and the tiles are summed
-//   in the same fixed order, and there are no atomics.
+//   or q and do, or the forward's two q tiles) or per item through a
+//   two-stage ring (q and do, or k and v), with 128-byte swizzle; p and
+//   ds feed their products from registers.  In the forward each
+//   warpgroup owns one query head of the GQA group (gemma3's group is
+//   2), both reading the same k and v stages, so k and v cross from
+//   device memory once for two heads; each runs s = q k^T, the online
+//   softmax and o += p v on its own.  In dq and dk/dv one warpgroup
+//   computes s (and p), the other dp (and ds); p crosses between them
+//   in shared memory as fp32, so the arithmetic is the split design's.
+//   Each output has one owner (o and lse; dv, dk; or half of dq's
+//   columns), the GQA group and the tiles are summed in the same fixed
+//   order, and there are no atomics.
 // - Masks are applied only on tiles that are not wholly visible (the
 //   causal diagonal, the kv_len edge, the window's edge).  On the causal
 //   diagonal a warp skips the 16-key (forward, dq) or 16-query (dk/dv)
@@ -110,11 +116,14 @@
 // - Costs they keep: three products per pair of operands (fp32); few
 //   CTAs of 4 warps per SM (the dk/dv kernel's 107.5 KB of shared memory
 //   at HD 64 allows 2), likely too few to hide the products' latency;
-//   the HD-256 split of the forward and fp32 backward recomputes the
-//   scores.  The wgmma kernels keep one CTA of 8 warps per SM (214 KB
-//   and 222 KB of shared memory), each warpgroup waiting on its own
-//   products, and diagonal tiles computed whole.  chip_smoke.py logs
-//   each kernel's registers, shared memory and threads.
+//   the fp32 HD-256 split recomputes the scores.  The wgmma kernels keep
+//   one CTA of 8 warps per SM (193, 214 and 222 KB of shared memory),
+//   each warpgroup waiting on its own products (the forward's softmax
+//   does not overlap its next tile's q k^T), and diagonal tiles computed
+//   whole.  The forward's grid is B x Hkv x 7 = 448 CTAs at gemma3's
+//   shape, 3.4 waves; a GQA group of 1 leaves its warpgroup 1 idle, and
+//   a group of 4 reads k and v once per pair of heads.  chip_smoke.py
+//   logs each kernel's registers, shared memory and threads.
 
 // The FMA kernels compute in fp32 on the CUDA cores: one CTA of 256
 // threads per (b, h, 64-row tile); the other side's 64-row tiles stream
@@ -799,16 +808,17 @@ __device__ __forceinline__ void a_global(FragA& a, const T* __restrict__ src, in
 // shared memory a block can use on the card (227 KB)
 constexpr size_t SMEM_MAX = 232448;
 
-// Above HD 128 (HD 256) a thread cannot hold a warp's 16 rows of every
-// output column and what the scores need beside them: each (b, h, tile)
-// is split over NSPLIT = HD / HO CTAs, each of which recomputes the
+// Above HD 128 (HD 256, fp32) a thread cannot hold a warp's 16 rows of
+// every output column and what the scores need beside them: each (b, h,
+// tile) is split over NSPLIT = HD / HO CTAs, each of which recomputes the
 // scores over all of HD and writes HO output columns (128 in the forward;
-// 64 in fp32 dq and in fp32 dk/dv, which holds two accumulators), and
-// the operands that stay fixed over the loop (the forward's q, dq's q and
-// do, dk/dv's k and v) are read per k-step from global memory (L1 and L2
-// hold them) instead of registers or operand tiles.  Up to HD 128,
-// NSPLIT = 1 and HO = HD.  bf16 dq and dk/dv at HD 256 are the wgmma
-// kernels (flash_bwd_wgmma.cuh), which split nothing.
+// 64 in dq and in dk/dv, which holds two accumulators), and the operands
+// that stay fixed over the loop (the forward's q, dq's q and do, dk/dv's
+// k and v) are read per k-step from global memory (L1 and L2 hold them)
+// instead of registers or operand tiles.  Up to HD 128, NSPLIT = 1 and
+// HO = HD.  bf16 at HD 256 runs the wgmma kernels (flash_bwd_wgmma.cuh),
+// which split nothing, so no bf16 instance of these layouts has NSPLIT
+// above 1.
 template <typename T, int HD> struct FwdLayout {
   static constexpr bool SPLIT = sizeof(T) == 4;
   static constexpr int HO = HD > 128 ? 128 : HD;              // o columns per CTA
@@ -1488,7 +1498,7 @@ cudaError_t run_dkv(const Args& a) {
 }
 
 // which kernel: 0 forward, 1 dq, 2 dk/dv on the tensor cores (every head
-// dim of run_hd; dq and dk/dv in bf16 at 256 on wgmma); 3 forward, 4
+// dim of run_hd; all three in bf16 at 256 on wgmma); 3 forward, 4
 // dk/dv, 5 dq on the CUDA cores (head dims 16, 32, 64, 128 only: no FMA
 // case is built at 80 or 256)
 template <typename T, int HD>
@@ -1496,7 +1506,9 @@ cudaError_t run(int which, const Args& a) {
   constexpr bool FMA = HD == 16 || HD == 32 || HD == 64 || HD == 128;
   constexpr bool WGMMA = std::is_same<T, __nv_bfloat16>::value && HD == 256;
   switch (which) {
-    case 0: return tc::run_fwd<T, HD>(a);
+    case 0:
+      if constexpr (WGMMA) return wg::run_fwd(a);
+      else return tc::run_fwd<T, HD>(a);
     case 1:
       if constexpr (WGMMA) return wg::run_dq(a);
       else return tc::run_dq<T, HD>(a);
@@ -1550,7 +1562,7 @@ int dispatch(int which, int hd, int dtype, const Args& a) {
 // Each returns the cudaError_t of the launch (0 = launched;
 // cudaErrorInvalidValue, launching nothing, for a case it does not take).
 // flash_fwd, flash_bwd_dq and flash_bwd_dkv run the tensor-core kernels
-// (bf16 dq and dk/dv at 256: the wgmma kernels) and take every head dim
+// (bf16 at 256: the wgmma kernels) and take every head dim
 // 16, 32, 64, 80, 128, 256 with 16-byte aligned tensors; flash_fwd_fma,
 // flash_bwd_dq_fma and flash_bwd_dkv_fma the fp32 FMA kernels of the same
 // functions, at head dims 16, 32, 64, 128.

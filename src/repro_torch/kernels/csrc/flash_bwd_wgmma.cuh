@@ -1,10 +1,12 @@
-// K2 and K3 in bf16 at head dim 256, on Hopper's warpgroup products:
+// K1, K2 and K3 in bf16 at head dim 256, on Hopper's warpgroup products:
+//   flash_fwd_wgmma_kernel      <- _flash_kernel          (C entry flash_fwd)
 //   flash_bwd_dq_wgmma_kernel   <- _flash_bwd_dq_kernel   (C entry flash_bwd_dq)
 //   flash_bwd_dkv_wgmma_kernel  <- _flash_bwd_dkv_kernel  (C entry flash_bwd_dkv)
 // of src/repro/kernels/flash_attention.py.  Part of flash_attention.cu, which
 // includes this file inside its anonymous namespace after the other
-// tensor-core kernels and uses that file's BQ, BK, visible, key_tiles, Args,
-// prepare and tc::; the design and what bounds it are in that file's note.
+// tensor-core kernels and uses that file's BQ, BK, NEG_BIG, visible,
+// key_tiles, Args, prepare and tc::; the design and what bounds them are
+// in that file's note.
 //
 // One CTA of two warpgroups (256 threads) per 64-row tile.  TMA copies
 // fill a two-stage ring guarded by mbarriers (full: the stage has landed;
@@ -13,17 +15,22 @@
 // with wgmma (m64nNk16, bf16 operands from 128-byte-swizzled shared memory
 // or, for the score tiles, from registers; fp32 accumulators) and each
 // owns its outputs whole:
+//   fwd:   each takes one query head of the GQA group (its q tile loaded
+//          once), s = q k^T, the online softmax, o += p v over the key
+//          tiles both read from the ring;
 //   dk/dv: 0 computes s^T = k q^T, p^T and dv += p^T do; 1 computes
 //          dp^T = v do^T, ds^T = p^T (dp^T - delta) scale, dk += ds^T q;
 //   dq:    0 computes s = q k^T and p; 1 computes dp = do v^T and ds; each
 //          adds ds k into its 128 of dq's columns.
-// p passes from 0 to 1 in fp32 (and ds from 1 to 0 as bf16 operands in dq)
-// through shared memory, under two named barriers.  With 8 warps a thread
-// may hold 255 registers: the dk/dv warpgroups' 128 accumulator and 32
-// score registers fit.  (A separate loading warp or warpgroup puts a third
-// warp on an SM sub-partition, whose 16,384 registers then cap each thread
-// at 168; ptxas did not honour setmaxnreg 40 / 232 there, and dk/dv
-// spilled.)
+// In the backward p passes from 0 to 1 in fp32 (and ds from 1 to 0 as
+// bf16 operands in dq) through shared memory, under two named barriers.
+// With 8 warps a thread may hold 255 registers: the forward's and dk/dv's
+// 128 accumulator and 32 score registers fit.  (A separate loading warp
+// or warpgroup puts a third warp on an SM sub-partition, whose 16,384
+// registers then cap each thread at 168; ptxas did not honour setmaxnreg
+// 40 / 232 there, and dk/dv spilled.)  Costs they keep: each warpgroup
+// waits on its own products (no overlap of one tile's softmax with the
+// next tile's scores), and diagonal tiles are computed whole.
 
 namespace wg {
 
@@ -39,7 +46,11 @@ constexpr uint32_t RING = 2 * TILE, P = RING + 2 * STAGE, DS = P + 64 * 64 * 4;
 constexpr uint32_t DKV_BARS = DS, DQ_BARS = DS + 64 * 64 * 2;
 constexpr size_t DKV_SMEM = DKV_BARS + 5 * 8 + 1024;   // + the alignment slack
 constexpr size_t DQ_SMEM = DQ_BARS + 5 * 8 + 1024;
-static_assert(DKV_SMEM <= tc::SMEM_MAX && DQ_SMEM <= tc::SMEM_MAX, "shared memory");
+// the forward: two q tiles and the ring, then its mbarriers
+constexpr uint32_t FWD_BARS = P;
+constexpr size_t FWD_SMEM = FWD_BARS + 5 * 8 + 1024;
+static_assert(DKV_SMEM <= tc::SMEM_MAX && DQ_SMEM <= tc::SMEM_MAX && FWD_SMEM <= tc::SMEM_MAX,
+              "shared memory");
 // about 10 s: a lost arrival traps (a failed launch) instead of hanging the card
 constexpr long long WAIT_CYCLES = 20000000000LL;
 
@@ -538,6 +549,159 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// K1: o and lse for one 64-row q tile of up to two query heads of one kv
+// head's GQA group, one head per warpgroup (the CTA's pair pr takes the
+// group's heads 2 pr and 2 pr + 1; with an odd group the last pair's
+// warpgroup 1 only keeps the ring turning).  Both q tiles are loaded
+// once, the key tiles (k, v) through the ring, up to the causal bound and
+// ceil(kv_len / 64), so one k and v read serves two heads.  Per key tile
+// each warpgroup computes s = q k^T, the online softmax on it in fp32 and
+// o += p v with p rounded to bf16 once, from registers.
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const int* __restrict__ kv_len,
+                       T* __restrict__ o, float* __restrict__ lse, int H, int Hkv, int S,
+                       int causal, int window, float scale) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value && D == HD, "bf16 at head dim 256 only");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = saddr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t full = base + FWD_BARS, empty = full + 16, q_bar = full + 32;
+
+  const int group = H / Hkv, pairs = (group + 1) / 2;
+  const int hk = blockIdx.x / pairs, pr = blockIdx.x % pairs, b = blockIdx.y;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;   // longest first
+  const int q0 = qt * BQ;
+  const int kvl = kv_len[b];
+  const int n_kt = key_tiles(q0, S, kvl, causal);
+  const int n_heads = min(group - 2 * pr, 2);   // this CTA's query heads
+  // warpgroup wgi owns head h (made warp-uniform for the compiler)
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const bool active = wgi < n_heads;
+  const int h = hk * group + 2 * pr + wgi;
+  const int tid = threadIdx.x % 128, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const bool loader = threadIdx.x == 128;
+
+  // key tile kt's k and v into stage kt % 2
+  auto load_keys = [&](int kt) {
+    const int s = kt & 1;
+    const uint32_t st = base + RING + s * STAGE;
+    bar_arrive_tx(full + 8 * s, STAGE);
+    tma_tile(st, tk, full + 8 * s, kt * BK, b * Hkv + hk);
+    tma_tile(st + TILE, tv, full + 8 * s, kt * BK, b * Hkv + hk);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      bar_init(full + 8 * s, 1);
+      bar_init(empty + 8 * s, THREADS);
+    }
+    bar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (loader && n_kt > 0) {
+    bar_arrive_tx(q_bar, n_heads * TILE);
+    for (int i = 0; i < n_heads; ++i) tma_tile(base + i * TILE, tq, q_bar, q0, b * H + h - wgi + i);
+    for (int kt = 0; kt < min(n_kt, 2); ++kt) load_keys(kt);
+  }
+
+  const int r0 = q0 + 16 * (tid >> 5) + g;   // this thread's rows r0, r0 + 8
+  const uint32_t q_tile = base + wgi * TILE;
+  float acc[128], m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 128; ++e) acc[e] = 0.f;
+  if (n_kt > 0) bar_wait(q_bar, 0);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt & 1, k0 = kt * BK;
+    const uint32_t k_tile = base + RING + s * STAGE, v_tile = k_tile + TILE;
+    bar_wait(full + 8 * s, (kt >> 1) & 1);
+    if (active) {
+      // s = q k^T: 16 k-steps over the head dim
+      float sc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 16; ++ks) mma_ss_n64(sc, kmajor(q_tile, ks), kmajor(k_tile, ks));
+      wg_commit();
+      wg_wait();
+      pin(sc);
+
+      // the online softmax: masks only where the tile is not wholly
+      // visible; m stays finite (>= NEG_BIG), so exp never sees inf - inf
+      const bool whole = tile_visible(q0, k0, kvl, causal, window);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int i = (e >> 1) & 1, kp = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        float x = sc[e] * scale;
+        if (!whole && !visible(r0 + 8 * i, kp, kvl, causal, window)) x = -INFINITY;
+        sc[e] = x;
+        mx[i] = fmaxf(mx[i], x);
+      }
+      float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], tc::quad_max(mx[i]));
+        corr[i] = exp2f((m[i] - m_new) * tc::LOG2E);
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int i = (e >> 1) & 1;
+        const float p = exp2f((sc[e] - m[i]) * tc::LOG2E);   // 0 where masked
+        sc[e] = p;
+        rs[i] += p;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + rs[i];   // this lane's part
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        acc[4 * j] *= corr[0];
+        acc[4 * j + 1] *= corr[0];
+        acc[4 * j + 2] *= corr[1];
+        acc[4 * j + 3] *= corr[1];
+      }
+
+      // o += p v: 4 k-steps of 16 keys, all 256 columns, p from registers
+      uint32_t a[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) to_a(a[j], sc, j);
+      wg_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_rs_n256(acc, a[j], mnmajor(v_tile, j, 0));
+      wg_commit();
+      wg_wait();
+      pin(acc);
+    }
+    bar_arrive(empty + 8 * s);
+    // the stage is refilled once both warpgroups are done with it
+    if (loader && kt + 2 < n_kt) {
+      bar_wait(empty + 8 * s, (kt >> 1) & 1);
+      load_keys(kt + 2);
+    }
+  }
+  if (!active) return;
+
+  const size_t roff = ((size_t)b * H + h) * S;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    const float lc = fmaxf(tc::quad_sum(l[i]), 1e-30f);
+    if (row >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      tc::store_pair(o + (roff + row) * HD + 8 * j + 2 * t, acc[4 * j + 2 * i] / lc,
+                     acc[4 * j + 2 * i + 1] / lc);
+    if (t == 0) lse[roff + row] = m[i] + logf(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -584,6 +748,22 @@ bool tile_map(CUtensorMap* map, const void* ptr, int S, int slabs) {
 bool maps(const Args& a, CUtensorMap& tq, CUtensorMap& tk, CUtensorMap& tv, CUtensorMap& tdo) {
   return tile_map(&tq, a.q, a.S, a.B * a.H) && tile_map(&tk, a.k, a.S, a.B * a.Hkv) &&
          tile_map(&tv, a.v, a.S, a.B * a.Hkv) && tile_map(&tdo, a.dout, a.S, a.B * a.H);
+}
+
+cudaError_t run_fwd(const Args& a) {
+  auto kern = flash_fwd_wgmma_kernel<__nv_bfloat16, HD>;
+  cudaError_t e = prepare(kern, FWD_SMEM);
+  if (e != cudaSuccess) return e;
+  if (a.info) return describe(kern, THREADS, FWD_SMEM, a.info);
+  CUtensorMap tq, tk, tv;
+  if (!(tile_map(&tq, a.q, a.S, a.B * a.H) && tile_map(&tk, a.k, a.S, a.B * a.Hkv) &&
+        tile_map(&tv, a.v, a.S, a.B * a.Hkv)))
+    return cudaErrorInvalidValue;
+  dim3 grid(a.Hkv * ((a.H / a.Hkv + 1) / 2), a.B, (a.S + BQ - 1) / BQ);
+  kern<<<grid, THREADS, FWD_SMEM, a.stream>>>(tq, tk, tv, (const int*)a.kv_len,
+                                              (__nv_bfloat16*)a.o, (float*)a.lse_out, a.H,
+                                              a.Hkv, a.S, a.causal, a.window, a.scale);
+  return cudaGetLastError();
 }
 
 cudaError_t run_dkv(const Args& a) {

@@ -22,26 +22,28 @@
 // TPU kernel pre-zeroes them.  Rows at or past kv_len inside a running
 // chunk are unspecified.
 //
-// ssd_scan_tc_kernel, the tensor-core kernel (bf16 x, B, C; P = 64,
-// Q = 64, N = 128, the mamba2 configs'; H a multiple of 4; dt fp32 or
-// bf16).
+// ssd_scan_tc_kernel, the tensor-core kernel (bf16 x, B, C; Q = 64; two
+// instances of (P, N): (64, 128), the mamba2 configs', and (50, 16),
+// hymba's SSD heads; H a multiple of 4; dt fp32 or bf16).
 //
-// What bounds it: at the training path's shape (B = 8, S = 448, H = 64,
+// What bounds it: at the mamba2 path's shape (B = 8, S = 448, H = 64,
 // P = 64, N = 128, Q = 64, squad lengths: 49 of 56 chunks run) the
 // function reads x, dt, B and C over the chunks it runs and writes y in
 // full, 57.5 MB, and does 7.4 GFLOP: 0.0172 ms of bytes at 3.35 TB/s
 // against 0.0075 ms of bf16 tensor-core work, so the card's bound is
-// bytes.  The kernel does ~2.5x the
-// function's products (the hi/lo halves below), still under the bytes.
+// bytes.  At hymba's (the same B, S, H and lengths; P = 50, N = 16) it
+// is 43.6 MB and 1.77 GFLOP: 0.0130 ms of bytes against 0.0018 ms of
+// work, bytes again, by more.  The kernel does ~2.5x the function's
+// products (the hi/lo halves below), still under the bytes.
 //
 // Design:
 // - Grid: one CTA of 16 warps per (b, group of G = 4 heads), 128 CTAs at
 //   the main shape, one wave on 132 SMs; the CTA walks the chunks in a
 //   loop, as the TPU's sequential grid axis.  Four warps own a head, each
-//   16 rows of its P = 64.  A warp keeps its 16 x N slice of the head's
-//   fp32 state in registers for the whole scan, as the accumulator of
-//   the state product: the state never leaves the SM and is never
-//   rounded.
+//   16 rows of its P = 64 (P padded to 64 at P = 50).  A warp keeps its
+//   16 x N slice of the head's fp32 state in registers for the whole
+//   scan, as the accumulator of the state product: the state never
+//   leaves the SM and is never rounded.
 // - C B^T is computed once per (b, chunk) into shared memory (fp32, one
 //   16 x 16 tile per warp) and shared by the G heads; each head then
 //   applies its own mask L and dt as it builds its weights.
@@ -68,16 +70,40 @@
 //   w (their y columns need all of it), so each w entry's exp is
 //   computed four times (fast exp2 on the SFU); y is stored as 4-byte
 //   pairs straight from the accumulators.
+// - Hymba's instance, P = 50, N = 16.  (a) P is not a multiple of 16:
+//   each head's x rows are staged padded to PP = 64 columns, so the warp
+//   layout (4 warps a head, 16 warps, one 16 x 16 tile of C B^T each)
+//   is mamba2's; the 14 padded columns are zeroed once in both stages
+//   and never copied into, so the padded state rows stay 0, and y
+//   columns >= P are never stored.  The fourth warp of a head carries 2
+//   live columns of its 16 (22 % of the x and state products are
+//   padding; the bytes bound the kernel, not the products).  (b) A head's x row
+//   is 100 bytes, so heads 1-3 of a group start 4-byte but not 16-byte
+//   aligned: x is copied as 4-byte bf16 pairs by cp.async straight into
+//   the padded rows (the group's 400 bytes per position are contiguous
+//   and coalesced across a warp); B, C (32-byte rows) and dt stay
+//   16-byte copies.  y is stored as pairs (even columns, aligned), and
+//   the rows of skipped chunks are zeroed as the group's 400 contiguous
+//   bytes in 16-byte pieces (16-byte aligned because h0 and H are
+//   multiples of 4).  (c) N = 16: C B^T, C state^T and each state
+//   product are one k-step; a warp's state slice is 16 x 16 (8
+//   registers); a stage is 40 KB, 100 KB of shared memory in all.
+//   The grid stays B x H / G = 128 CTAs of 512 threads, one wave on 132
+//   SMs: a second CTA per SM would fit in shared memory but there is no
+//   second wave to fill it, and G = 2 (256 CTAs, C B^T shared by 2
+//   heads) was not measured.
 //
 // ssd_scan_fma_kernel, the fp32 FMA kernel: every other case the
 // wrapper's dispatch rule sends it (fp32 x, B, C; small P, N or Q, as in
-// the reference's SSD cases and the reduced mamba2; hymba's P = 50,
-// N = 16 in bf16).  One CTA of 256 threads owns one (b, h) and walks its
-// chunks; the state, the chunk's x, B, C (staged in fp32) and the Q x Q
-// weight tile live in shared memory; each product is a 4 x 4 register
-// tile per thread over shared operands padded by one float.  Its ceiling
-// is the 67 TFLOP/s fp32 rate, and it recomputes C B^T for every head.
-// A head dim P that is not a multiple of 4 (hymba's 50) is tiled at
+// the reference's SSD cases and the reduced mamba2; P = 50, N = 16 in
+// fp32); chip_smoke.py also times it in turns with the tensor-core
+// kernel at both of that kernel's shapes.  One CTA of 256 threads owns
+// one (b, h) and walks its chunks; the state, the chunk's x, B, C
+// (staged in fp32) and the Q x Q weight tile live in shared memory; each
+// product is a 4 x 4 register tile per thread over shared operands
+// padded by one float.  Its ceiling is the 67 TFLOP/s fp32 rate, and it
+// recomputes C B^T for every head.
+// A head dim P that is not a multiple of 4 (50) is tiled at
 // P4 = P rounded up to 4: the staged x has P4 columns whose last P4 - P
 // stay zero, so the padded state rows stay zero and the padded y columns
 // are never stored (4 % more work at P = 50).  x is read element by
@@ -107,27 +133,36 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 namespace tc {
 
 constexpr int G = 4;            // heads per CTA
-constexpr int P = 64;           // head dim
 constexpr int Q = 64;           // chunk length
-constexpr int WPH = P / 16;     // warps per head
-constexpr int NW = G * WPH;     // warps per CTA
-constexpr int NT = NW * 32;     // threads per CTA
-constexpr int LX = G * P + 8;   // bf16 row stride of the staged x (+16 bytes)
 constexpr int LCB = Q + 8;      // fp32 row stride of C B^T
 static_assert(Q == 64, "the warp scan gives each lane two positions");
-static_assert((Q / 16) * (Q / 16) == NW, "one 16 x 16 tile of C B^T per warp");
+
+// The instance's shape: head dim P, tiled at PP = P rounded up to 16
+// (the m16 rows of a warp's state slice, the n8 pairs of its y columns);
+// WPH warps own a head, 16 of its PP rows each; the staged x keeps the
+// G heads' rows padded to PP columns, plus 16 bytes.
+template <int P> struct Inst {
+  static constexpr int PP = (P + 15) / 16 * 16;
+  static constexpr int WPH = PP / 16;          // warps per head
+  static constexpr int NW = G * WPH;           // warps per CTA
+  static constexpr int NT = NW * 32;           // threads per CTA
+  static constexpr int LX = G * PP + 8;        // bf16 row stride of the staged x
+  static_assert((Q / 16) * (Q / 16) == NW, "one 16 x 16 tile of C B^T per warp");
+  static_assert(P % 2 == 0 && G * P % 8 == 0,
+                "x and y rows as bf16 pairs, a group's y row as 16-byte pieces");
+};
 
 template <int N> constexpr int LN = N + 8;  // bf16 row stride of B, C
 
-template <int N, typename TD>
+template <int P, int N, typename TD>
 __host__ __device__ constexpr size_t stage_bytes() {
-  return 2 * sizeof(__nv_bfloat16) * Q * LN<N>     // B, C
-         + sizeof(__nv_bfloat16) * Q * LX          // x of the G heads
-         + sizeof(TD) * Q * G;                     // dt of the G heads
+  return 2 * sizeof(__nv_bfloat16) * Q * LN<N>            // B, C
+         + sizeof(__nv_bfloat16) * Q * Inst<P>::LX        // x of the G heads
+         + sizeof(TD) * Q * G;                            // dt of the G heads
 }
-template <int N, typename TD>
+template <int P, int N, typename TD>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return 2 * stage_bytes<N, TD>() + sizeof(float) * (Q * LCB + 2 * G * Q);
+  return 2 * stage_bytes<P, N, TD>() + sizeof(float) * (Q * LCB + 2 * G * Q);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -183,13 +218,14 @@ __device__ __forceinline__ float2 unpack(unsigned v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
 }
 
-template <int N, typename TD>
-__global__ void __launch_bounds__(NT, 1)
+template <int P, int N, typename TD>
+__global__ void __launch_bounds__(Inst<P>::NT, 1)
 ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x, const TD* __restrict__ dt,
                    const float* __restrict__ A, const __nv_bfloat16* __restrict__ Bm,
                    const __nv_bfloat16* __restrict__ Cm, const int* __restrict__ kv_len,
                    __nv_bfloat16* __restrict__ y, int S, int H) {
-  constexpr int ln = LN<N>;
+  using I = Inst<P>;
+  constexpr int ln = LN<N>, PP = I::PP, WPH = I::WPH, NT = I::NT, LX = I::LX;
   const int h0 = blockIdx.x * G, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = warp / WPH, wp = warp % WPH;    // head in the group, its p-block
@@ -198,12 +234,12 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x, const TD* __restrict__ d
 
   extern __shared__ __align__(16) unsigned char smem[];
   auto stage_B = [&](int s) {
-    return reinterpret_cast<__nv_bfloat16*>(smem + s * stage_bytes<N, TD>());
+    return reinterpret_cast<__nv_bfloat16*>(smem + s * stage_bytes<P, N, TD>());
   };
   auto stage_C = [&](int s) { return stage_B(s) + Q * ln; };
   auto stage_x = [&](int s) { return stage_C(s) + Q * ln; };
   auto stage_dt = [&](int s) { return reinterpret_cast<TD*>(stage_x(s) + Q * LX); };
-  float* cb = reinterpret_cast<float*>(smem + 2 * stage_bytes<N, TD>());  // (Q, Q)
+  float* cb = reinterpret_cast<float*>(smem + 2 * stage_bytes<P, N, TD>());  // (Q, Q)
   float* la_s = cb + Q * LCB;                                              // (G, Q)
   float* dt_s = la_s + G * Q;                                              // (G, Q)
 
@@ -221,10 +257,20 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x, const TD* __restrict__ d
       cp_async<16>(bs + r * ln + k, Bm + (row0 + r) * N + k);
       cp_async<16>(cs + r * ln + k, Cm + (row0 + r) * N + k);
     }
-    constexpr int per_row_x = G * P / 8;
-    for (int i = tid; i < Q * per_row_x; i += NT) {
-      const int r = i / per_row_x, k = (i % per_row_x) * 8;
-      cp_async<16>(xs + r * LX + k, x + ((row0 + r) * H + h0) * P + k);
+    if constexpr (P == PP) {
+      constexpr int per_row_x = G * P / 8;        // 16-byte pieces
+      for (int i = tid; i < Q * per_row_x; i += NT) {
+        const int r = i / per_row_x, k = (i % per_row_x) * 8;
+        cp_async<16>(xs + r * LX + k, x + ((row0 + r) * H + h0) * P + k);
+      }
+    } else {
+      // a head's row (100 bytes at P = 50) is 4-byte aligned only: bf16
+      // pairs, each into its head's padded row
+      constexpr int per_row_x = G * P / 2;
+      for (int i = tid; i < Q * per_row_x; i += NT) {
+        const int r = i / per_row_x, e = (i % per_row_x) * 2;
+        cp_async<4>(xs + r * LX + (e / P) * PP + e % P, x + ((row0 + r) * H + h0) * P + e);
+      }
     }
     for (int r = tid; r < Q; r += NT)
       cp_async<(int)(G * sizeof(TD))>(stage_dt(s) + r * G, dt + (row0 + r) * H + h0);
@@ -239,6 +285,16 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x, const TD* __restrict__ d
 #pragma unroll
     for (int r = 0; r < 4; ++r) st[nt][r] = 0.f;
 
+  // the padded columns P .. PP - 1 of each head's x rows, in both
+  // stages, are zero for the whole scan (no copy writes them): the
+  // padded state rows stay zero and the padded y columns are never stored
+  if constexpr (P != PP) {
+    constexpr int pad = PP - P;
+    for (int i = tid; i < 2 * Q * G * pad; i += NT) {
+      const int row = i / (G * pad), c = i % (G * pad);
+      stage_x(row / Q)[(row % Q) * LX + (c / pad) * PP + P + c % pad] = __float2bfloat16(0.f);
+    }
+  }
   if (n_valid > 0) load_chunk(0, 0);
   for (int c = 0; c < n_valid; ++c) {
     const int s = c & 1, s0 = c * Q;
@@ -297,7 +353,7 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x, const TD* __restrict__ d
     const float* la = la_s + g * Q;
     const float* dtz = dt_s + g * Q;
     const float la_end = la[Q - 1];
-    const int pcol = g * P + 16 * wp;            // this warp's x columns
+    const int pcol = g * PP + 16 * wp;           // this warp's x columns
 
     // y rows of 16 at a time: exp(la) o (C state^T), then + w x
 #pragma unroll 1
@@ -350,6 +406,7 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x, const TD* __restrict__ d
 #pragma unroll
       for (int ps = 0; ps < 2; ++ps) {
         const int p = 16 * wp + 8 * ps + 2 * tq;
+        if (P != PP && p >= P) continue;         // a padded column
         __nv_bfloat16* yr = y + (((size_t)b * S + s0 + i_lo) * H + h0 + g) * P + p;
         *reinterpret_cast<__nv_bfloat162*>(yr) = __floats2bfloat162_rn(yacc[ps][0], yacc[ps][1]);
         *reinterpret_cast<__nv_bfloat162*>(yr + (size_t)8 * H * P) =
@@ -395,7 +452,9 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x, const TD* __restrict__ d
     __syncthreads();   // stage s and C B^T are rewritten next
   }
 
-  // chunks wholly at or past kv_len never ran: their rows of y are zero
+  // chunks wholly at or past kv_len never ran: their rows of y are zero,
+  // written for the whole group (G P contiguous values, 16-byte aligned
+  // since h0 and H are multiples of G)
   constexpr int per_row = G * P / 8;
   const size_t pad_vecs = (size_t)(n_chunks - n_valid) * Q * per_row;
   for (size_t i = tid; i < pad_vecs; i += NT) {
@@ -405,16 +464,16 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x, const TD* __restrict__ d
   }
 }
 
-template <int N, typename TD>
+template <int P, int N, typename TD>
 cudaError_t launch(const void* x, const void* dt, const void* A, const void* Bm,
                    const void* Cm, const void* kv_len, void* y, int B, int S, int H,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<N, TD>();
-  auto kern = ssd_scan_tc_kernel<N, TD>;
+  constexpr size_t smem = smem_bytes<P, N, TD>();
+  auto kern = ssd_scan_tc_kernel<P, N, TD>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(H / G, B), NT, smem, stream>>>(
+  kern<<<dim3(H / G, B), Inst<P>::NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const TD*>(dt),
       static_cast<const float*>(A), static_cast<const __nv_bfloat16*>(Bm),
       static_cast<const __nv_bfloat16*>(Cm), static_cast<const int*>(kv_len),
@@ -617,22 +676,27 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 // cudaError_t (0 on success; cudaErrorInvalidValue, launching nothing,
 // for a case the kernel does not take); the kernel runs on ``stream``.
 
-// The tensor-core kernel: bf16 x, B, C (x_dtype 1), P = 64, Q = 64,
-// N = 128, H a multiple of 4, every pointer 16-byte aligned.
+// The tensor-core kernel: bf16 x, B, C (x_dtype 1), Q = 64, (P, N) =
+// (64, 128) (mamba2) or (50, 16) (hymba), H a multiple of 4, every
+// pointer 16-byte aligned.
 extern "C" int ssd_scan(const void* x, const void* dt, const void* A, const void* Bm,
                         const void* Cm, const void* kv_len, void* y, int B, int S, int H,
                         int P, int N, int Q, int x_dtype, int dt_dtype, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || H % tc::G || P != tc::P || Q != tc::Q || S % Q ||
-      N != 128 || x_dtype != 1 || (dt_dtype != 0 && dt_dtype != 1))
+  const bool mamba2 = P == 64 && N == 128, hymba = P == 50 && N == 16;
+  if (B <= 0 || S <= 0 || H <= 0 || H % tc::G || !(mamba2 || hymba) || Q != tc::Q || S % Q ||
+      x_dtype != 1 || (dt_dtype != 0 && dt_dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (!aligned16(x) || !aligned16(dt) || !aligned16(Bm) || !aligned16(Cm) || !aligned16(y))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
   cudaError_t err;
-  if (dt_dtype == 0)
-    err = tc::launch<128, float>(x, dt, A, Bm, Cm, kv_len, y, B, S, H, s);
+  if (mamba2)
+    err = dt_dtype == 0 ? tc::launch<64, 128, float>(x, dt, A, Bm, Cm, kv_len, y, B, S, H, s)
+                        : tc::launch<64, 128, bf16>(x, dt, A, Bm, Cm, kv_len, y, B, S, H, s);
   else
-    err = tc::launch<128, __nv_bfloat16>(x, dt, A, Bm, Cm, kv_len, y, B, S, H, s);
+    err = dt_dtype == 0 ? tc::launch<50, 16, float>(x, dt, A, Bm, Cm, kv_len, y, B, S, H, s)
+                        : tc::launch<50, 16, bf16>(x, dt, A, Bm, Cm, kv_len, y, B, S, H, s);
   return (int)err;
 }
 

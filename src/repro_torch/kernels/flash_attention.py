@@ -24,9 +24,10 @@ Which kernel: the forward, dq and dk/dv kernels on the tensor cores
 (bf16 hi/lo products, ``csrc/flash_attention.cu``) take every case these
 wrappers take -- fp32 and bf16, head dims ``HEAD_DIMS``, GQA, causal or
 not, window, ragged -- and ``flash_bwd`` and ``FlashAttention`` launch
-them; bf16 dq and dk/dv at head dim 256 run on Hopper's ``wgmma`` and
-TMA (``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``,
-``csrc/flash_bwd_wgmma.cuh``) behind the same entry points and counts.
+them; bf16 at head dim 256 runs all three on Hopper's ``wgmma`` and
+TMA (``flash_fwd_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``,
+``flash_bwd_dkv_wgmma_kernel``, ``csrc/flash_bwd_wgmma.cuh``; one CTA
+of ``WGMMA_THREADS``) behind the same entry points and counts.
 The fp32 FMA kernels they replaced are reached only through
 their own entry points ``flash_fwd_fma``, ``flash_bwd_dq_fma`` and
 ``flash_bwd_dkv_fma`` (a second fp32 witness on the card), at the head
@@ -64,6 +65,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # head dims the tensor-core kernels take, and the FMA kernels
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 FMA_HEAD_DIMS = (16, 32, 64, 128)
+# threads per CTA: the wgmma kernels' two warpgroups, the mma.sync
+# kernels' four warps
+WGMMA_THREADS, MMA_THREADS = 256, 128
 # C entry point -> number of pointer arguments
 _ENTRY_POINTS = {"flash_fwd": 6, "flash_fwd_fma": 6, "flash_bwd_dq": 8,
                  "flash_bwd_dq_fma": 8, "flash_bwd_dkv": 9,
@@ -93,13 +97,22 @@ def kernel_config(entry: str, hd: int, dtype: torch.dtype) -> dict:
     """The launch configuration of the kernel that ``entry``
     (``flash_fwd``, ``flash_bwd_dq`` or ``flash_bwd_dkv``) runs at head
     dim ``hd`` in ``dtype``: threads per CTA, dynamic shared memory in
-    bytes, registers and local memory a thread.  Launches nothing."""
+    bytes, registers and local memory a thread.  Launches nothing;
+    raises if the library refuses or reports another thread count than
+    the entry's kernel has: ``WGMMA_THREADS`` for bf16 at head dim 256
+    (the wgmma kernels), ``MMA_THREADS`` otherwise."""
     which = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv").index(entry)
     info = (ctypes.c_int * 4)()
     build.raise_on(library().flash_kernel_config(which, hd,
                                                  _DTYPE_CODE[dtype], info),
                    "flash_kernel_config")
-    return dict(zip(("threads", "smem", "regs", "local"), info))
+    got = dict(zip(("threads", "smem", "regs", "local"), info))
+    wgmma = dtype == torch.bfloat16 and hd == 256
+    want = WGMMA_THREADS if wgmma else MMA_THREADS
+    if got["threads"] != want:
+        raise RuntimeError(f"{entry} at hd {hd} {dtype} runs a kernel of "
+                           f"{got['threads']} threads, not {want}")
+    return got
 
 
 def _stream_handle(device) -> int:

@@ -23,11 +23,12 @@ raises; a CPU tensor takes the plain version (``ref.ssd_reference``, the
 sequential recurrence); a ``meta`` tensor gets a ``meta`` output.
 
 Which kernel (``uses_tensor_cores``): the tensor-core kernel takes bf16
-x, B and C with P = 64, chunk 64, N = 128 (the full mamba2 config's)
-and H a multiple of ``TC_HEAD_GROUP``; every other case goes to the
-fp32 FMA kernel (hymba's bf16 P = 50, N = 16 among them).  Each kernel has its own launch count, and
-each entry point raises on a case it does not take: neither hands a call
-to the other.
+x, B and C with chunk 64, H a multiple of ``TC_HEAD_GROUP`` and (P, N)
+one of ``TC_SHAPES``: (64, 128), the full mamba2 config's, and (50,
+16), hymba's SSD heads; every other case goes to the fp32 FMA kernel
+(fp32 inputs, the reference's small cases, the reduced configs).  Each
+kernel has its own launch count, and each entry point raises on a case
+it does not take: neither hands a call to the other.
 
 The reference has no backward kernel for the scan: it differentiates the
 jnp ``ssd_chunked`` with XLA.  So ``SSDScan`` saves its inputs and its
@@ -50,13 +51,15 @@ _SRC = build.CSRC / "ssd_scan.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # head dim P, state size N and chunk length Q the FMA kernel takes: the
 # reference's SSD test cases, the reduced and the full mamba2 configs,
-# and hymba's SSD heads (P = 50, N = 16: the kernel tiles P at 52)
+# and hymba's SSD heads' shape (P = 50, N = 16: the kernel tiles P at 52)
 HEAD_DIMS = (16, 32, 50, 64)
 STATE_SIZES = (8, 16, 32, 128)
 CHUNKS = (16, 32, 64)
 # what the tensor-core kernel takes (csrc/ssd_scan.cu): bf16 x, B, C;
-# P = 64; Q = 64; N = 128; H a multiple of the heads one CTA owns
-TC_HEAD_DIM, TC_CHUNK, TC_STATE, TC_HEAD_GROUP = 64, 64, 128, 4
+# (P, N) of mamba2's and hymba's SSD heads; Q = 64; H a multiple of the
+# heads one CTA owns
+TC_SHAPES = ((64, 128), (50, 16))
+TC_CHUNK, TC_HEAD_GROUP = 64, 4
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -85,13 +88,13 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, kv_len=None):
 
 
 def uses_tensor_cores(x, Bm, chunk: int) -> bool:
-    """The dispatch rule: the tensor-core kernel for bf16 x, B, C at P =
-    64, chunk 64, N = 128, H a multiple of ``TC_HEAD_GROUP``; the FMA
-    kernel otherwise."""
+    """The dispatch rule: the tensor-core kernel for bf16 x, B, C with
+    (P, N) in ``TC_SHAPES``, chunk 64, H a multiple of
+    ``TC_HEAD_GROUP``; the FMA kernel otherwise."""
     H, P = x.shape[2], x.shape[3]
     return (x.dtype == torch.bfloat16 and Bm.dtype == torch.bfloat16
-            and P == TC_HEAD_DIM and chunk == TC_CHUNK
-            and Bm.shape[-1] == TC_STATE and H % TC_HEAD_GROUP == 0)
+            and (P, Bm.shape[-1]) in TC_SHAPES and chunk == TC_CHUNK
+            and H % TC_HEAD_GROUP == 0)
 
 
 def _kernel_args(x, dt, A, Bm, Cm, kv_len, chunk):
@@ -140,9 +143,9 @@ def ssd_scan_tc(x, dt, A, Bm, Cm, kv_len=None, chunk: int = 64):
     if not uses_tensor_cores(x, Bm, chunk):
         B, S, H, P, N = dims
         raise ValueError(
-            f"the tensor-core SSD kernel takes bf16 x/B/C, P={TC_HEAD_DIM}, "
-            f"Q={TC_CHUNK}, N={TC_STATE}, H a multiple of "
-            f"{TC_HEAD_GROUP}; not {x.dtype} P={P} Q={chunk} N={N} H={H}")
+            f"the tensor-core SSD kernel takes bf16 x/B/C, (P, N) in "
+            f"{TC_SHAPES}, Q={TC_CHUNK}, H a multiple of {TC_HEAD_GROUP}; "
+            f"not {x.dtype} P={P} Q={chunk} N={N} H={H}")
     for name, t in (("x", x), ("dt", dt), ("Bm", Bm), ("Cm", Cm)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")

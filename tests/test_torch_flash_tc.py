@@ -2,16 +2,23 @@
 CPU, and the dispatch between them and the FMA kernels they replaced.
 The tensor-core kernels take head dims 16, 32, 64, 80, 128 and 256
 (``fa.HEAD_DIMS``), the FMA kernels 16, 32, 64 and 128
-(``fa.FMA_HEAD_DIMS``).  At 256 the forward, and dq and dk/dv in fp32,
-split each tile's output columns over several CTAs that each recompute
-the scores.  dq and dk/dv in bf16 at 256 run on ``wgmma``
-(``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``): one CTA
-of two warpgroups owns a tile's 256 output columns and computes its
-scores once; p passes between the warpgroups in fp32, and ds as the bf16
-operand it is rounded to once.  Neither design changes which values are
-rounded where or what each tile sums, so the emulation below stands for
-every head dim; ``WGMMA_CASES`` hold the wgmma kernels' arithmetic on
-``chip_smoke.py``'s hd-256 shapes.
+(``fa.FMA_HEAD_DIMS``).  In fp32 at 256 the forward, dq and dk/dv split
+each tile's output columns over several CTAs that each recompute the
+scores.  In bf16 at 256 all three run on ``wgmma`` and TMA with one CTA
+of two warpgroups (``fa.WGMMA_THREADS``) per tile, which owns the
+tile's 256 output columns and computes its scores once: the forward
+(``flash_fwd_wgmma_kernel``) gives each warpgroup one query head of the
+GQA group, both reading the same k and v tiles, each running s = q k^T,
+the online softmax over the 64-key tiles in ascending order (row max and
+sum in fp32 from the unrounded p) and o += p v with p rounded to bf16
+once; in dq and dk/dv (``flash_bwd_dq_wgmma_kernel``,
+``flash_bwd_dkv_wgmma_kernel``) p passes between the warpgroups in fp32,
+and ds as the bf16 operand it is rounded to once.  No design changes
+which values are rounded where or what each tile sums, so the emulation
+below stands for every head dim; ``WGMMA_CASES`` hold the wgmma
+kernels' arithmetic on ``chip_smoke.py``'s hd-256 shapes and on the
+forward's edges (GQA groups 1 to 4, q tiles wholly past ``kv_len`` and
+a row of length 0, the window biting).
 
 ``csrc/flash_attention.cu``'s forward (``flash_fwd_tc_kernel``), dq
 kernel (``flash_bwd_dq_tc_kernel``) and dk/dv kernel
@@ -85,16 +92,28 @@ WIDE_CASES = [
     (2, 128, 4, 1, 256, True, 64, "float32", "drawn"),
     (2, 160, 4, 2, 256, True, 64, "bfloat16", [100, 160]),
 ]
-# bf16 at head dim 256 (the wgmma dq and dk/dv kernels) on the four shapes
+# bf16 at head dim 256 (the wgmma kernels) on the four shapes
 # chip_smoke.py checks there: GQA groups 2, 1, 1 and 4, windows 32 and 64,
-# non-causal, ragged
+# non-causal, ragged; then the forward's edges: an odd group (its last
+# pair of query heads has one), gemma3's group 2 with two of a row's q
+# tiles wholly past kv_len, and group 2 and 1 with the window biting
+# over several key tiles
 WGMMA_CASES = [
     (2, 160, 4, 2, 256, True, 0, "bfloat16", "drawn"),
     (2, 96, 4, 4, 256, True, 32, "bfloat16", "drawn"),
     (1, 128, 2, 2, 256, False, 0, "bfloat16", None),
     (2, 200, 4, 1, 256, True, 64, "bfloat16", "drawn"),
+    (2, 160, 6, 2, 256, True, 0, "bfloat16", "drawn"),
+    (3, 192, 4, 2, 256, True, 0, "bfloat16", [192, 40, 1]),
+    (2, 320, 4, 2, 256, True, 128, "bfloat16", [320, 257]),
+    (1, 256, 2, 2, 256, True, 64, "bfloat16", None),
 ]
 TC_CASES = FLASH_CASES + RAGGED_CASES + [MAIN_HEAD] + WIDE_CASES + WGMMA_CASES
+# the wgmma forward on a batch with a row of length 0 (the pad row of a
+# non-divisor split), every q tile of which does no work; the forward
+# only, since the reference's gradients of a row with no visible key are
+# not finite
+WGMMA_EMPTY_ROW = (3, 192, 4, 2, 256, True, 0, "bfloat16", [192, 40, 0])
 
 # chip_smoke.py's TOL: (rtol, atol)
 TOL = {"float32": {"fwd": (2e-4, 2e-5), "bwd": (2e-3, 2e-4)},
@@ -294,6 +313,17 @@ def test_flash_fwd_tc_arithmetic_matches_reference(case):
     assert o_x <= 1.0 and lse_x <= 1.0, (o_x, lse_x)
 
 
+def test_flash_fwd_wgmma_row_of_length_0():
+    """Beside a row of length 0 the other rows hold the forward's
+    tolerance, and that row's o is exactly 0 with a finite lse, as
+    ``check_case`` requires of the kernel on the card."""
+    o_x, lse_x = _fwd_excess(WGMMA_EMPTY_ROW)
+    assert o_x <= 1.0 and lse_x <= 1.0, (o_x, lse_x)
+    _, (q, k, v, _), lens = _case_inputs(WGMMA_EMPTY_ROW)
+    o, lse = flash_fwd_tc_emulated(q, k, v, torch.tensor(lens), True, 0)
+    assert not o[2].any() and torch.isfinite(lse[2]).all()
+
+
 def _bwd_case(case):
     """The backward's inputs as the kernels get them (o, lse from the
     emulated forward, delta = rowsum(do o)), the lengths, and ``jax.vjp``
@@ -471,17 +501,33 @@ def test_flash_entry_launches_its_kernel_and_count(fake_lib, name, hd, dtype):
 @pytest.mark.parametrize("entry,which", [("flash_fwd", 0), ("flash_bwd_dq", 1),
                                          ("flash_bwd_dkv", 2)])
 def test_kernel_config_asks_for_the_entry_points_kernel(fake_lib, entry,
-                                                         which):
+                                                         which,
+                                                         monkeypatch):
     """``kernel_config`` asks the library for the launch configuration of
     the kernel an entry point runs (its index, the head dim, the dtype
-    code), launches nothing, and raises when the library refuses."""
+    code), launches nothing, and raises when the library refuses.  In
+    bf16 at 256 every entry point, the forward included, runs a wgmma
+    kernel of 256 threads; in fp32 at 256 an mma.sync kernel of 128.  A
+    library that reports another thread count is refused."""
     lib = fake_lib(0)
+
+    def config(which, hd, dtype, info, threads={1: 256, 0: 128}):
+        lib.calls.append(("flash_kernel_config", (which, hd, dtype, info)))
+        info[0], info[1], info[2], info[3] = threads[dtype], 197672, 200, 0
+        return 0
+    monkeypatch.setattr(lib, "flash_kernel_config", config, raising=False)
     before = dict(ops.LAUNCHES)
     got = fa.kernel_config(entry, 256, torch.bfloat16)
     assert [c[0] for c in lib.calls] == ["flash_kernel_config"]
     assert lib.calls[0][1][:3] == (which, 256, 1)
-    assert got == {"threads": 0, "smem": 0, "regs": 0, "local": 0}
+    assert got == {"threads": 256, "smem": 197672, "regs": 200, "local": 0}
+    assert got["threads"] == fa.WGMMA_THREADS
+    assert fa.kernel_config(entry, 256, torch.float32)["threads"] == 128
     assert ops.LAUNCHES == before
+    monkeypatch.setattr(lib, "flash_kernel_config",
+                        lambda *a: config(*a, threads={1: 128, 0: 128}))
+    with pytest.raises(RuntimeError, match="128 threads, not 256"):
+        fa.kernel_config(entry, 256, torch.bfloat16)
     fake_lib(1)
     with pytest.raises(RuntimeError, match="flash_kernel_config"):
         fa.kernel_config(entry, 256, torch.bfloat16)

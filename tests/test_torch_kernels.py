@@ -486,9 +486,13 @@ def _tc_emulated(x, dt, A, Bm, Cm, kv_len, chunk, split=True):
     return y[:, :S]
 
 
-# the reference's SSD cases, and one head group of the main path's
-# width with a ragged length: (B, S, H, P, N, chunk, lens)
+# the reference's SSD cases, hymba's SSD heads (P = 50, N = 16: the
+# kernel pads P to 64 in shared memory, which the arithmetic never sees)
+# at one head group with a ragged length and at two groups, B 2, and
+# last one mamba2 head group of the main path's width with a ragged
+# length: (B, S, H, P, N, chunk, lens)
 TC_CASES = list(dict.fromkeys(c[:6] + (None,) for c in SSD_CASES)) + [
+    (1, 448, 4, 50, 16, 64, [390]), (2, 256, 8, 50, 16, 64, None),
     (1, 448, 4, 64, 128, 64, [390])]
 
 
@@ -528,19 +532,36 @@ def test_tensor_core_arithmetic_matches_reference(case):
             _valid(want, S, lens), **SSD_TOL["bfloat16"])
 
 
-def test_tensor_core_hi_lo_split_is_what_keeps_the_state():
-    """At the main width, dropping the lo halves (one bf16 rounding of
-    w, the carried state and the decayed x) leaves the fp32 tolerance;
-    the hi/lo split stays well inside it."""
-    case = TC_CASES[-1]
+# hymba's head group at the main width (P = 50, N = 16)
+HYMBA_TC_CASE = TC_CASES[-3]
+
+
+def _split_errors(case):
+    """Max abs error on the valid rows against the JAX recurrence, with
+    the hi/lo split (True) and without (False)."""
     S, chunk, lens = case[1], case[5], case[6]
     (jx, jdt, jA, jB, jC), tin, kvl = _tc_case_inputs(case)
     want, _ = jax_ssd_reference(jx, jdt, jA, jB, jC, kv_len=jnp.asarray(kvl))
     want = _valid(want, S, lens)
     lens_t = torch.from_numpy(kvl)
-    err = {split: np.abs(_valid(_tc_emulated(*tin, lens_t, chunk, split),
-                                S, lens) - want).max()
-           for split in (True, False)}
+    return {split: np.abs(_valid(_tc_emulated(*tin, lens_t, chunk, split),
+                                 S, lens) - want).max()
+            for split in (True, False)}
+
+
+def test_tensor_core_hi_lo_split_is_what_keeps_the_state():
+    """At the main width, dropping the lo halves (one bf16 rounding of
+    w, the carried state and the decayed x) leaves the fp32 tolerance;
+    the hi/lo split stays well inside it."""
+    err = _split_errors(TC_CASES[-1])
+    assert err[True] < 1e-3 < err[False], err
+    assert err[False] > 30 * err[True], err
+
+
+def test_tensor_core_hi_lo_split_keeps_hymbas_state():
+    """The same at hymba's SSD heads (P = 50, N = 16), whose C B^T and
+    state products are one k-step each."""
+    err = _split_errors(HYMBA_TC_CASE)
     assert err[True] < 1e-3 < err[False], err
     assert err[False] > 30 * err[True], err
 
@@ -553,6 +574,19 @@ def _chip_smoke():
     return module
 
 
+def _split_check_passes(case, split):
+    smoke = _chip_smoke()
+    S, chunk, lens = case[1], case[5], case[6]
+    (jx, jdt, jA, jB, jC), tin, kvl = _tc_case_inputs(case)
+    want, _ = jax_ssd_reference(jx, jdt, jA, jB, jC, kv_len=jnp.asarray(kvl))
+    got = _tc_emulated(*tin, torch.from_numpy(kvl), chunk, split)
+    share = smoke.split_shares(
+        torch.from_numpy(_valid(got, S, lens)).to(torch.bfloat16),
+        torch.from_numpy(_valid(want, S, lens)).to(torch.bfloat16))
+    return all(share[k] <= limit
+               for k, limit in smoke.SPLIT_MAX_SHARE.items()), share
+
+
 @pytest.mark.parametrize("split", [True, False])
 def test_chip_smoke_split_check_tells_split_from_no_split(split):
     """``chip_smoke.py`` holds the tensor-core kernel's bf16 y against the
@@ -561,17 +595,16 @@ def test_chip_smoke_split_check_tells_split_from_no_split(split):
     a main-width head group, against the fp32 recurrence rounded to bf16,
     the split passes those limits and the arithmetic without the lo
     halves fails them."""
-    smoke = _chip_smoke()
-    case = TC_CASES[-1]
-    S, chunk, lens = case[1], case[5], case[6]
-    (jx, jdt, jA, jB, jC), tin, kvl = _tc_case_inputs(case)
-    want, _ = jax_ssd_reference(jx, jdt, jA, jB, jC, kv_len=jnp.asarray(kvl))
-    got = _tc_emulated(*tin, torch.from_numpy(kvl), chunk, split)
-    share = smoke.split_shares(
-        torch.from_numpy(_valid(got, S, lens)).to(torch.bfloat16),
-        torch.from_numpy(_valid(want, S, lens)).to(torch.bfloat16))
-    passes = all(share[k] <= limit
-                 for k, limit in smoke.SPLIT_MAX_SHARE.items())
+    passes, share = _split_check_passes(TC_CASES[-1], split)
+    assert passes == split, share
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_chip_smoke_split_check_holds_at_hymbas_shape(split):
+    """``chip_smoke.py`` runs the same split check on K4 at hymba's
+    shape (``check_ssd_hymba``): the emulated arithmetic with the split
+    passes its limits there, and without the lo halves fails them."""
+    passes, share = _split_check_passes(HYMBA_TC_CASE, split)
     assert passes == split, share
 
 
@@ -786,18 +819,24 @@ SSD_ROUTES = [
     ((2, 64, 4, 16, 16, 16, "bfloat16", "float32"), "ssd_scan_fma"),
     ((1, 128, 6, 64, 128, 64, "bfloat16", "float32"), "ssd_scan_fma"),
     ((1, 128, 4, 64, 128, 32, "bfloat16", "float32"), "ssd_scan_fma"),
-    # hymba's SSD heads: P = 50, N = 16
-    ((2, 128, 8, 50, 16, 64, "bfloat16", "float32"), "ssd_scan_fma"),
+    # hymba's SSD heads: P = 50, N = 16, on the tensor cores in bf16
+    ((2, 128, 8, 50, 16, 64, "bfloat16", "float32"), "ssd_scan"),
     ((1, 64, 4, 50, 16, 64, "float32", "float32"), "ssd_scan_fma"),
+    # the rule's edges: hymba's (P, N) with H not a multiple of 4, and
+    # each half of it paired with the other instance's
+    ((1, 64, 6, 50, 16, 64, "bfloat16", "float32"), "ssd_scan_fma"),
+    ((1, 64, 4, 64, 16, 64, "bfloat16", "float32"), "ssd_scan_fma"),
+    ((1, 64, 4, 50, 128, 64, "bfloat16", "float32"), "ssd_scan_fma"),
 ]
 
 
 @pytest.mark.parametrize("case,kernel", SSD_ROUTES)
 def test_ssd_dispatch_rule_picks_one_kernel_and_its_count(fake_cuda_lib,
                                                           case, kernel):
-    """bf16 x/B/C at P = 64, Q = 64, N = 128, H a multiple of 4 reach
-    the tensor-core entry point ``ssd_scan`` and its count; every other
-    case the FMA entry point ``ssd_scan_fma`` and its count."""
+    """bf16 x/B/C at (P, N) = (64, 128) or (50, 16), Q = 64, H a
+    multiple of 4 reach the tensor-core entry point ``ssd_scan`` and its
+    count; every other case the FMA entry point ``ssd_scan_fma`` and its
+    count."""
     lib = fake_cuda_lib(ssd, 0)
     B, S, H, P, N, chunk, dtype, dt_dtype = case
     x, dt, A, Bm, Cm, lens = _fake_ssd_case(B, S, H, P, N, dtype, dt_dtype)
