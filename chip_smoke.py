@@ -164,6 +164,28 @@ Phases (each raises on failure; the script then exits non-zero):
    common bucket beside their bound, plain versions and
    ``scaled_dot_product_attention``, and dq + dk/dv beside the library's
    backward;
+14. serve path (no kernel: every launch count is the same after Q3 as
+   before Q1, since decode runs the plain paths, as the reference's
+   does): Q1, full-width ``qwen3_1p7b``, ``mamba2_1p3b`` and
+   ``hymba_1p5b`` at 2 layers, fp32: a squad prompt prefilled in chunks
+   of 32 and a remainder, then 16 tokens decoded teacher-forced, every
+   position's logits against the no-cache forward within
+   ``SERVE_RTOL``, beside the controls that must miss it (the prefill
+   one position late; the SSM state dropped between chunks); Q2, on the
+   qwen3 and mamba2 models, ``ServeEngine`` over a 12-request squad
+   burst against a one-request ``generate`` per request, token for
+   token (a request that differs passes only as a tie, and is counted);
+   Q3, full-depth bf16 ``qwen3_1p7b`` and ``mamba2_1p3b`` through
+   ``repro_torch.launch.serve.main`` on a squad burst under a budget of
+   the parameters plus 6 predicted slots of its largest bucket plus
+   what the card already held: every request served (each fits alone),
+   deferrals, the predicted, tensor-byte and allocator's peaks within
+   the budget (the engine charges the workspace it measured on the
+   card), the geometries within the
+   reference's bound; tokens/s, TTFT, ITL beside the card line; then one
+   decode batch at the run's largest pool: its transient bytes within
+   the engine's charge, its wall time and, under ``torch.profiler``,
+   its device time (busy share) and kernel launches per layer;
 
 then prints the card line, one ``{"kernels": [...]}`` JSON line (no new
 kernel on the offload and resilience paths: they run K1-K3; K1-K3
@@ -174,7 +196,8 @@ instances' launches, ms, plain, bound and library ms as
 ``<family>_<key>``; K4's are the mamba2 and hymba paths' launches of
 the tensor-core kernel, with the hymba path's part as
 ``hymba_launches`` and its instance's times as ``hymba_<key>``, the FMA
-kernel's in turns as ``hymba_fma_ms``), and, as the last line,
+kernel's in turns as ``hymba_fma_ms``; every row's ``serve_launches``,
+0), and, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a CUDA device, and when the repository's ``src/`` is not beside it.
 """
@@ -3077,6 +3100,368 @@ def run_dma_path(ops, trainer, batch):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# serving: decode on the LM and the continuous-batching engine (Q1-Q3)
+# ---------------------------------------------------------------------------
+
+# Q1 and Q2: full width, 2 layers, fp32; a squad-length prompt prefilled
+# in chunks of 32 and a remainder, then 16 tokens decoded
+SERVE_CHECK_ARCHES = ("qwen3_1p7b", "mamba2_1p3b", "hymba_1p5b")
+SERVE_CHUNK = 32
+SERVE_DECODE = 16
+# |cached - forward| / |forward| (Frobenius, every position's logits)
+# below which the cached path counts as the forward; it must sit between
+# the sound runs and the controls (the prefill one position late; the
+# SSM state dropped between chunks), which must miss it.  On an NVIDIA
+# H100 80GB HBM3 at 700 W: 1.7e-6 to 2.4e-6 sound, 4.6e-2 to 0.42 under
+# the controls
+SERVE_RTOL = 1e-4
+# Q2: a burst of 12 squad requests, 16 new tokens each
+ENGINE_CHECK = dict(num_requests=12, max_new_tokens=16, quantum=64,
+                    max_slots=4)
+# Q3: full depth, bf16, through the serve launcher; the budget is what
+# the card already holds, the parameters and SERVE_BUDGET_SLOTS
+# predicted slots of the largest bucket, so the burst must defer.  32 requests took 108-121 s for each
+# model on an NVIDIA H100 80GB HBM3 at 700 W; 12 keep Q1-Q3 near two
+# minutes
+SERVE_ARGS = dict(dataset="squad", num_requests=12, max_new_tokens=64,
+                  seed=0, quantum=64, max_slots=8, prefill_chunk=32,
+                  decode_steps=4)
+SERVE_BUDGET_SLOTS = 6
+# decode batches timed after Q3's run (median), after 2 untimed ones
+SERVE_PROFILE_BATCHES = 10
+
+
+def _serve_model(arch):
+    """``arch`` at full width, 2 layers, fp32, its own seeded weights."""
+    from repro_torch.models.lm import LM
+    cfg = path_config(dict(arch=arch), num_layers=2, dtype="float32")
+    return LM(cfg, device="cuda", seed=0)
+
+
+def _squad_prompt(vocab):
+    from repro_torch.data.trace import gen_trace
+    return gen_trace(num_requests=1, vocab_size=vocab, dataset="squad",
+                     rate_rps=0.0, seed=0)[0].prompt
+
+
+def _cached_logits(lm, seq, P, late=0, drop_state=False):
+    """Every position's logits of ``seq`` (1, P + SERVE_DECODE) through
+    the cache: the prompt's P tokens in chunks of SERVE_CHUNK (the full
+    chunks, then the remainder, as ``prefill_into_cache``), then the
+    rest one token at a time, teacher-forced.  Controls: ``late`` shifts
+    every cache index; ``drop_state`` zeroes the SSM and convolution
+    states before each chunk."""
+    from repro_torch.train.serve import cached_serve_step
+    step = cached_serve_step(lm)
+    cache = lm.init_cache(1, seq.shape[1] + late)
+    starts = list(range(0, P, SERVE_CHUNK)) + list(range(P, seq.shape[1]))
+    ends = starts[1:] + [seq.shape[1]]
+    out = []
+    for s, e in zip(starts, ends):
+        if drop_state:
+            for layer in cache:
+                for key in ("ssm", "conv"):
+                    if key in layer:
+                        layer[key] = torch.zeros_like(layer[key])
+        logits, cache = step(seq[:, s:e], cache, s + late)
+        out.append(logits)
+    return torch.cat(out, dim=1)
+
+
+def _rel_err(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def check_cached_decode(arch):
+    """Q1: the cached path's logits at every position against the
+    no-cache forward of the whole sequence (plain path), beside the
+    controls that must miss SERVE_RTOL; ``prefill_into_cache``'s last
+    chunk is the sound run's, bitwise."""
+    from repro_torch.train.serve import prefill_into_cache
+    lm = _serve_model(arch)
+    prompt = _squad_prompt(lm.cfg.vocab_size)
+    P = len(prompt)
+    rng = np.random.default_rng(1)
+    seq = torch.as_tensor(np.concatenate(
+        [prompt, rng.integers(1, lm.cfg.vocab_size, SERVE_DECODE)])[None],
+        dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        want = lm({"tokens": seq})
+    got = _cached_logits(lm, seq, P)
+    last, _ = prefill_into_cache(lm, seq[:, :P], lm.init_cache(1, P),
+                                 chunk=SERVE_CHUNK)
+    if not torch.equal(last, got[:, P - last.shape[1]:P]):
+        raise AssertionError(f"{arch}: prefill_into_cache's last chunk is "
+                             f"not the chunked prefill's")
+    if not torch.isfinite(got).all() or got.shape != want.shape:
+        raise AssertionError(f"{arch}: cached logits {tuple(got.shape)} "
+                             f"not finite or not the forward's shape")
+    err = _rel_err(got, want)
+    controls = {}
+    if lm.kind in ("dense", "hybrid"):
+        controls["index one late"] = _rel_err(
+            _cached_logits(lm, seq, P, late=1), want)
+    if lm.kind in ("ssm", "hybrid"):
+        controls["state dropped between chunks"] = _rel_err(
+            _cached_logits(lm, seq, P, drop_state=True), want)
+    log(f"serve Q1 {arch}: P {P} + {SERVE_DECODE} decoded, chunk "
+        f"{SERVE_CHUNK}; |cached - forward| / |forward| {err:.3e}; under "
+        f"the controls " + ", ".join(f"{n} {e:.3e}"
+                                    for n, e in controls.items())
+        + f" (limit {SERVE_RTOL})")
+    if err > SERVE_RTOL:
+        raise AssertionError(f"{arch}: cached decode disagrees with the "
+                             f"forward ({err:.3e} > {SERVE_RTOL})")
+    blind = [n for n, e in controls.items() if e <= SERVE_RTOL]
+    if blind:
+        raise AssertionError(f"{arch}: the decode check does not tell the "
+                             f"controls {blind} from the cached path")
+    return lm
+
+
+def _tie(lm, prompt, got, want, cache_len):
+    """At the first token where ``got`` and ``want`` differ: whether the
+    two candidates' logits (prefill in chunks of 32 and teacher-forced
+    decode of the common prefix) lie within SERVE_RTOL x max |logit|."""
+    from repro_torch.train.serve import prefill_into_cache
+    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    seq = torch.as_tensor(np.concatenate([prompt, want[:j]])[None],
+                          dtype=torch.long, device="cuda")
+    P = len(prompt)
+    lg, cache = prefill_into_cache(lm, seq[:, :P],
+                                   lm.init_cache(1, cache_len), SERVE_CHUNK)
+    for i in range(P, seq.shape[1]):
+        lg, cache = lm.decode_step(seq[:, i:i + 1], cache, i)
+    lg = lg[0, -1]
+    gap = abs(float(lg[got[j]] - lg[want[j]]))
+    return gap <= SERVE_RTOL * float(lg.abs().max()), j, gap
+
+
+def check_engine_tokens(lm):
+    """Q2: a squad burst through ``ServeEngine`` against a one-request
+    ``generate`` per request at the engine's bucketed cache length,
+    token for token; a request that differs passes only as a tie at its
+    first differing token.  Returns the number of such requests."""
+    from repro_torch.data.trace import gen_trace
+    from repro_torch.train.engine import ServeEngine
+    from repro_torch.train.serve import generate
+    kw = ENGINE_CHECK
+    trace = gen_trace(num_requests=kw["num_requests"],
+                      vocab_size=lm.cfg.vocab_size, dataset="squad",
+                      rate_rps=0.0, max_new_tokens=kw["max_new_tokens"],
+                      seed=0)
+    eng = ServeEngine(lm, hbm_bytes=70e9, quantum=kw["quantum"],
+                      max_slots=kw["max_slots"])
+    res = eng.run(trace)
+    if res.completed != len(trace):
+        raise AssertionError(f"{lm.cfg.name}: engine completed "
+                             f"{res.completed} of {len(trace)}")
+    ties = []
+    for r in trace:
+        prompt = torch.as_tensor(r.prompt[None], dtype=torch.long,
+                                 device="cuda")
+        want = generate(lm, prompt, r.max_new_tokens,
+                        cache_len=eng.bucket_of(r))[0].tolist()
+        got = res.outputs[r.rid]
+        if got == want:
+            continue
+        tie, j, gap = _tie(lm, r.prompt, got, want, eng.bucket_of(r))
+        log(f"serve Q2 {lm.cfg.name}: rid {r.rid} differs at token {j} "
+            f"({got[j]} vs {want[j]}), logit gap {gap:.3e}"
+            + (" (a tie)" if tie else ""))
+        if not tie:
+            raise AssertionError(f"{lm.cfg.name}: rid {r.rid} differs from "
+                                 f"sequential generate, not at a tie")
+        ties.append(r.rid)
+    log(f"serve Q2 {lm.cfg.name}: {len(trace)} requests, "
+        f"{res.total_tokens} tokens equal to sequential generate, "
+        f"{len(ties)} tie-divergent request(s) {ties}; geometries "
+        f"{res.compile_counts}")
+    return len(ties)
+
+
+def run_serve_launcher(arch):
+    """Q3: full depth, bf16, through ``python -m repro_torch.launch.serve``
+    (its ``main``) with the launcher's own seeded parameters, a squad
+    burst under a budget of what the card already holds, the parameters
+    and SERVE_BUDGET_SLOTS predicted slots of the trace's largest
+    bucket."""
+    from repro_torch.data.trace import gen_trace
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.engine import ServeEngine
+    a = SERVE_ARGS
+    cfg = get_config(arch)
+    trace = gen_trace(num_requests=a["num_requests"],
+                      vocab_size=cfg.vocab_size, dataset=a["dataset"],
+                      rate_rps=0.0, max_new_tokens=a["max_new_tokens"],
+                      seed=a["seed"])
+    # the engine's own prediction, on a model that allocates nothing
+    probe = ServeEngine(LM(cfg, device="meta"), hbm_bytes=float("inf"),
+                        quantum=a["quantum"], max_slots=a["max_slots"],
+                        prefill_chunk=a["prefill_chunk"])
+    buckets = {probe.bucket_of(r) for r in trace}
+    # what the card already holds (cuBLAS's workspace, this script's
+    # earlier tensors) is not the server's: the engine measures and
+    # charges it, so it is added to keep the caches' share the same
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    budget = (held + probe.param_bytes
+              + SERVE_BUDGET_SLOTS * probe.slot_bytes(max(buckets)))
+    argv = ["--arch", arch, "--hbm-gb", repr(budget / 1e9),
+            "--rate-rps", "0"]
+    for key in ("dataset", "num_requests", "max_new_tokens", "seed",
+                "quantum", "max_slots", "prefill_chunk", "decode_steps"):
+        argv += ["--" + key.replace("_", "-"), str(a[key])]
+    t0 = time.perf_counter()
+    eng, res = launch_serve.main(argv)
+    secs = time.perf_counter() - t0
+    st = res.stats
+    widths = sorted({k[2] for k in eng.compile_keys if k[0] == "prefill"})
+    decode_geoms = res.compile_counts.get("decode", 0)
+    log(f"serve Q3 {arch}: {cfg.num_layers} layers bf16, "
+        f"{res.completed} completed, {res.rejected} rejected, "
+        f"{st['deferrals']} deferral(s), {st['admitted']} admitted; "
+        f"{res.tokens_per_s:.1f} tokens/s ({res.total_tokens} tokens in "
+        f"{res.wall_s:.2f} s; launcher {secs:.1f} s with the model's "
+        f"build); TTFT p50 / p99 {res.ttft_p50_s * 1e3:.1f} / "
+        f"{res.ttft_p99_s * 1e3:.1f} ms; ITL p50 / p99 "
+        f"{res.itl_p50_s * 1e3:.2f} / {res.itl_p99_s * 1e3:.2f} ms; peak "
+        f"predicted {st['peak_predicted_bytes'] / 1e6:.2f} MB, tensor "
+        f"bytes {st['peak_actual_bytes'] / 1e6:.2f} MB, allocated "
+        f"{res.peak_allocated_bytes / 1e6:.2f} MB, budget "
+        f"{budget / 1e6:.2f} MB (params {probe.param_bytes / 1e6:.2f} MB, "
+        f"held before {held / 1e6:.2f} MB); {card_line()}")
+    log(f"serve Q3 {arch} workspace measured at bucket {max(buckets)}: a "
+        f"prefill chunk of {a['prefill_chunk']} "
+        f"{eng.prefill_ws * a['prefill_chunk'] / 1e6:.2f} MB "
+        f"({eng.prefill_ws / 1e6:.4f} MB a token against the formula's "
+        f"{eng._token_ws / 1e6:.4f}), a decode row "
+        f"{eng.slot_ws / 1e6:.4f} MB, allocated beside the parameters "
+        f"{eng.fixed_bytes / 1e6:.2f} MB")
+    log(f"serve Q3 {arch} geometries: {sorted(eng.compile_keys)}")
+    checks = {
+        "every request completed or rejected":
+            res.completed + res.rejected == a["num_requests"],
+        "none rejected (each fits on an empty card)": res.rejected == 0,
+        "the burst deferred": st["deferrals"] >= 1,
+        "predicted peak within the budget":
+            st["peak_predicted_bytes"] <= eng.hbm_bytes,
+        "tensor-byte peak within the budget":
+            st["peak_actual_bytes"] <= eng.hbm_bytes,
+        "allocator's peak within the budget":
+            res.peak_allocated_bytes <= eng.hbm_bytes,
+        "decode geometries <= buckets x slot tiers":
+            decode_geoms <= len(buckets) * len(eng.tiers),
+        "prefill chunks powers of two <= 32":
+            all(w & (w - 1) == 0 and w <= a["prefill_chunk"]
+                for w in widths),
+    }
+    failed = [n for n, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{arch} serve run: {failed}")
+    summary = dict(res.summary(), budget_mb=round(budget / 1e6, 3),
+                   buckets=len(buckets), tiers=len(eng.tiers),
+                   decode_batch=profile_decode(eng))
+    del eng, res
+    return summary
+
+
+def profile_decode(eng):
+    """One full-depth decode batch at the largest pool ``eng``'s run
+    decoded (most slots, then the longest bucket), every row at half
+    the bucket: its transient bytes against the engine's charge (slots
+    x the measured decode row); its wall time as the engine's
+    ``decode_batch`` span takes it (the call and the (slots,) tokens'
+    copy to the host, synchronised by that copy), the median of
+    SERVE_PROFILE_BATCHES; then one batch under ``torch.profiler`` for
+    its device kernel time and launches.  The busy share is device time
+    over the unprofiled median."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.calibrate import device_rows
+    from repro_torch.train.engine import _transient_bytes
+    lm = eng.lm
+    _, L, S = max((k for k in eng.compile_keys if k[0] == "decode"),
+                  key=lambda k: (k[2], k[1]))
+    cache = lm.init_cache(S, L)
+    tok = torch.ones((S, 1), dtype=torch.long, device="cuda")
+    idx = torch.full((S,), L // 2, dtype=torch.long, device="cuda")
+
+    def batch():
+        return eng._decode_fn(tok, cache, idx)[0].cpu()
+    transient = _transient_bytes(lambda: eng._decode_fn(tok, cache, idx),
+                                 lm.device)
+    for _ in range(2):
+        batch()
+    walls = []
+    for _ in range(SERVE_PROFILE_BATCHES):
+        t0 = time.perf_counter()
+        batch()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        batch()
+    rows = device_rows(prof)
+    del cache
+    wall_ms = float(np.median(walls)) * 1e3
+    dev_ms = sum(r[0] for r in rows)
+    kernels = sum(r[1] for r in rows)
+    layers = lm.cfg.num_layers
+    out = {"slots": S, "bucket": L, "wall_ms": wall_ms,
+           "walls_ms": [w * 1e3 for w in walls],
+           "device_ms": dev_ms if dev_ms else None,
+           "busy_share": dev_ms / wall_ms if dev_ms else None,
+           "launches": kernels, "launches_per_layer": kernels / layers,
+           "transient_mb": transient / 1e6,
+           "charge_mb": S * eng.slot_ws / 1e6}
+    log(f"serve Q3 {lm.cfg.name} decode batch ({S} slots, bucket {L}, "
+        f"{layers} layers): wall {wall_ms:.3f} ms (median of "
+        f"{SERVE_PROFILE_BATCHES}, profiler off); "
+        + (f"device kernels {dev_ms:.3f} ms (profiler on), busy share "
+           f"{dev_ms / wall_ms:.3f}, " if dev_ms else
+           "the profiler reported no device time: busy share not "
+           "measured, ")
+        + f"{kernels} device launches ({kernels / layers:.1f} a layer); "
+        f"transient {transient / 1e6:.2f} MB against the charge "
+        f"{S} x {eng.slot_ws / 1e6:.4f} MB; {card_line()}")
+    for ms, n, name in rows[:8]:
+        log(f"  {ms:9.3f} ms  x{n:<4d} {name[:110]}")
+    if transient > S * eng.slot_ws:
+        raise AssertionError(f"{lm.cfg.name}: a decode batch of {S} slots "
+                             f"needs {transient} bytes beyond the charge "
+                             f"{S * eng.slot_ws:.0f}")
+    return out
+
+
+def run_serve_path(ops):
+    """Q1-Q3, with every kernel's launch count unchanged across them
+    (decode runs the plain paths, as the reference's does)."""
+    before = dict(ops.LAUNCHES)
+    ties = {}
+    for arch in SERVE_CHECK_ARCHES:
+        t0 = time.perf_counter()
+        lm = check_cached_decode(arch)
+        if arch != "hymba_1p5b":
+            ties[arch] = check_engine_tokens(lm)
+        del lm
+        _free()
+        log(f"serve Q1-Q2 {arch}: {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for arch in ("qwen3_1p7b", "mamba2_1p3b"):
+        t0 = time.perf_counter()
+        runs[arch] = run_serve_launcher(arch)
+        _free()
+        log(f"serve Q3 {arch}: {time.perf_counter() - t0:.1f} s")
+    ran = _launched(ops, before)
+    if ran:
+        raise AssertionError(f"the serve path launched kernels: {ran}")
+    log("serve: " + json.dumps({"tie_divergent": ties, "runs": runs}))
+    return {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3276,6 +3661,11 @@ def main() -> int:
         family_errs[fam] = wide[fam]["errs"]
         log(f"{fam} path: {time.perf_counter() - t0:.1f} s")
 
+    # -- serving: decode and the engine (no kernel on this path) --------
+    t0 = time.perf_counter()
+    serve_launches = run_serve_path(ops)
+    log(f"serve path: {time.perf_counter() - t0:.1f} s")
+
     launches["ssd_scan"] += h_launches["ssd_scan"]
     for name in FLASH_KERNELS:
         launches[name] += (h_launches[name] + g_launches[name]
@@ -3291,7 +3681,8 @@ def main() -> int:
                "replaces": replaces, "launches": launches[name],
                "max_abs_err": errs[name], "ms": t["ms"],
                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-               "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+               "serve_launches": serve_launches[name]}
         for extra in ("fma_ms", "chunked_ms"):
             if extra in t:
                 row[extra] = t[extra]

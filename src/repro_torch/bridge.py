@@ -15,10 +15,15 @@ arrays with a leading layer axis; they are unstacked into
 stacked=True)``.  bfloat16 crosses as its 16-bit pattern (``torch``
 cannot read numpy's bfloat16).  Arrays are read with ``np.asarray``
 only, so this module needs no JAX.
+
+Serving caches convert the same way: the reference's ``init_cache`` is
+a list of per-layer dicts in unrolled mode and one dict of arrays with a
+leading layer axis in scan mode; the port's is a list of per-layer dicts
+in both (``cache_from_tree`` / ``cache_to_tree``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -104,3 +109,25 @@ def load_tree(lm: torch.nn.Module, tree) -> None:
     """Copy a reference parameter tree (unrolled or stacked) into
     ``lm``'s parameters."""
     lm.load_state_dict(state_dict_from_tree(tree), strict=True)
+
+
+def cache_from_tree(tree) -> List[Dict[str, torch.Tensor]]:
+    """A reference serving cache (a list of per-layer dicts, or a dict of
+    layer-stacked arrays) as the port's list of per-layer dicts of CPU
+    tensors."""
+    if isinstance(tree, dict):
+        n = len(next(iter(tree.values())))
+        return [{k: _to_torch(np.asarray(v)[i]) for k, v in tree.items()}
+                for i in range(n)]
+    return [{k: _to_torch(v) for k, v in layer.items()} for layer in tree]
+
+
+def cache_to_tree(cache, stacked: bool = False):
+    """The port's cache as numpy: a list of per-layer dicts, or with
+    ``stacked=True`` one dict of arrays with a leading layer axis (the
+    reference's scan-mode layout)."""
+    layers = [{k: _to_numpy(v) for k, v in layer.items()} for layer in cache]
+    if stacked:
+        return {k: np.stack([layer[k] for layer in layers])
+                for k in layers[0]}
+    return layers

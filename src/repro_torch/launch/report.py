@@ -3,11 +3,11 @@
 pad fraction), the step- and plan-cache counts, the background solver's
 and the offload lane's totals, the resilience counters (snapshots,
 restores, OOMs, escalations, retries), and the planner's
-predicted-vs-actual peak bytes per bucket.  Copied from the reference's
-``launch/report.py`` (``engine_report``, ``drift_table``); built from
-the run's ``MetricsRegistry`` snapshot, not from trainer internals.
-The dryrun and roofline tables (A20) and the serve report (A18) are not
-ported.
+predicted-vs-actual peak bytes per bucket; and the serve report a serve
+run prints.  Copied from the reference's ``launch/report.py``
+(``engine_report``, ``drift_table``, ``serve_report``); built from the
+run's ``MetricsRegistry`` snapshot, not from trainer internals.  The
+dryrun and roofline tables (A20) are not ported.
 """
 from __future__ import annotations
 
@@ -156,4 +156,46 @@ def engine_report(trainer, planner=None) -> str:
             lines.append(f"escalations by bucket: {per}")
     # input-aware memory drift: predicted vs audited per-device peak
     lines.extend(drift_table(snap))
+    return "\n".join(lines)
+
+
+def serve_report(engine, result) -> str:
+    """Markdown report of one continuous-batching serve run.
+
+    ``engine``: the ``repro_torch.train.engine.ServeEngine`` after
+    ``run``; ``result``: the ``ServeResult`` it returned.  The
+    reference's rows (throughput and latency percentiles, the admission
+    ledger with predicted-vs-actual peak bytes, the geometries), plus
+    the CUDA allocator's peak and the workspace charges measured for it
+    where the run had one."""
+    snap = engine.telemetry.metrics.snapshot()
+    lines = ["| metric | value |", "|---|---|"]
+    lines.append(f"| completed / rejected | {result.completed} / "
+                 f"{result.rejected} |")
+    lines.append(f"| tokens | {result.total_tokens} "
+                 f"({result.tokens_per_s:.1f} tok/s) |")
+    lines.append(f"| TTFT p50 / p99 | {result.ttft_p50_s * 1e3:.1f} / "
+                 f"{result.ttft_p99_s * 1e3:.1f} ms |")
+    lines.append(f"| inter-token p50 / p99 | {result.itl_p50_s * 1e3:.2f} / "
+                 f"{result.itl_p99_s * 1e3:.2f} ms |")
+    lines.append(f"| admission | {_total(snap, 'serve_admitted')} admitted, "
+                 f"{_total(snap, 'serve_deferrals')} deferral(s), "
+                 f"{_total(snap, 'serve_rejected')} rejected |")
+    lines.append(f"| peak HBM predicted / actual | "
+                 f"{_ftotal(snap, 'serve_peak_predicted_bytes') / 1e6:.2f} / "
+                 f"{_ftotal(snap, 'serve_peak_actual_bytes') / 1e6:.2f} MB "
+                 f"(budget {engine.hbm_bytes / 1e6:.0f} MB) |")
+    if result.peak_allocated_bytes is not None:
+        lines.append(f"| peak allocated (CUDA allocator) | "
+                     f"{result.peak_allocated_bytes / 1e6:.2f} MB |")
+        lines.append(f"| measured workspace charged | prefill "
+                     f"{engine.prefill_ws / 1e6:.3f} MB/token, decode "
+                     f"{engine.slot_ws / 1e6:.3f} MB/slot, beside the "
+                     f"parameters {engine.fixed_bytes / 1e6:.2f} MB |")
+    lines.append(f"| pools | {_total(snap, 'serve_pool_grows')} grow(s), "
+                 f"{_total(snap, 'serve_decode_batches')} decode batch(es), "
+                 f"{_total(snap, 'serve_prefill_chunks')} prefill chunk(s) |")
+    comp = ", ".join(f"{k}: {v}" for k, v in
+                     sorted(result.compile_counts.items()))
+    lines.append(f"| compiled geometries | {comp} |")
     return "\n".join(lines)

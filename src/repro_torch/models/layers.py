@@ -8,7 +8,10 @@ takes GQA, RoPE or M-RoPE, causal / sliding-window / per-layer
 local-global masks, qk-norm, bidirectional self attention (the encoder)
 and cross attention over precomputed keys and values (the decoder of an
 encoder-decoder); the plain path of a local layer runs the banded
-``sdpa_banded_local`` where the reference does.
+``sdpa_banded_local`` where the reference does.  ``attention_decode`` is
+the cached form serving runs: it writes the new keys and values into a
+KV cache and attends over it (``sdpa_reference``, as the reference's
+decode).
 """
 from __future__ import annotations
 
@@ -179,6 +182,35 @@ def sdpa_reference(q, k, v, mask) -> torch.Tensor:
     return out.reshape(B, Sq, H, hd)
 
 
+def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor, positions,
+                 mrope_positions, cross_kv):
+    """q (B, S, H, hd), k and v (B, S or Sk, Hkv, hd): the projections,
+    qk-norm and RoPE (M-RoPE when ``cfg.mrope`` and ``mrope_positions``
+    are given) of self attention, or ``cross_kv`` as they are."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
+    if cross_kv is None:
+        k = (x @ params["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
+        v = (x @ params["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+    else:
+        k, v = cross_kv
+    if cfg.qk_norm:
+        q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
+        if cross_kv is None:
+            k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
+    if cross_kv is None:
+        if cfg.mrope and mrope_positions is not None:
+            q = apply_mrope(q, mrope_positions, cfg.rope_theta,
+                            cfg.mrope_sections)
+            k = apply_mrope(k, mrope_positions, cfg.rope_theta,
+                            cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
 def attention_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
                     positions: torch.Tensor, layer_is_global: bool = True,
                     impl: str = "xla",
@@ -212,26 +244,8 @@ def attention_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
         raise ValueError(f"attn impl must be 'xla' or 'flash', not {impl!r}")
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
-    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
-    if cross_kv is None:
-        k = (x @ params["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-        v = (x @ params["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
-    else:
-        k, v = cross_kv
-    if cfg.qk_norm:
-        q = rmsnorm_apply(params["q_norm"], q, cfg.norm_eps)
-        if cross_kv is None:
-            k = rmsnorm_apply(params["k_norm"], k, cfg.norm_eps)
-    if cross_kv is None:
-        if cfg.mrope and mrope_positions is not None:
-            q = apply_mrope(q, mrope_positions, cfg.rope_theta,
-                            cfg.mrope_sections)
-            k = apply_mrope(k, mrope_positions, cfg.rope_theta,
-                            cfg.mrope_sections)
-        else:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
-
+    q, k, v = _project_qkv(params, cfg, x, positions, mrope_positions,
+                           cross_kv)
     W = cfg.sliding_window
     is_local = not layer_is_global and W > 0
     causal_self = cross_kv is None and causal
@@ -254,6 +268,68 @@ def attention_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
             mask = mask & key_valid[:, None, :]
         out = sdpa_reference(q, k, v, mask)
     return out.reshape(B, S, cfg.num_heads * hd) @ params["wo"]
+
+
+def cache_write(buf: torch.Tensor, new: torch.Tensor, index) -> None:
+    """Write ``new`` (B, C, ...) into ``buf`` (B, Smax, ...) in place at
+    sequence position ``index``.
+
+    * An int: the rows ``[s, s + C)`` of every batch row, with the start
+      clamped to ``[0, Smax - C]`` as ``jax.lax.dynamic_update_slice``
+      clamps it.
+    * A (B,) integer tensor: row b at ``[index[b], index[b] + C)``;
+      positions outside ``[0, Smax)`` write nothing (the reference's
+      scatter ``mode="drop"``), so a row parked at ``index == Smax``
+      keeps its cache.  Each such position is sent to its column modulo
+      Smax with the value already there, so every write of a row has its
+      own column (C <= Smax) and the scatter has no conflicting
+      writes."""
+    B, C = new.shape[:2]
+    Smax = buf.shape[1]
+    if C > Smax:
+        raise ValueError(f"{C} new positions do not fit a cache of {Smax}")
+    new = new.to(buf.dtype)
+    if isinstance(index, torch.Tensor) and index.ndim >= 1:
+        cols = index.to(device=buf.device, dtype=torch.long)[:, None] \
+            + torch.arange(C, device=buf.device)               # (B, C)
+        valid = (cols >= 0) & (cols < Smax)
+        cols = torch.remainder(cols, Smax)
+        rows = torch.arange(B, device=buf.device)[:, None].expand(B, C)
+        keep = valid.reshape(B, C, *([1] * (new.ndim - 2)))
+        buf[rows, cols] = torch.where(keep, new, buf[rows, cols])
+    else:
+        s = min(max(int(index), 0), Smax - C)
+        buf[:, s:s + C] = new
+
+
+def attention_decode(params, cfg: ModelConfig, x: torch.Tensor, *,
+                     positions: torch.Tensor, kv_cache: dict, cache_index,
+                     layer_is_global: bool = True,
+                     mrope_positions: Optional[torch.Tensor] = None):
+    """Self attention over a KV cache (decode and chunked prefill): the
+    reference's ``attention_apply`` with ``kv_cache``.  Returns ``(out,
+    kv_cache)``.
+
+    x: (B, C, d), the C new tokens at ``positions`` (B, C);
+    ``kv_cache = {"k", "v"}``, (B, Smax, Hkv, hd) each, written in place
+    at ``cache_index`` (an int or a (B,) tensor; ``cache_write``).  A
+    query at position p sees the cache slots k <= p, under the causal
+    and sliding-window mask (the window on a local layer only), through
+    ``sdpa_reference``: slots past a query's own position hold later
+    rows of its chunk or stale data."""
+    B, C, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    q, k, v = _project_qkv(params, cfg, x, positions, mrope_positions, None)
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    cache_write(ck, k, cache_index)
+    cache_write(cv, v, cache_index)
+    Smax = ck.shape[1]
+    k_pos = torch.arange(Smax, device=x.device)[None].expand(B, Smax)
+    mask = (build_mask(positions, k_pos, cfg.sliding_window, layer_is_global)
+            & (k_pos[:, None, :] <= positions[..., :, None]))
+    out = sdpa_reference(q, ck, cv, mask)
+    return (out.reshape(B, C, cfg.num_heads * hd) @ params["wo"],
+            {"k": ck, "v": cv})
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,8 @@ again in the backward.
     lm = LM(cfg, attn_impl="flash", device="cuda")
     loss, metrics = lm.loss(batch, actions)
     units = lm.plan_units(batch)          # for the Mimose collector
+    cache = lm.init_cache(batch_size, max_len)
+    logits, cache = lm.decode_step(tokens, cache, index)   # serving
 
 Parameters keep the reference's tree and layout (``embed``,
 ``final_norm.scale``, ``lm_head`` when untied, ``blocks.<i>.{norm1,
@@ -169,11 +171,48 @@ def block_apply(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
         x = x + L.attention_apply(params["cross"], cfg, hx,
                                   positions=positions, impl=impl,
                                   cross_kv=(ck, cv))
-    h2 = L.rmsnorm_apply(params["norm2"], x, eps)
+    return _ffn(params, cfg, x, kind)
+
+
+def _ffn(params, cfg: ModelConfig, x, kind: str):
+    """The pre-norm MLP (the MoE for ``"moe"``), residual: ``(x, aux)``."""
+    h2 = L.rmsnorm_apply(params["norm2"], x, cfg.norm_eps)
     if kind == "moe":
         out, aux = MOE.moe_apply(params["moe"], cfg, h2)
         return x + out, aux
     return x + L.mlp_apply(params["mlp"], h2, cfg.mlp_act), None
+
+
+def block_decode(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
+                 positions: torch.Tensor, cache: dict, cache_index,
+                 layer_is_global: bool = True,
+                 mrope_positions: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """``block_apply`` over the layer's cache (the reference's
+    ``block_apply`` with ``cache`` and ``decode=True``, kinds dense, moe,
+    ssm and hybrid): x (B, C, d) are the C new tokens at ``positions``.
+    The cache dict is updated: k and v written in place at
+    ``cache_index``, ``ssm`` and ``conv`` replaced by the new states.
+    The MoE's auxiliary loss is dropped, as the reference's decode
+    drops it."""
+    h = L.rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        out, (cache["ssm"], cache["conv"]) = M.mamba2_decode(
+            params["ssm"], cfg, h, cache["ssm"], cache["conv"])
+        x = x + out
+        if not cfg.d_ff:
+            return x
+    elif kind == "hybrid":
+        x = x + HY.hymba_decode(params["mixer"], cfg, h, positions=positions,
+                                cache=cache, cache_index=cache_index,
+                                layer_is_global=layer_is_global)
+    else:
+        x = x + L.attention_decode(params["attn"], cfg, h,
+                                   positions=positions, kv_cache=cache,
+                                   cache_index=cache_index,
+                                   layer_is_global=layer_is_global,
+                                   mrope_positions=mrope_positions)[0]
+    return _ffn(params, cfg, x, kind)[0]
 
 
 class _OffloadChain:
@@ -547,6 +586,129 @@ class LM(nn.Module):
             return ce, {"ce": ce, "aux": torch.zeros_like(ce),
                         "tokens": total_w}
         return ce + aux, {"ce": ce, "aux": aux, "tokens": total_w}
+
+    # -- decode (serving) ----------------------------------------------------
+    # The cache is one dict per decoder layer in both remat modes (the
+    # port's parameters are per layer), so the request/batch axis of
+    # every leaf is 0: k, v (B, Smax, Hkv, hd) in the model's dtype for
+    # the attention kinds, ssm (B, H, P, N) fp32 and conv (B, K - 1,
+    # conv_dim) in the model's dtype for ssm and hybrid.  Every cache
+    # method runs under ``torch.inference_mode`` (the parameters require
+    # grad, and a decode step must build no autograd graph), and writes
+    # the cache in place: a caller that wants the old cache clones it.
+
+    @torch.inference_mode()
+    def init_cache(self, batch_size: int, max_len: int,
+                   device=None) -> List[Dict[str, torch.Tensor]]:
+        """A zero cache of ``batch_size`` rows and ``max_len`` positions,
+        on ``device`` (the model's by default; ``"meta"`` allocates
+        nothing).  The encoder-decoder family has none: its decoder needs
+        each request's encoder frames."""
+        if self.kind == "dec":
+            raise ValueError(
+                "encoder/decoder serving needs encoder frames per request;"
+                " the continuous-batching engine serves decoder-only "
+                "families (dense/moe/ssm/hybrid)")
+        cfg, dt = self.cfg, self.dtype
+        dev = self.device if device is None else torch.device(device)
+        B = batch_size
+        one = {}
+        if self.kind in ("dense", "moe", "hybrid"):
+            hd = cfg.resolved_head_dim()
+            for key in ("k", "v"):
+                one[key] = ((B, max_len, cfg.num_kv_heads, hd), dt)
+        if self.kind in ("ssm", "hybrid"):
+            _, H, N, conv_dim = M.mamba2_dims(cfg)
+            one["ssm"] = ((B, H, cfg.ssm_head_dim, N), torch.float32)
+            one["conv"] = ((B, cfg.conv_kernel - 1, conv_dim), dt)
+        return [{k: torch.zeros(shape, dtype=d, device=dev)
+                 for k, (shape, d) in one.items()}
+                for _ in range(cfg.num_layers)]
+
+    def cache_batch_axis(self) -> int:
+        """The request/batch axis of every cache leaf: 0 in both modes
+        (the reference stacks a leading layer axis in scan mode)."""
+        return 0
+
+    @staticmethod
+    def _rows(leaf: torch.Tensor, slot, n: int) -> slice:
+        """Rows ``[slot, slot + n)`` with the start clamped to ``[0,
+        B - n]``, as ``jax.lax.dynamic_slice`` clamps it."""
+        s = min(max(int(slot), 0), leaf.shape[0] - n)
+        return slice(s, s + n)
+
+    @torch.inference_mode()
+    def cache_insert(self, pool, rows, slot):
+        """Write ``rows`` (a cache of >= 1 request rows, such as a
+        prefill staging cache) into ``pool`` from batch row ``slot``, in
+        place; returns ``pool``.  Shapes match outside the batch axis."""
+        for p_layer, r_layer in zip(pool, rows):
+            for key, p in p_layer.items():
+                r = r_layer[key]
+                p[self._rows(p, slot, r.shape[0])] = r.to(p.dtype)
+        return pool
+
+    @torch.inference_mode()
+    def cache_grow(self, pool, batch_size: int):
+        """``pool`` with ``batch_size`` rows: its own rows first, zero
+        rows after (the reference's ``cache_insert`` of the pool into a
+        new ``init_cache(batch_size, ...)`` at row 0).  Leaf by leaf in
+        the layer dicts, so at most one old leaf is alive beside the new
+        cache, not the whole old pool; returns ``pool``."""
+        for layer in pool:
+            for key, p in layer.items():
+                grown = p.new_zeros((batch_size, *p.shape[1:]))
+                grown[:p.shape[0]] = p
+                layer[key] = grown
+        return pool
+
+    @torch.inference_mode()
+    def cache_extract(self, pool, slot):
+        """One request row of ``pool`` as a new batch-1 cache."""
+        return [{key: p[self._rows(p, slot, 1)].clone()
+                 for key, p in layer.items()} for layer in pool]
+
+    @torch.inference_mode()
+    def cache_evict(self, pool, slot):
+        """Zero one request row of ``pool`` in place (a freed slot keeps
+        no stale state); returns ``pool``."""
+        for layer in pool:
+            for p in layer.values():
+                p[self._rows(p, slot, 1)] = 0
+        return pool
+
+    @torch.inference_mode()
+    def decode_step(self, tokens: torch.Tensor, cache, index
+                    ) -> Tuple[torch.Tensor, list]:
+        """tokens: (B, C) integer, C == 1 for token decode or a block of
+        the prompt for chunked prefill; ``index``: the position of the
+        first token, an int for every row, or a (B,) integer tensor of
+        per-row positions (the continuous-batching engine's form; a row
+        parked at index == cache length writes nothing).  Returns
+        (logits (B, C, V) fp32, cache), the cache advanced by C
+        positions in place.  Every mixer runs its plain path, as the
+        reference's decode runs ``impl="xla"``; the vlm family decodes
+        text only, its M-RoPE streams all at the text positions."""
+        cfg = self.cfg
+        B, C = tokens.shape
+        x = self.embed[tokens]
+        offs = torch.arange(C, device=x.device)
+        if isinstance(index, torch.Tensor) and index.ndim >= 1:
+            index = index.to(device=x.device, dtype=torch.long)
+            positions = index[:, None] + offs[None, :]
+        else:
+            index = int(index)
+            positions = (index + offs).expand(B, C)
+        mrope_positions = (positions[None].expand(3, B, C) if cfg.mrope
+                           else None)
+        for i, (blk, layer_cache) in enumerate(zip(self.blocks, cache)):
+            x = block_decode(blk, cfg, x, self.kind, positions=positions,
+                             cache=layer_cache, cache_index=index,
+                             layer_is_global=self._is_global(i),
+                             mrope_positions=mrope_positions)
+        x = L.rmsnorm_apply(self.final_norm, x, cfg.norm_eps)
+        head = self.embed.t() if self.lm_head is None else self.lm_head
+        return (x @ head).float(), cache
 
     # -- plan units ----------------------------------------------------------
     def num_plan_units(self) -> int:

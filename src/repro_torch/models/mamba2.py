@@ -1,12 +1,14 @@
-"""Mamba2 / SSD (state-space duality) mixer  [arXiv:2405.21060], training
-path.
+"""Mamba2 / SSD (state-space duality) mixer  [arXiv:2405.21060].
 
-Counterpart of the reference's ``models/mamba2.py`` without a cache:
-``ssd_chunked`` (the chunked SSD algorithm in plain PyTorch), the mixer's
-init and its no-cache forward.  The forward's chunk scan runs through
-``ssd_chunked`` (``impl="xla"``, the reference's own formulation) or the
-hand-written kernel (``impl="flash"``, ``kernels.ops.ssd_scan``).  The
-decode step (``ssd_step``) and the cached branch belong to serving.
+Counterpart of the reference's ``models/mamba2.py``: ``ssd_chunked``
+(the chunked SSD algorithm in plain PyTorch), the single-token
+``ssd_step``, the mixer's init, its no-cache forward (``mamba2_apply``)
+and its cached form for serving (``mamba2_decode``).  The forward's
+chunk scan runs through ``ssd_chunked`` (``impl="xla"``, the
+reference's own formulation) or the hand-written kernel
+(``impl="flash"``, ``kernels.ops.ssd_scan``).  Decode carries a state,
+which the kernel neither takes nor returns, so it runs the plain
+``ssd_step`` and ``ssd_chunked``, as the reference's decode does.
 
 Layout conventions:
     x   : (B, S, H, P)   per-head channels
@@ -96,6 +98,18 @@ def ssd_chunked(x, dt, A, B, C, chunk: int,
     return y.to(x.dtype), state
 
 
+def ssd_step(state, x_t, dt_t, A, B_t, C_t):
+    """One decode step in fp32.  state: (B, H, P, N); x_t: (B, H, P);
+    dt_t: (B, H); B_t, C_t: (B, N).  Returns (y in x_t's dtype, the new
+    fp32 state)."""
+    dt32 = dt_t.float()
+    dA = torch.exp(dt32 * A.float())                            # (B, H)
+    upd = torch.einsum("bh,bhp,bn->bhpn", dt32, x_t.float(), B_t.float())
+    new_state = state * dA[:, :, None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, C_t.float())
+    return y.to(x_t.dtype), new_state
+
+
 # ---------------------------------------------------------------------------
 # full mixer (in_proj -> conv -> SSD -> gated norm -> out_proj)
 # ---------------------------------------------------------------------------
@@ -156,11 +170,9 @@ def mamba2_apply(params, cfg: ModelConfig, u: torch.Tensor, *,
 
     zxbcdt = u @ params["in_proj"]
     z, xBC, dt_raw = torch.split(zxbcdt, [d_inner, conv_dim, H], dim=-1)
-    xBC = F.silu(_causal_conv(xBC, params["conv_w"], params["conv_b"]))
-    x, B_, C_ = torch.split(xBC, [d_inner, N, N], dim=-1)
-    x = x.reshape(Bt, S, H, cfg.ssm_head_dim)
-    dt = mask_dt(softplus(dt_raw.float() + params["dt_bias"]), seq_lens)
-    A = -torch.exp(params["A_log"])
+    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
+    x, B_, C_, dt, A = _ssd_inputs(params, cfg, xBC, dt_raw)
+    dt = mask_dt(dt, seq_lens)
 
     if impl == "flash":
         from repro_torch.kernels import ops as kernel_ops
@@ -170,8 +182,53 @@ def mamba2_apply(params, cfg: ModelConfig, u: torch.Tensor, *,
         y, _ = ssd_chunked(x, dt, A, B_, C_, cfg.ssm_chunk)
     else:
         raise ValueError(f"ssd impl must be 'xla' or 'flash', not {impl!r}")
+    return _mixer_out(params, cfg, y, x, z)
 
+
+def _ssd_inputs(params, cfg: ModelConfig, xBC, dt_raw):
+    """(x (B, S, H, P), B, C (B, S, N), dt (B, S, H) fp32, A (H,)) from
+    the convolved ``xBC`` and the raw step sizes."""
+    d_inner, H, N, _ = mamba2_dims(cfg)
+    x, B_, C_ = torch.split(F.silu(xBC), [d_inner, N, N], dim=-1)
+    x = x.reshape(*x.shape[:2], H, cfg.ssm_head_dim)
+    dt = softplus(dt_raw.float() + params["dt_bias"])
+    return x, B_, C_, dt, -torch.exp(params["A_log"])
+
+
+def _mixer_out(params, cfg: ModelConfig, y, x, z):
+    """The D skip, the gated norm and the output projection."""
     y = y + params["D"].to(y.dtype)[None, None, :, None] * x
-    y = y.reshape(Bt, S, d_inner)
+    y = y.reshape(*y.shape[:2], -1)
     y = L.rmsnorm_apply(params["norm"], y * F.silu(z), cfg.norm_eps)
     return y @ params["out_proj"]
+
+
+def mamba2_decode(params, cfg: ModelConfig, u: torch.Tensor,
+                  ssm_state: torch.Tensor, conv_state: torch.Tensor):
+    """The mixer over C >= 1 new tokens from a cached state (the
+    reference's ``mamba2_apply(..., decode=True)``).  u: (B, C, d);
+    ``ssm_state`` (B, H, P, N) fp32; ``conv_state`` (B, K - 1, conv_dim),
+    the last K - 1 inputs of the convolution.  Returns ``(out,
+    (ssm_state, conv_state))``, both new tensors.
+
+    The causal convolution slides over ``[conv_state, new inputs]``; the
+    scan is ``ssd_step`` for C == 1 and ``ssd_chunked`` from the cached
+    state for a chunk of the prompt.  No length masking: every row's
+    tokens are real, as in the reference."""
+    Bt, C, _ = u.shape
+    d_inner, H, N, conv_dim = mamba2_dims(cfg)
+    zxbcdt = u @ params["in_proj"]
+    z, xBC, dt_raw = torch.split(zxbcdt, [d_inner, conv_dim, H], dim=-1)
+    full = torch.cat([conv_state, xBC], dim=1)          # (B, K-1+C, conv)
+    new_conv = full[:, C:]
+    xBC = sum(full[:, i:i + C, :] * params["conv_w"][i]
+              for i in range(cfg.conv_kernel)) + params["conv_b"]
+    x, B_, C_, dt, A = _ssd_inputs(params, cfg, xBC, dt_raw)
+    if C == 1:
+        y, new_ssm = ssd_step(ssm_state, x[:, 0], dt[:, 0], A, B_[:, 0],
+                              C_[:, 0])
+        y = y[:, None]
+    else:
+        y, new_ssm = ssd_chunked(x, dt, A, B_, C_, cfg.ssm_chunk,
+                                 initial_state=ssm_state)
+    return _mixer_out(params, cfg, y, x, z), (new_ssm, new_conv)
