@@ -41,6 +41,25 @@ Phases (each raises on failure; the script then exits non-zero):
    step's (k = 3 adds a pad row of length 0), and the flash kernels on a
    length-0 row; the three planning constants of
    ``launch/roofline.py`` measured (``launch/calibrate.py``);
+3b2. sharding path (after the planners path; ``run_sharding_path``):
+   (a) the main path again through ``launch.train.main`` with
+   ``--mesh-shape 1x1 --hbm-gb 80`` at the main budget, a one-device
+   ``DeviceMesh`` built, snapshots at step 8 and 16: every step's
+   actions and loss bitwise the main path's, its launches by the main
+   path's formula, the plan keys carrying ((data, 1), (model, 1)); (b)
+   ``--resume`` from the step-8 snapshot under ``--mesh-shape 4x2
+   --zero1 --hbm-gb`` (the main budget in GiB), planned per device and
+   executed on this card: the mesh changed, every logged sample
+   replayed, every stored plan dropped, no collection, no bucket
+   rematerialising more units than under 1x1, each plan's simulated
+   per-device peak within the per-device budget, the losses the
+   uninterrupted run's (bitwise, else within ``OFFLOAD_TOL``), K1 = sum
+   k (12 + recomputed layers), K2 = K3 = sum 12 k; the allocator's peak
+   logged beside the per-device prediction; (c) on the host, full-depth
+   ``gemma3_12b`` on ``meta`` planned for bucket 448 at B = 8 under 80
+   GiB a device on (1,), (4, 2) and (4, 2) with ZeRO-1: fixed bytes per
+   device within 1 % of 141.2, 70.6 and 35.3 GB, (1,) infeasible, (4,
+   2) with ZeRO-1 feasible; each part's wall time;
 3c. offload path: full-width ``bert_base_paper``, the first 8 batches,
    each run through ``repro_torch.launch.train.main`` with every
    telemetry sink on (``--metrics``, ``--events-out``, ``--trace-out``
@@ -62,7 +81,9 @@ Phases (each raises on failure; the script then exits non-zero):
    at the reference's tolerances) and the device bytes held after the
    forward down by the offloaded inputs; three OFFLOAD_OPT split steps
    against three fused ones, parameters equal; the bert main path with
-   every sink on and off, losses bitwise equal;
+   every sink on and off (off, on, on, off), losses bitwise equal, each
+   warm step's host time and device time (CUDA events around
+   ``Trainer.step``) and their medians;
 3d. resilience path (full-width ``bert_base_paper``, the main path's
    budget and batches, deterministic algorithms on): R1, 16 steps
    against 8, a snapshot (``train/resilience.py``), every object
@@ -188,9 +209,9 @@ Phases (each raises on failure; the script then exits non-zero):
    its device time (busy share) and kernel launches per layer;
 
 then prints the card line, one ``{"kernels": [...]}`` JSON line (no new
-kernel on the offload and resilience paths: they run K1-K3; K1-K3
-launches are the bert, resilience, hymba, granite, seamless, qwen2-vl,
-stablelm and gemma3 paths', with each bf16 family's
+kernel on the sharding, offload and resilience paths: they run K1-K3;
+K1-K3 launches are the bert, sharding, resilience, hymba, granite,
+seamless, qwen2-vl, stablelm and gemma3 paths', with each bf16 family's
 ``<family>_max_abs_err`` beside the maximum and the stablelm and gemma3
 instances' launches, ms, plain, bound and library ms as
 ``<family>_<key>``; K4's are the mamba2 and hymba paths' launches of
@@ -1130,6 +1151,242 @@ def run_planners_path(args, budget_mb, fa, ops):
 
 
 # ---------------------------------------------------------------------------
+# the sharding path: per-device planning on a mesh (bert, gemma3 on meta)
+# ---------------------------------------------------------------------------
+
+# the reshape resume's mesh, and gemma3's planning case: bucket 448 at
+# B = 8 under 80 GiB a device, with each mesh's fixed bytes per device
+# (GB) from the config: 11.77 G parameters x (2 + 2 + 8) bytes on one
+# device; every projection and the tied embedding over model 2; the
+# moments over data 4 more with ZeRO-1
+SHARD_MESH = "4x2"
+GEMMA3_PLAN = dict(B=8, S=448, hbm_gib=80)
+GEMMA3_FIXED_GB = [((1,), False, 141.2), ((4, 2), False, 70.6),
+                   ((4, 2), True, 35.3)]
+
+
+class _Tee:
+    """A stdout that also keeps what it is given."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, []
+
+    def write(self, text):
+        self.kept.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _cached_plans(planner):
+    """``[(plan key, plan)]`` of the planner's cache."""
+    return [(k, planner.cache[k]) for k in list(planner.cache.keys())]
+
+
+def _step_actions(trainer):
+    """Each step's action tuple: its bucket's cached plan (no solver and
+    no escalation on these runs, so a bucket keeps one plan)."""
+    plans = {k[0]: p for k, p in _cached_plans(trainer.planner)}
+    return [tuple(int(a) for a in plans[s.bucket].as_actions())
+            for s in trainer.history]
+
+
+def run_sharding_path(args, budget_mb, main_run):
+    """(a) the main path under a built one-device mesh (``--mesh-shape
+    1x1 --hbm-gb 80``, the main budget), with snapshots at step 8 and at
+    the end: every step's actions and loss bitwise the main path's
+    (``main_run``), launches by the main path's formula, plan keys
+    carrying ((data, 1), (model, 1)); (b) a resume from its step-8
+    snapshot under ``--mesh-shape 4x2 --zero1 --hbm-gb`` the main budget
+    in GiB, planned per device and executed on this card; (c)
+    full-depth gemma3_12b on ``meta`` planned per device.  Returns the
+    flash launches of (a) and (b)."""
+    import ast
+    import contextlib
+    import os
+    import tempfile
+    from repro_torch.core.simulator import simulate_sharded
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    timing, res = {}, {}
+    half = args["steps"] // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, ck_half = os.path.join(tmp, "ck"), os.path.join(tmp, "half")
+        # (a) a built (1, 1) mesh
+        t0 = time.perf_counter()
+        trainer, la = run_main_path(args, budget_mb, [
+            "--mesh-shape", "1x1", "--hbm-gb", "80",
+            "--checkpoint-dir", ck, "--checkpoint-every-steps", str(half)])
+        sig = trainer.planner.mesh_sig()
+        acts = _step_actions(trainer)
+        losses = [s.loss for s in trainer.history]
+        checks = {
+            "a mesh (data 1, model 1) built": trainer.mesh is not None
+            and tuple(trainer.mesh.mesh_dim_names) == ("data", "model"),
+            "plan keys carry ((data, 1), (model, 1))":
+                sig[0] == (("data", 1), ("model", 1))
+                and all(k[1] == sig for k in trainer.planner.cache.keys()),
+            "every step's actions equal the main path's":
+                acts == main_run["actions"],
+            "losses bitwise equal the main path's":
+                losses == main_run["losses"],
+        }
+        plans_1x1 = {k[0]: p.n_remat
+                     for k, p in _cached_plans(trainer.planner)}
+        timing["a"] = time.perf_counter() - t0
+        log(f"sharding (a) 1x1 mesh: {len(losses)} steps, launches "
+            f"{ {k: la[k] for k in FLASH_KERNELS} }, n_remat per bucket "
+            f"{plans_1x1}; checks " + json.dumps(checks))
+        if not all(checks.values()):
+            raise AssertionError(f"sharding (a) checks failed: {checks}")
+        del trainer
+        _free()
+        # (b) resume from the step-8 snapshot under another mesh shape
+        t0 = time.perf_counter()
+        snap = f"snap-{half:08d}"
+        os.makedirs(ck_half)
+        os.replace(os.path.join(ck, snap), os.path.join(ck_half, snap))
+        with open(os.path.join(ck_half, snap, "planner.json")) as f:
+            stored = json.load(f)
+        argv = ["--arch", args["arch"], "--dataset", args["dataset"],
+                "--planner", "mimose", "--attn-impl", "flash",
+                "--steps", str(args["steps"]),
+                "--batch-size", str(args["batch_size"]),
+                "--quantum", str(args["quantum"]), "--device", "cuda",
+                "--mesh-shape", SHARD_MESH, "--zero1",
+                "--hbm-gb", f"{budget_mb / 1024:.6f}",
+                "--checkpoint-dir", ck_half, "--resume"]
+        log("sharding (b): python -m repro_torch.launch.train "
+            + " ".join(argv))
+        ops.reset_launches()
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            trainer = launch_train.main(argv)
+        torch.cuda.synchronize()
+        lb = _flash_launches([trainer.history], dict(ops.LAUNCHES),
+                             "sharding (b)")
+        line = next(ln for ln in "".join(tee.kept).splitlines()
+                    if ln.startswith("resumed"))
+        summary = ast.literal_eval(line[line.index("planner=")
+                                        + len("planner="):-1])
+        planner = trainer.planner
+        fixed = planner.resolve_fixed_bytes()
+        per_bucket = {}
+        for key, plan in _cached_plans(planner):
+            b = key[0]
+            est = planner.estimator.predict(b)
+            sim = simulate_sharded(est, plan.as_actions(), fixed,
+                                   planner.mesh_budget.n_devices,
+                                   planner.est_output.predict(b))
+            steps = [s for s in trainer.history if s.bucket == b]
+            per_bucket[b] = {
+                "n_remat": plan.n_remat, "n_remat_1x1": plans_1x1.get(b),
+                "sim_peak_per_device_mib": sim.peak_bytes_per_device / 2**20,
+                "predicted_peak_mib": max((s.predicted_peak_bytes
+                                           for s in steps), default=0.0)
+                / 2**20,
+                "allocator_peak_mib": max((s.max_memory_bytes
+                                           for s in steps), default=0)
+                / 2**20}
+        got = torch.tensor([s.loss for s in trainer.history],
+                           dtype=torch.float64)
+        want = torch.tensor(losses[half:], dtype=torch.float64)
+        loss_err = _same_or_close("sharding (b) losses", got, want,
+                                  OFFLOAD_TOL["loss"])
+        st = planner.stats
+        checks = {
+            "mesh_changed": bool(summary["mesh_changed"]),
+            "restored_samples == the sample log's length":
+                summary["restored_samples"] == len(stored["sample_log"]),
+            "restored_plans == 0": summary["restored_plans"] == 0,
+            "dropped_plans == the stored plans (buckets)":
+                summary["dropped_plans"] == len(stored["plans"]) > 0,
+            "no collection after the restore": st["collections"] == 0,
+            "each bucket remats no more units than under 1x1": all(
+                v["n_remat_1x1"] is None or v["n_remat"] <= v["n_remat_1x1"]
+                for v in per_bucket.values()),
+            "simulated per-device peaks within the per-device budget": all(
+                v["sim_peak_per_device_mib"] * 2**20 <= planner.budget_bytes
+                for v in per_bucket.values()),
+            f"{args['steps'] - half} steps from cursor {half}":
+                len(trainer.history) == args["steps"] - half,
+        }
+        timing["b"] = time.perf_counter() - t0
+        res["b"] = {"summary": summary, "loss_max_abs_err": loss_err,
+                    "fixed_per_device_mib": fixed / 2**20,
+                    "budget_per_device_mib": planner.budget_bytes / 2**20,
+                    "buckets": per_bucket}
+        log(f"sharding (b) resume under {SHARD_MESH} zero1 (planned per "
+            f"device, executed on this card): planner {summary}; fixed "
+            f"{fixed / 2**20:.1f} MiB per device of "
+            f"{planner.budget_bytes / 2**20:.1f}; losses "
+            f"{[s.loss for s in trainer.history]} vs "
+            f"{losses[half:]} (max abs error {loss_err}); per bucket "
+            + json.dumps(per_bucket) + "; checks " + json.dumps(checks))
+        if not all(checks.values()):
+            raise AssertionError(f"sharding (b) checks failed: {checks}")
+        del trainer, planner
+        _free()
+    # (c) a model one card cannot hold, planned per device on the host
+    t0 = time.perf_counter()
+    res["c"] = plan_gemma3_on_meshes()
+    timing["c"] = time.perf_counter() - t0
+    res["s"] = timing
+    log("sharding: " + json.dumps({"card": card_line(), **res})
+        + f"; wall (a) {timing['a']:.1f} s, (b) {timing['b']:.1f} s, (c) "
+        f"{timing['c']:.1f} s, total {sum(timing.values()):.1f} s")
+    return {k: la[k] + lb[k] for k in FLASH_KERNELS}
+
+
+def plan_gemma3_on_meshes():
+    """Full-depth gemma3_12b (48 layers) on ``meta``, bucket 448 at B = 8,
+    planned under 80 GiB a device on (1,), (4, 2) and (4, 2) with
+    ZeRO-1: the fixed bytes per device within 1 % of the config's
+    figures, (1,) infeasible (its fixed bytes alone exceed the budget),
+    (4, 2) with ZeRO-1 feasible."""
+    from repro_torch.core.planner import MimosePlanner
+    from repro_torch.core.simulator import simulate_sharded
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import get_config
+    from repro_torch.sharding.budget import MeshBudget
+    lm = LM(get_config("gemma3_12b"), device="meta")
+    n_params = sum(p.numel() for p in lm.parameters())
+    hbm = GEMMA3_PLAN["hbm_gib"] * 2**30
+    batch = {"tokens": torch.zeros((GEMMA3_PLAN["B"], GEMMA3_PLAN["S"]),
+                                   dtype=torch.long)}
+    out, ok = {}, {}
+    for shape, zero1, want_gb in GEMMA3_FIXED_GB:
+        mb = MeshBudget.from_shape(shape, hbm, zero1=zero1)
+        planner = MimosePlanner(lm, mesh_budget=mb, warmup_samples=1,
+                                quantum=64)
+        fixed = planner.resolve_fixed_bytes()
+        acts, info = planner.plan(batch)
+        col = planner.collector.collect(batch)
+        sim = simulate_sharded(col.device_activation_vector(), acts, fixed,
+                               mb.n_devices, col.device_output_vector())
+        name = f"{shape}" + (" zero1" if zero1 else "")
+        out[name] = {"fixed_gb": fixed / 1e9, "want_gb": want_gb,
+                     "activations_gb": float(
+                         col.device_activation_vector().sum()) / 1e9,
+                     "n_remat": info.plan.n_remat,
+                     "units": len(acts),
+                     "sim_peak_per_device_gb": sim.peak_bytes_per_device
+                     / 1e9, "fits": sim.fits(hbm)}
+        ok[f"{name}: fixed within 1 % of {want_gb} GB"] = (
+            abs(fixed / 1e9 - want_gb) <= 0.01 * want_gb)
+    ok["(1,) infeasible"] = not out["(1,)"]["fits"]
+    ok["(4, 2) zero1 feasible"] = out["(4, 2) zero1"]["fits"]
+    log(f"sharding (c) gemma3_12b, {lm.cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f} G parameters, bucket {GEMMA3_PLAN['S']} at "
+        f"B = {GEMMA3_PLAN['B']}, {GEMMA3_PLAN['hbm_gib']} GiB a device: "
+        + json.dumps(out) + "; checks " + json.dumps(ok))
+    if not all(ok.values()):
+        raise AssertionError(f"sharding (c) checks failed: {ok}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the offload path: OFFLOAD and OFFLOAD_OPT executed on the bert main path
 # ---------------------------------------------------------------------------
 
@@ -1526,37 +1783,226 @@ def check_split_equals_fused(args, batches):
             "parked_mib": res["split"][2] / mib}
 
 
+def _timed_steps(times):
+    """A context in which every ``Trainer.step`` appends (host seconds,
+    device seconds) to ``times``: the host clock around the call, which
+    ends in a synchronise, and CUDA events recorded on the stream just
+    before and after it."""
+    import contextlib
+    from repro_torch.train.trainer import Trainer
+    step = Trainer.step
+
+    def timed(self, opt_state, batch):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        out = step(self, opt_state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0, e0.elapsed_time(e1) / 1e3))
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        Trainer.step = timed
+        try:
+            yield
+        finally:
+            Trainer.step = step
+    return ctx()
+
+
+def _sink_seconds(acc):
+    """A context in which the event log's ``emit`` and the tracer's
+    ``complete`` and ``instant`` (what a run with the sinks on does
+    beyond one with them off, bar the files written at exit) add their
+    host seconds to ``acc[0]``."""
+    import contextlib
+    from repro_torch.obs.events import EventLog
+    from repro_torch.obs.tracing import SpanTracer
+    methods = [(EventLog, "emit"), (SpanTracer, "complete"),
+               (SpanTracer, "instant")]
+    originals = [getattr(cls, name) for cls, name in methods]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[0] += time.perf_counter() - t0
+        return call
+
+    @contextlib.contextmanager
+    def ctx():
+        for (cls, name), fn in zip(methods, originals):
+            setattr(cls, name, timed(fn))
+        try:
+            yield
+        finally:
+            for (cls, name), fn in zip(methods, originals):
+                setattr(cls, name, fn)
+    return ctx()
+
+
 def check_telemetry_is_free(args, budget_mb):
-    """The bert main path with every sink on and with them off: losses
-    bitwise equal; warm step times side by side."""
+    """The bert main path with every sink on and with them off, in the
+    order off, on, on, off: losses bitwise equal; each warm step's host
+    time (synchronised clock around ``Trainer.step``) and device time
+    (CUDA events around it), and their medians side by side; and with
+    the sinks on, the host seconds spent inside them per step.  Then,
+    on the last run's trainer, the sinks switched step by step
+    (``alternate_sinks``), which is what decides whether they cost."""
     import tempfile
     out = {}
-    # off, on, on, off: each side once first and once second
+    alt = None
     for i, name in enumerate(("off", "on", "on", "off")):
         with tempfile.TemporaryDirectory() as tmp:
             sinks = _sinks(tmp)
             extra = ([] if name == "off" else
                      ["--metrics", sinks["metrics"], "--events-out",
                       sinks["events"], "--trace-out", sinks["trace"]])
-            trainer, _ = run_main_path(args, budget_mb, extra)
+            times, in_sinks = [], [0.0]
+            with _timed_steps(times), _sink_seconds(in_sinks):
+                trainer, _ = run_main_path(args, budget_mb, extra)
             summ = trainer.summary()
-            out.setdefault(name, []).append(
-                ([s.loss for s in trainer.history],
-                 summ["mean_step_s"] * 1e3, summ["tokens_per_s"]))
+            warm = [t for t, st in zip(times, trainer.history)
+                    if not (st.compile or st.collected)]
+            out.setdefault(name, []).append({
+                "losses": [s.loss for s in trainer.history],
+                "mean_step_ms": summ["mean_step_s"] * 1e3,
+                "tokens_per_s": summ["tokens_per_s"],
+                "host_ms": [round(h * 1e3, 3) for h, _ in warm],
+                "device_ms": [round(d * 1e3, 3) for _, d in warm],
+                "sink_ms_per_step": in_sinks[0] * 1e3 / len(times)})
+            if i == 3:
+                alt = alternate_sinks(trainer, main_path_batches(args), tmp)
             del trainer
             gc.collect()
             torch.cuda.empty_cache()
-    losses = [r[0] for runs in out.values() for r in runs]
+    losses = [r["losses"] for runs in out.values() for r in runs]
     same = all(x == losses[0] for x in losses)
-    ms = {k: [round(r[1], 2) for r in v] for k, v in out.items()}
-    tps = {k: [round(r[2], 1) for r in v] for k, v in out.items()}
+    res = {}
+    for name, runs in out.items():
+        host = [t for r in runs for t in r["host_ms"]]
+        dev = [t for r in runs for t in r["device_ms"]]
+        res[name] = {"median_host_ms": float(np.median(host)),
+                     "median_device_ms": float(np.median(dev)),
+                     "median_host_minus_device_ms": float(np.median(
+                         [h - d for h, d in zip(host, dev)])),
+                     "warm_steps": len(host),
+                     "sink_ms_per_step": [r["sink_ms_per_step"]
+                                          for r in runs],
+                     "mean_step_ms": [round(r["mean_step_ms"], 2)
+                                      for r in runs],
+                     "tokens_per_s": [round(r["tokens_per_s"], 1)
+                                      for r in runs]}
+    for k in ("median_host_ms", "median_device_ms"):
+        res[f"{k}_on_over_off"] = res["on"][k] / res["off"][k]
     log(f"telemetry on vs off (bert main path, {args['steps']} steps, runs "
-        f"off/on/on/off): mean warm step (ms) on {ms['on']} vs off "
-        f"{ms['off']}, tokens/s on {tps['on']} vs off {tps['off']}; losses "
-        + ("bitwise equal in all four" if same else f"DIFFER: {losses}"))
+        f"off/on/on/off, {card_line()}): " + json.dumps(res)
+        + "; per warm step (host ms, device ms): "
+        + json.dumps({n: [list(zip(r["host_ms"], r["device_ms"]))
+                          for r in runs] for n, runs in out.items()})
+        + "; losses " + ("bitwise equal in all four" if same
+                         else f"DIFFER: {losses}"))
     if not same:
         raise AssertionError("telemetry changed the losses")
-    return {"step_ms_on": ms["on"], "step_ms_off": ms["off"]}
+    return {"step_ms_on": res["on"]["mean_step_ms"],
+            "step_ms_off": res["off"]["mean_step_ms"], **{
+                k: v for k, v in res.items() if k.endswith("on_over_off")},
+            "alternating": alt}
+
+
+# the sink settings ``alternate_sinks`` switches between, in the order
+# of each batch's first half (the second half runs them backwards)
+SINK_ORDER = ("off", "events", "trace", "all")
+
+
+def alternate_sinks(trainer, batches, tmp, rounds=11, n_batches=4, seed=0):
+    """The sinks' cost, told apart from run-to-run noise: one warm
+    trainer, its telemetry's event log and span tracer switched between
+    steps.  Each round runs every chosen batch (the first of each of
+    ``n_batches`` buckets) eight times in the order off, events, trace,
+    all, all, trace, events, off -- one batch, so its shape and plan
+    are the same, and mirrored, so a linear drift cancels.  A setting's
+    difference in one such group is the mean of its two steps less the
+    mean of the two off steps; the first round is warm-up and dropped.
+    Per setting: the median difference in ms and as a share of the off
+    step, and its 95 % bootstrap interval (``seed``'s 2000 resamples);
+    and, since the host's interference only ever adds time, the
+    difference of the fastest steps: per batch, the setting's fastest
+    step less the fastest off step, averaged over the batches.
+    ``free`` holds when that interval of "all" contains 0, and
+    ``within_2pct`` when it lies below 2 % of the off step (the
+    reference's gate on full sinks)."""
+    from repro_torch.obs import EventLog, NullEventLog, NullTracer, SpanTracer
+    tel = trainer.telemetry
+    saved = (tel.events, tel.tracer, tel.events_on, tel.trace_on)
+    ev = EventLog(path=str(Path(tmp) / "alternate_events.jsonl"))
+    tr = SpanTracer()
+    settings = {"off": (NullEventLog(), NullTracer()),
+                "events": (ev, NullTracer()), "trace": (NullEventLog(), tr),
+                "all": (ev, tr)}
+    chosen = {}
+    for b in batches:
+        chosen.setdefault(b["tokens"].shape[1], b)
+    chosen = list(chosen.values())[:n_batches]
+    opt_state = trainer.optimizer.init(trainer.params)
+    n_hist = len(trainer.history)
+    order = SINK_ORDER + SINK_ORDER[::-1]
+    diffs = {k: [] for k in SINK_ORDER[1:]}
+    fastest = [{k: math.inf for k in SINK_ORDER} for _ in chosen]
+    off_ms, in_sinks = [], [0.0]
+    try:
+        with _sink_seconds(in_sinks):
+            for r in range(rounds):
+                for b, low in zip(chosen, fastest):
+                    ms = {k: [] for k in SINK_ORDER}
+                    for name in order:
+                        tel.events, tel.tracer = settings[name]
+                        tel.events_on = tel.events is ev
+                        tel.trace_on = tel.tracer is tr
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        opt_state, _ = trainer.step(opt_state, b)
+                        torch.cuda.synchronize()
+                        ms[name].append((time.perf_counter() - t0) * 1e3)
+                    if r == 0:
+                        continue
+                    for k, v in ms.items():
+                        low[k] = min(low[k], *v)
+                    off = float(np.mean(ms["off"]))
+                    off_ms.append(off)
+                    for k in diffs:
+                        diffs[k].append(float(np.mean(ms[k])) - off)
+    finally:
+        tel.events, tel.tracer, tel.events_on, tel.trace_on = saved
+        ev.close()
+    compiled = sum(s.compile for s in trainer.history[n_hist:])
+    rng = np.random.default_rng(seed)
+    base = float(np.median(off_ms))
+    res = {"groups": len(off_ms), "steps": len(trainer.history) - n_hist,
+           "compiles": int(compiled), "median_off_ms": base,
+           "sink_ms_all_settings": in_sinks[0] * 1e3}
+    for k, d in diffs.items():
+        d = np.asarray(d)
+        boot = np.median(rng.choice(d, (2000, len(d))), axis=1)
+        lo, hi = (float(x) for x in np.percentile(boot, [2.5, 97.5]))
+        res[k] = {"median_ms": float(np.median(d)),
+                  "share": float(np.median(d)) / base,
+                  "ci95_ms": [lo, hi],
+                  "fastest_ms": float(np.mean([f[k] - f["off"]
+                                               for f in fastest]))}
+    lo, hi = res["all"]["ci95_ms"]
+    res["free"] = bool(lo <= 0.0 <= hi)
+    res["within_2pct"] = bool(hi < 0.02 * base)
+    log(f"telemetry alternating step by step ({card_line()}; "
+        f"{len(chosen)} batches x {rounds} rounds x 8 steps, first round "
+        f"dropped): " + json.dumps(res))
+    return res
 
 
 def run_offload_path(args, budget_main_mb):
@@ -3505,6 +3951,8 @@ def main() -> int:
     budget_mb = derive_budget_mb(BERT_ARGS, batches[0])
     trainer, path_launches = run_main_path(BERT_ARGS, budget_mb)
     launches.update({k: path_launches[k] for k in FLASH_KERNELS})
+    main_run = {"actions": _step_actions(trainer),
+                "losses": [s.loss for s in trainer.history]}
     check_model(trainer.lm, batches[0], BERT_ARGS["quantum"], 1e-4)
     S_main, main_batch = most_common_bucket(batches)
     profile_step(trainer, main_batch,
@@ -3521,6 +3969,11 @@ def main() -> int:
     t0 = time.perf_counter()
     run_planners_path(BERT_ARGS, budget_mb, fa, ops)
     log(f"planners path: {time.perf_counter() - t0:.1f} s")
+
+    # -- sharding path: per-device planning on a mesh -----------------------
+    t0 = time.perf_counter()
+    sh_launches = run_sharding_path(BERT_ARGS, budget_mb, main_run)
+    log(f"sharding path: {time.perf_counter() - t0:.1f} s")
 
     # -- offload path: OFFLOAD / OFFLOAD_OPT and telemetry on bert --------
     t0 = time.perf_counter()
@@ -3670,7 +4123,7 @@ def main() -> int:
     for name in FLASH_KERNELS:
         launches[name] += (h_launches[name] + g_launches[name]
                            + s_launches[name] + v_launches[name]
-                           + r_launches[name]
+                           + r_launches[name] + sh_launches[name]
                            + sum(w["launches"][name] for w in wide.values()))
         errs[name] = max([errs[name]] + [e[name]
                                          for e in family_errs.values()])

@@ -1,6 +1,5 @@
 """Baseline checkpointing planners the paper compares against (§6.1),
-the counterparts of the reference's ``core/baselines.py`` (single
-device).
+the counterparts of the reference's ``core/baselines.py``.
 
 * ``SublinearPlanner`` — static: one conservative plan computed for the
   *largest* input size the task can produce, applied to every batch
@@ -15,6 +14,9 @@ split only when even evict-everything cannot fit the budget.
 ``SublinearPlanner`` also takes ``MimosePlanner``'s ``offload=`` /
 ``pcie_gbps=`` / ``offload_overlap=`` knobs (its static plan may then
 OFFLOAD units); DTR's evict-on-OOM is remat-only by construction.
+Both take ``MimosePlanner``'s ``mesh_budget=`` and go through the same
+shared accounting (``PlannerBase``), so the comparisons stay like for
+like under a mesh.
 """
 from __future__ import annotations
 
@@ -30,13 +32,16 @@ from repro_torch.core.planner import DEGREE, BUCKET_TOL, PlanInfo, PlannerBase
 from repro_torch.core.scheduler import Plan, greedy_plan, greedy_plan_adaptive
 from repro_torch.core.simulator import dtr_simulate, simulate
 from repro_torch.launch.roofline import plan_unit_flops
+from repro_torch.sharding.budget import MeshBudget
 
 
 class SublinearPlanner(PlannerBase):
     name = "sublinear"
 
-    def __init__(self, lm, budget_bytes: float, max_input_size: int = 0, *,
+    def __init__(self, lm, budget_bytes: Optional[float] = None,
+                 max_input_size: int = 0, *,
                  fixed_bytes: Optional[float] = None,
+                 mesh_budget: Optional[MeshBudget] = None,
                  warmup_samples: int = 4,
                  cost_aware: bool = True,
                  offload: bool = False,
@@ -47,7 +52,8 @@ class SublinearPlanner(PlannerBase):
         if not max_input_size:
             raise ValueError("max_input_size is required")
         self.lm = lm
-        self.budget_bytes = float(budget_bytes)
+        self.mesh_budget = mesh_budget
+        self.budget_bytes = self.resolve_budget_bytes(budget_bytes)
         self.max_input_size = int(max_input_size)
         self.fixed_bytes = fixed_bytes
         self.cost_aware = cost_aware
@@ -56,7 +62,7 @@ class SublinearPlanner(PlannerBase):
         self._init_hybrid(offload=offload, pcie_gbps=pcie_gbps,
                           offload_overlap=offload_overlap,
                           cost_aware=cost_aware, min_samples=warmup_samples)
-        self.collector = ShuttlingCollector(lm)
+        self.collector = ShuttlingCollector(lm, mesh_budget=mesh_budget)
         self.estimator = PolyEstimator(DEGREE, min_samples=warmup_samples)
         self._plan: Optional[Plan] = None
 
@@ -126,18 +132,20 @@ class SublinearPlanner(PlannerBase):
 class DTRSimPlanner(PlannerBase):
     name = "dtr"
 
-    def __init__(self, lm, budget_bytes: float, *,
+    def __init__(self, lm, budget_bytes: Optional[float] = None, *,
                  fixed_bytes: Optional[float] = None,
+                 mesh_budget: Optional[MeshBudget] = None,
                  frag_factor: float = 1.25,
                  plan_op_cost_s: float = 2e-5,
                  max_microbatches: int = 1):
         self.lm = lm
-        self.budget_bytes = float(budget_bytes)
+        self.mesh_budget = mesh_budget
+        self.budget_bytes = self.resolve_budget_bytes(budget_bytes)
         self.fixed_bytes = fixed_bytes
         self.frag_factor = frag_factor
         self.plan_op_cost_s = plan_op_cost_s
         self.max_microbatches = max(int(max_microbatches), 1)
-        self.collector = ShuttlingCollector(lm)
+        self.collector = ShuttlingCollector(lm, mesh_budget=mesh_budget)
         self._size_cache: Dict[tuple, np.ndarray] = {}
         self.stats = {"plan_ops": 0, "plan_time_s": 0.0, "replans": 0}
 
@@ -147,8 +155,8 @@ class DTRSimPlanner(PlannerBase):
         s = input_size_of(batch)
         if (s, k) not in self._size_cache:
             probe = batch if k == 1 else self.microbatch_probe(batch, k)
-            self._size_cache[(s, k)] = \
-                self.collector.collect(probe).activation_vector()
+            self._size_cache[(s, k)] = self.collected_vector(
+                self.collector.collect(probe))
         return self._size_cache[(s, k)]
 
     def plan(self, batch):

@@ -1,12 +1,23 @@
 """MimosePlanner — the input-aware checkpointing planner (paper §4).
 
-Counterpart of the reference's ``core/planner.py`` (single device).
-Ties together the shuttling collector, the lightning estimator, the
-responsive scheduler and the plan cache:
+Counterpart of the reference's ``core/planner.py``.  Ties together
+the shuttling collector, the lightning estimator, the responsive
+scheduler and the plan cache:
 
     planner = MimosePlanner(lm, budget_bytes=6 << 30)
     actions, info = planner.plan(batch)
     loss, _ = lm.loss(batch, actions)
+
+Sharding-aware mode: with ``mesh_budget=MeshBudget.from_shape(...)``
+every quantity becomes per device -- the collector divides each saved
+storage by its sharding divisor, the estimators fit per-device bytes,
+the fixed bytes are the parameter / gradient / optimizer shards (ZeRO-1
+aware), the recompute FLOPs divide by the device count, and the budget
+is ``mesh_budget.hbm_per_device_bytes`` unless ``budget_bytes`` is
+given.  Plan keys carry the budget's signature, so plans never cross
+mesh shapes.  Without a mesh budget (or on a one-device mesh) the
+vectors are the global ones, exactly.  The reference's legacy scalar
+``shard_divisor`` is not ported: a mesh budget does its work.
 
 Phases (paper §4.1):
   * sheltered execution — while the estimator has fewer than
@@ -80,6 +91,8 @@ from repro_torch.launch.roofline import (MICROBATCH_OVERHEAD_S, PCIE_BW,
                                          PEAK_FLOPS, plan_unit_flops,
                                          recompute_scale)
 from repro_torch.obs import StatsView, Telemetry, TRACK_PLANNER
+from repro_torch.sharding.budget import (MeshBudget,
+                                         fixed_train_bytes_per_device)
 
 # the reference's defaults of MimosePlanner's keywords (the baselines
 # use them as they are): estimator degree (paper §4.3), scheduler bucket
@@ -136,6 +149,9 @@ class PlannerBase:
     # made), part of the plan key as in the reference
     pcie_gbps: Optional[float] = None
     offload_overlap: float = 0.5
+    # sharding-aware planning: the per-device budget and divisors (None:
+    # global bytes)
+    mesh_budget: Optional[MeshBudget] = None
 
     def plan(self, batch) -> Tuple[tuple, PlanInfo]:
         """Returns ``(Plan.as_actions(), PlanInfo)``."""
@@ -170,26 +186,41 @@ class PlannerBase:
         re-raise."""
         return False
 
-    # -- the byte vectors planning runs on (one device: the global ones,
-    # which equal the device ones) ----------------------------------------
-    @staticmethod
-    def collected_vector(res) -> np.ndarray:
-        return res.activation_vector()
+    # -- the shared mesh-vs-global accounting (one implementation for
+    # Mimose and both baselines) ------------------------------------------
+    def resolve_budget_bytes(self, budget_bytes: Optional[float]) -> float:
+        """The planning budget: explicit bytes win (per device when a
+        mesh budget is set), else the mesh budget's per-device HBM."""
+        if budget_bytes is None:
+            if self.mesh_budget is None:
+                raise ValueError("pass budget_bytes or mesh_budget")
+            budget_bytes = self.mesh_budget.hbm_per_device_bytes
+        return float(budget_bytes)
 
-    @staticmethod
-    def collected_output_vector(res) -> np.ndarray:
-        """Boundary-tensor bytes per unit (what REMAT keeps)."""
-        return res.output_vector()
+    def collected_vector(self, res) -> np.ndarray:
+        """The byte vector planning runs on: per-device under a mesh
+        budget, global otherwise."""
+        return (res.device_activation_vector()
+                if self.mesh_budget is not None
+                else res.activation_vector())
 
-    @staticmethod
-    def collected_offload_vector(res) -> np.ndarray:
-        """Offloadable residual bytes per unit."""
-        return res.offloadable_vector()
+    def collected_output_vector(self, res) -> np.ndarray:
+        """Boundary-tensor bytes per unit (what REMAT keeps), in the
+        frame of ``collected_vector``."""
+        return (res.device_output_vector()
+                if self.mesh_budget is not None else res.output_vector())
 
-    @staticmethod
-    def collected_opt_vector(res) -> np.ndarray:
-        """Optimizer-moment bytes per unit (fp32 AdamW m + v)."""
-        return res.opt_vector()
+    def collected_offload_vector(self, res) -> np.ndarray:
+        """Offloadable residual bytes per unit, in the same frame."""
+        return (res.device_offloadable_vector()
+                if self.mesh_budget is not None
+                else res.offloadable_vector())
+
+    def collected_opt_vector(self, res) -> np.ndarray:
+        """Optimizer-moment bytes per unit (fp32 AdamW m + v), in the
+        same frame."""
+        return (res.device_opt_vector()
+                if self.mesh_budget is not None else res.opt_vector())
 
     # -- shared hybrid remat+offload state (Mimose + Sublinear) ----------
     def _init_hybrid(self, *, offload: bool, pcie_gbps: Optional[float],
@@ -264,9 +295,16 @@ class PlannerBase:
         return d
 
     def resolve_fixed_bytes(self) -> float:
-        """Resident bytes, resolved lazily from the model's parameters."""
+        """Resident bytes, resolved lazily from the model's parameters:
+        the per-device parameter / gradient / optimizer shards under a
+        mesh budget, the global bytes otherwise."""
         if self.fixed_bytes is None:
-            self.fixed_bytes = fixed_train_bytes(self.lm.parameters())
+            if self.mesh_budget is not None:
+                self.fixed_bytes = fixed_train_bytes_per_device(
+                    self.lm, self.mesh_budget,
+                    scanned=self.lm.cfg.remat_mode == "scan")
+            else:
+                self.fixed_bytes = fixed_train_bytes(self.lm.parameters())
         return self.fixed_bytes
 
     def bucket_key(self, batch) -> int:
@@ -283,10 +321,11 @@ class PlannerBase:
         return float(PCIE_BW if self.pcie_gbps is None
                      else self.pcie_gbps * 1e9)
 
-    @staticmethod
-    def mesh_sig() -> tuple:
-        """The mesh part of every plan key: always () on one device."""
-        return ()
+    def mesh_sig(self) -> tuple:
+        """The mesh part of every plan key: () when planning for one
+        global budget, the mesh budget's signature otherwise."""
+        return (self.mesh_budget.sig()
+                if self.mesh_budget is not None else ())
 
     def plan_key_of(self, bucket: int) -> tuple:
         """Plan-cache key: (bucket id, mesh signature, microbatch
@@ -304,12 +343,18 @@ class PlannerBase:
 
     def planning_flops(self, flops):
         """The recompute-cost vector the simulator and scheduler divide
-        by ``PEAK_FLOPS``.  On one device FLOPs and bytes are both
-        global (the reference divides by the mesh's device count here,
-        A19); a bf16 model's recompute runs at the bf16 GEMM rate, so
-        its FLOPs are scaled by ``recompute_scale`` (fp32: unchanged)."""
+        by ``PEAK_FLOPS``, in the frame of the byte vectors: per device
+        under a mesh budget (SPMD divides every unit's recompute over
+        the devices), global otherwise.  A bf16 model's recompute runs at
+        the bf16 GEMM rate, so its FLOPs are scaled by
+        ``recompute_scale`` (fp32: unchanged)."""
+        if flops is None:
+            return flops
+        if self.mesh_budget is not None:
+            flops = (np.asarray(flops, dtype=np.float64)
+                     / self.mesh_budget.n_devices)
         scale = recompute_scale(self.lm.cfg.dtype)
-        if flops is None or scale == 1.0:
+        if scale == 1.0:
             return flops
         return np.asarray(flops, dtype=np.float64) * scale
 
@@ -367,8 +412,9 @@ class NonePlanner(PlannerBase):
 class MimosePlanner(PlannerBase):
     name = "mimose"
 
-    def __init__(self, lm, budget_bytes: float, *,
+    def __init__(self, lm, budget_bytes: Optional[float] = None, *,
                  fixed_bytes: Optional[float] = None,
+                 mesh_budget: Optional[MeshBudget] = None,
                  quantum: int = 256,
                  degree: int = DEGREE,
                  warmup_samples: int = 4,
@@ -393,7 +439,8 @@ class MimosePlanner(PlannerBase):
         self.lm = lm
         self.telemetry = (telemetry if telemetry is not None
                           else Telemetry.disabled())
-        self.budget_bytes = float(budget_bytes)
+        self.mesh_budget = mesh_budget
+        self.budget_bytes = self.resolve_budget_bytes(budget_bytes)
         self.fixed_bytes = fixed_bytes          # None: resolved lazily from params
         self.quantum = quantum
         self.warmup_samples = warmup_samples
@@ -415,7 +462,7 @@ class MimosePlanner(PlannerBase):
         # microbatches per bucket, each extra one priced at the overhead
         self.max_microbatches = max(int(max_microbatches), 1)
         self.microbatch_overhead_s = microbatch_overhead_s
-        self.collector = ShuttlingCollector(lm)
+        self.collector = ShuttlingCollector(lm, mesh_budget=mesh_budget)
         self.estimator = PolyEstimator(degree, min_samples=warmup_samples)
         self.cache = LRUCache(max_plans)
         # OOM recovery: the escalation level per plan key, and the budget

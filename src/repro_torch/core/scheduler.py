@@ -1,7 +1,8 @@
 """Responsive memory scheduler, copied from the reference's
-``core/scheduler.py`` (single device): Algorithm 1 of the paper, the
-cost-aware selection, the hybrid remat+offload selection and the joint
-(microbatch, action) search.
+``core/scheduler.py``: Algorithm 1 of the paper, the cost-aware
+selection, the hybrid remat+offload selection, the joint (microbatch,
+action) search, and ``greedy_plan_sharded`` against a per-device
+budget.
 
 Byte-only greedy (Algorithm 1) selects which units to rematerialise:
 
@@ -34,7 +35,6 @@ cost.  ``k = 1`` always competes.
 The roofline constants (``PEAK_FLOPS``, ``PCIE_BW``,
 ``MICROBATCH_OVERHEAD_S``) are read when a call runs; a ``None`` link
 rate or accumulation overhead means this module's constant.
-``greedy_plan_sharded`` is not ported (single device).
 """
 from __future__ import annotations
 
@@ -471,6 +471,34 @@ def _byte_greedy_plan(est_mem: Sequence[float], budget_bytes: float,
         heads[b] = h
         bmax[b] = desc[h] if h < e else -np.inf
     return Plan(plan, excess, covered, total)
+
+
+def greedy_plan_sharded(device_est_mem: Sequence[float], mesh_budget,
+                        fixed_device_bytes: float = 0.0,
+                        tol: float = 0.10, *,
+                        flops: Sequence[float] | None = None,
+                        byte_only: bool = False,
+                        output_bytes: Sequence[float] | None = None,
+                        offload_bytes: Sequence[float] | None = None,
+                        opt_bytes: Sequence[float] | None = None,
+                        pcie_bytes_per_s: float | None = None,
+                        offload_overlap: float = 0.5) -> Plan:
+    """``greedy_plan`` against a per-device budget.
+
+    ``device_est_mem[i]`` is the bytes unit i lands on one device and
+    ``fixed_device_bytes`` the parameter / gradient / optimizer shard
+    bytes; the budget is ``mesh_budget.hbm_per_device_bytes`` (any
+    object with that attribute).  Under SPMD every device runs the same
+    plan over its shard, so one per-device schedule covers the mesh.
+    ``flops`` may stay global (SPMD divides every unit's recompute by
+    the same count, so the selection is unchanged); ``output_bytes`` and
+    ``offload_bytes`` are per-device vectors."""
+    return greedy_plan(device_est_mem, mesh_budget.hbm_per_device_bytes,
+                       fixed_device_bytes, tol=tol, flops=flops,
+                       byte_only=byte_only, output_bytes=output_bytes,
+                       offload_bytes=offload_bytes, opt_bytes=opt_bytes,
+                       pcie_bytes_per_s=pcie_bytes_per_s,
+                       offload_overlap=offload_overlap)
 
 
 def greedy_plan_adaptive(vectors_of_k, budget_bytes: float,

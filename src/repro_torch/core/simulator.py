@@ -1,5 +1,5 @@
 """Forward/backward memory-liveness timeline simulator, copied from the
-reference's ``core/simulator.py`` (single device).
+reference's ``core/simulator.py``.
 
 Given per-unit activation bytes and a plan, replay the training step's
 liveness and report the peak footprint plus the plan's overheads.  It
@@ -37,8 +37,11 @@ solver minimise at equal budget.
 
 The roofline constants are read when a call runs, not bound as default
 arguments, so a caller (or a test) that rebinds this module's
-``PEAK_FLOPS`` / ``PCIE_BW`` reprices every call.  ``simulate_sharded``
-is not ported (single device).
+``PEAK_FLOPS`` / ``PCIE_BW`` reprices every call.
+
+``simulate_sharded`` replays a plan on the per-device byte vectors of a
+mesh (``ShardedSimResult``): under SPMD every device runs the same step
+over its shard, so one per-device replay covers the mesh.
 """
 from __future__ import annotations
 
@@ -281,6 +284,77 @@ def simulate_many(act_bytes: Sequence[float], plans,
                           exposed_transfer_s=exposed, microbatches=k,
                           accum_overhead_s=accum,
                           opt_offload_bytes=opt_moved)
+
+
+@dataclasses.dataclass
+class ShardedSimResult:
+    """Per-device replay of one plan across a mesh.
+
+    ``global_peak_bytes`` is the mesh-wide footprint at the per-device
+    peak instant (exact when sharding is homogeneous, an upper bound
+    when some tensors stay replicated)."""
+    per_device: SimResult
+    n_devices: int
+
+    @property
+    def peak_bytes_per_device(self) -> float:
+        return self.per_device.peak_bytes
+
+    @property
+    def global_peak_bytes(self) -> float:
+        return self.per_device.peak_bytes * self.n_devices
+
+    @property
+    def recompute_time_s(self) -> float:
+        """Per-device recompute time (every device replays its shard of
+        each rematerialised unit concurrently)."""
+        return self.per_device.recompute_time_s
+
+    @property
+    def offload_time_s(self) -> float:
+        """Per-device round-trip offload time (each device drives its
+        own host link)."""
+        return self.per_device.offload_time_s
+
+    @property
+    def step_overhead_s(self) -> float:
+        return self.per_device.step_overhead_s
+
+    @property
+    def microbatches(self) -> int:
+        return self.per_device.microbatches
+
+    def fits(self, budget_per_device: float) -> bool:
+        return self.per_device.peak_bytes <= budget_per_device
+
+
+def simulate_sharded(device_act_bytes: Sequence[float],
+                     remat: Sequence,
+                     fixed_device_bytes: float = 0.0,
+                     n_devices: int = 1,
+                     output_bytes: Sequence[float] | None = None,
+                     flops: Sequence[float] | None = None, *,
+                     offload_bytes: Sequence[float] | None = None,
+                     opt_bytes: Sequence[float] | None = None,
+                     pcie_bytes_per_s: float | None = None,
+                     overlap: float = 0.5,
+                     microbatch: int = 1,
+                     accum_overhead_s: float = 0.0) -> ShardedSimResult:
+    """Replay the step's per-device memory timeline.
+
+    ``device_act_bytes`` is the per-unit byte vector landing on one
+    device (``CollectionResult.device_activation_vector``) and
+    ``fixed_device_bytes`` the resident shard bytes
+    (``sharding.budget.fixed_train_bytes_per_device``).  ``flops``
+    should be the per-device recompute FLOPs (global / n_devices),
+    ``offload_bytes`` and ``opt_bytes`` per-device vectors; with
+    ``microbatch=k`` the vectors are per-microbatch, per device."""
+    base = simulate(device_act_bytes, remat, fixed_device_bytes,
+                    output_bytes, flops, offload_bytes=offload_bytes,
+                    opt_bytes=opt_bytes, pcie_bytes_per_s=pcie_bytes_per_s,
+                    overlap=overlap, microbatch=microbatch,
+                    accum_overhead_s=accum_overhead_s)
+    return ShardedSimResult(base, int(n_devices))
 
 
 def peak_if_checkpointing_unit(act_bytes: Sequence[float], which: int,

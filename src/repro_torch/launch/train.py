@@ -57,6 +57,19 @@ watchdog (``--inject-oom`` drives deterministic faults; a real
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
         --steps 12 --checkpoint-dir ckpt --resume
 
+Sharding-aware planning: ``--mesh-shape 4x2 --hbm-gb 16`` plans against
+the per-device budget of a (data 4, model 2) mesh -- activations and
+fixed bytes divided by their sharding divisors, ZeRO-1 aware with
+``--zero1``; ``--budget-mb``, when given, overrides the per-device HBM.
+A mesh this process can build (one device: ``1x1``) is built on a
+``DeviceMesh`` and handed to the trainer; a larger one is planned per
+device and executed on the one device, with the inputs replicated, as
+the reference's launcher does.  ``--resume`` works across another
+``--mesh-shape`` (the planner replays its samples under the new mesh):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \
+        --steps 3 --mesh-shape 4x2 --hbm-gb 0.05 --zero1
+
 ``--save PATH`` writes the final parameters with ``train/checkpoint.py``'s
 save; ``checkpoint.load(PATH, like)`` reads them back, strictly, into a
 model of the same configuration.
@@ -73,10 +86,14 @@ import argparse
 import itertools
 import time
 
+from torch import distributed as torch_dist
+
 from repro_torch.core.baselines import DTRSimPlanner, SublinearPlanner
 from repro_torch.core.planner import MimosePlanner, NonePlanner
 from repro_torch.data.pipeline import (DISTRIBUTIONS, bucket_length,
                                        make_batches, top_buckets)
+from repro_torch.launch.mesh import (MeshUnavailable, make_production_mesh,
+                                     parse_mesh_shape)
 from repro_torch.launch.report import engine_report
 from repro_torch.launch.roofline import PCIE_BW
 from repro_torch.models.lm import LM, configure_offload
@@ -84,6 +101,7 @@ from repro_torch.models.registry import (ARCH_IDS, REDUCED_ONLY,
                                          canonical, get_config)
 from repro_torch.obs import build_telemetry, flush_telemetry
 from repro_torch.optim.adamw import AdamW, cosine_schedule
+from repro_torch.sharding.budget import MeshBudget
 from repro_torch.train import checkpoint
 from repro_torch.train.resilience import (FaultInjector, OOMWatchdog,
                                          SnapshotManager)
@@ -107,7 +125,15 @@ def main(argv=None) -> Trainer:
                          "mixer: flash attention, the SSD chunk scan (on "
                          "CPU tensors their plain versions)")
     ap.add_argument("--budget-mb", type=float, default=0.0,
-                    help="device memory budget; 0 = unlimited")
+                    help="device memory budget; 0 = unlimited (with "
+                         "--mesh-shape: per device, overriding --hbm-gb)")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="plan against a per-device mesh budget, e.g. 4x2 "
+                         "(data x model) or 2x16x16 (pod x data x model)")
+    ap.add_argument("--hbm-gb", type=float, default=16.0,
+                    help="per-device memory (GiB) for --mesh-shape planning")
+    ap.add_argument("--zero1", action="store_true",
+                    help="ZeRO-1 optimizer-state sharding in the budget")
     ap.add_argument("--byte-only-remat", action="store_true",
                     help="paper's byte-only Algorithm 1 instead of "
                          "cost-aware (bytes per recompute-FLOP) selection")
@@ -234,6 +260,37 @@ def main(argv=None) -> Trainer:
           f"attn={args.attn_impl}")
 
     budget = args.budget_mb * 2**20 if args.budget_mb else 1e18
+    mesh_budget = mesh = None
+    own_group = False
+    if args.mesh_shape:
+        shape = parse_mesh_shape(args.mesh_shape)
+        mesh_budget = MeshBudget.from_shape(shape, args.hbm_gb * 2**30,
+                                            zero1=args.zero1)
+        # an explicit --budget-mb overrides the per-device HBM
+        budget = args.budget_mb * 2**20 if args.budget_mb else None
+        fresh = not torch_dist.is_initialized()
+        try:
+            mesh = make_production_mesh(shape=shape,
+                                        device_type=lm.device.type)
+        except MeshUnavailable as e:
+            print(f"mesh {shape}: {e.needed} devices unavailable "
+                  f"({e.present} present) -- planning per device, "
+                  f"executing on one device")
+        else:
+            # make_production_mesh made the group when there was none
+            own_group = fresh
+            print(f"mesh {shape}: planning per device; the step runs under "
+                  f"the {mesh.size()}-device mesh {mesh.mesh_dim_names} "
+                  f"(inputs replicated)")
+    try:
+        return _train(args, cfg, lm, budget, mesh_budget, mesh)
+    finally:
+        if own_group:
+            torch_dist.destroy_process_group()
+
+
+def _train(args, cfg, lm, budget, mesh_budget, mesh) -> Trainer:
+    """Plan and train as ``args`` say; the mesh, if any, is built."""
     dist = DISTRIBUTIONS[args.dataset]
     max_size = args.batch_size * bucket_length(dist.hi, args.quantum)
     if args.offload:
@@ -241,16 +298,17 @@ def main(argv=None) -> Trainer:
     planner = {
         "mimose": lambda: MimosePlanner(
             lm, budget, quantum=args.quantum, warmup_samples=3,
+            mesh_budget=mesh_budget,
             cost_aware=not args.byte_only_remat, offload=args.offload,
             opt_offload=args.opt_offload, pcie_gbps=args.pcie_gbps,
             max_microbatches=args.max_microbatches, solver=args.solver,
             solver_budget_ms=args.solver_budget_ms),
         "sublinear": lambda: SublinearPlanner(
-            lm, budget, max_input_size=max_size,
+            lm, budget, max_input_size=max_size, mesh_budget=mesh_budget,
             cost_aware=not args.byte_only_remat, offload=args.offload,
             pcie_gbps=args.pcie_gbps,
             max_microbatches=args.max_microbatches),
-        "dtr": lambda: DTRSimPlanner(lm, budget,
+        "dtr": lambda: DTRSimPlanner(lm, budget, mesh_budget=mesh_budget,
                                      max_microbatches=args.max_microbatches),
         "none": lambda: NonePlanner(lm),
     }[args.planner]()
@@ -269,7 +327,7 @@ def main(argv=None) -> Trainer:
                                 events_path=args.events_out,
                                 trace_path=args.trace_out)
     trainer = Trainer(lm, planner, opt, telemetry=telemetry,
-                      watchdog=watchdog, snapshots=snapshots)
+                      watchdog=watchdog, snapshots=snapshots, mesh=mesh)
     batches = make_batches(args.dataset, batch_size=args.batch_size,
                            vocab_size=cfg.vocab_size,
                            num_batches=args.steps, quantum=args.quantum,

@@ -13,11 +13,14 @@ is written last, and one ``os.replace`` makes the snapshot visible.
 Retention keeps the last *k*; restore walks newest-to-oldest past any
 corrupt or partial snapshot.
 
-**Planner state** (``planner_state`` / ``restore_planner_state``).  On
-one device the mesh signature is always ``()``.  A stored signature
-that differs replays the sample log through the live collector on
-``meta`` tensors (zero FLOPs, as the reference's abstract replay) and
-drops the stored plans.  The port's plan key has a sixth element, the
+**Planner state** (``planner_state`` / ``restore_planner_state``).  The
+mesh signature is ``()`` without a mesh budget and the budget's
+``sig()`` with one.  A stored signature that differs from the live one
+(a resume under another ``--mesh-shape``, ``--zero1`` or none) replays
+the sample log through the live collector on ``meta`` tensors (zero
+FLOPs, as the reference's abstract replay), so the estimators fit the
+new mesh's per-device bytes, and drops the stored plans.  The replay
+needs no parameters, where the reference's needs them.  The port's plan key has a sixth element, the
 accumulation overhead; it is stored, and a plan whose link rate,
 overlap or accumulation overhead differs from the live planner's is
 dropped.

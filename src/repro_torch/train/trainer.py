@@ -1,7 +1,7 @@
 """Training loop with the Mimose planner on the critical path (paper §4.1).
 
-Counterpart of the reference's ``train/trainer.py`` (eager, single
-device):
+Counterpart of the reference's ``train/trainer.py`` (eager, one
+device executes the step):
 
   1. Each batch is padded up to the planner's quantum (``pad_batch``);
      the true ``lengths`` ride along so attention masks (and the flash
@@ -48,6 +48,14 @@ instant and event after a failed one) and emits a ``train_step`` event
 numbered by ``global_step``;
 the lane's exposed time and the simulator's price of the same bytes
 land in ``train_exposed_transfer_s`` / ``train_sim_transfer_s``.
+
+Sharding: ``mesh`` (a ``DeviceMesh``) is kept for the run, and the
+step-function cache key carries the planner's mesh signature, so a step
+built under one mesh shape is never reused under another -- the
+execution side of the planner's (bucket, mesh) plan key.  Nothing reads
+``mesh`` yet: the step runs whole on this process's device with the
+inputs replicated, as the reference's launcher runs it, until a sharded
+step is ported.
 
 On CUDA each step records ``torch.cuda.max_memory_allocated`` next to
 the plan's predicted peak (fixed bytes + predicted activations - bytes
@@ -130,9 +138,10 @@ class Trainer:
     def __init__(self, lm, planner: PlannerBase,
                  optimizer: Optional[AdamW] = None,
                  telemetry: Optional[Telemetry] = None,
-                 watchdog=None, snapshots=None):
+                 watchdog=None, snapshots=None, mesh=None):
         self.lm = lm
         self.planner = planner
+        self.mesh = mesh                  # a DeviceMesh, or None; unread
         # one registry per run: the planner re-homes its stats into it
         self.telemetry = (telemetry if telemetry is not None
                           else Telemetry.disabled())
@@ -255,9 +264,10 @@ class Trainer:
 
     def _step_key(self, actions, batch, microbatch: int = 1) -> tuple:
         # the typed actions: two plans that remat the same units but
-        # offload or split differently get different step functions
+        # offload or split differently get different step functions; the
+        # mesh signature aligns the key with the planner's plan key
         return (self._batch_key(batch), tuple(int(a) for a in actions),
-                int(microbatch))
+                int(microbatch), self.planner.mesh_sig())
 
     def _get_step_fn(self, actions, batch, microbatch: int = 1):
         key = self._step_key(actions, batch, microbatch)

@@ -979,3 +979,170 @@ def test_launcher_save_roundtrips_bitwise(tmp_path, capsys):
             like[n].copy_(t)
     _assert_same({n: p.detach() for n, p in fresh.named_parameters()},
                  _params(tr))
+
+
+# ---------------------------------------------------------------------------
+# a resume onto another mesh shape
+# ---------------------------------------------------------------------------
+
+def _reshape_pair(lm, jlm, params, shape_a, shape_b):
+    """The port's and the reference's planner under ``shape_a`` after one
+    plan, and fresh ones under ``shape_b`` restored from their states."""
+    from repro.sharding.budget import MeshBudget as RefMeshBudget
+    from repro.train.resilience import \
+        restore_planner_state as ref_restore_planner_state
+    from repro_torch.sharding.budget import MeshBudget
+    out = []
+    for pkg, budget_cls, mk, batch, restore in (
+            ("port", MeshBudget,
+             lambda mb: MimosePlanner(lm, None, quantum=64,
+                                      warmup_samples=1, mesh_budget=mb),
+             {k: torch.as_tensor(v) for k, v in _batch(64).items()},
+             lambda p, s: restore_planner_state(p, s)),
+            ("ref", RefMeshBudget,
+             lambda mb: RefMimose(jlm, None, quantum=64, warmup_samples=1,
+                                  mesh_budget=mb),
+             _batch(64),
+             lambda p, s: ref_restore_planner_state(p, s, params=params))):
+        src = mk(budget_cls.from_shape(shape_a, HBM))
+        if pkg == "port":
+            src.plan(batch)
+        else:
+            src.plan(params, batch)
+        state = (planner_state(src) if pkg == "port"
+                 else ref_planner_state(src))
+        dst = mk(budget_cls.from_shape(shape_b, HBM))
+        out.append((src, dst, state, restore(dst, state), mk, batch))
+    return out
+
+
+def test_planner_state_mesh_reshape_replays_samples():
+    """(1, 2) -> (2, 1): the sample log replays through the live meta
+    collector under the new mesh, no stored plan survives, and the
+    replayed fit equals a fresh planner's under the new mesh (rel 1e-6);
+    the restore summary equals the reference's."""
+    from repro_torch.sharding.budget import MeshBudget
+    lm = _lm()
+    jlm = build_model(jax_get_config("bert_base_paper").reduced(**REDUCED))
+    params = jlm.init(jax.random.PRNGKey(0))
+    (src, dst, state, summary, mk, batch), ref = _reshape_pair(
+        lm, jlm, params, [1, 2], [2, 1])
+    assert summary == ref[3]
+    assert summary["mesh_changed"]
+    assert summary["restored_samples"] == len(state["sample_log"])
+    assert summary["restored_plans"] == 0
+    assert summary["dropped_plans"] == len(state["plans"]) > 0
+    assert dst.estimator.ready and len(dst.cache) == 0
+    assert dst.stats["dropped_plans"] == len(state["plans"])
+    assert dst.stats["collections"] == 0
+    fresh = mk(MeshBudget.from_shape([2, 1], HBM))
+    fresh.plan(batch)
+    np.testing.assert_allclose(dst.estimator.predict(2 * 128),
+                               fresh.estimator.predict(2 * 128), rtol=1e-6)
+    # the signature is the new mesh's, and a replan serves from the fit
+    assert dst.mesh_sig() == fresh.mesh_sig() != src.mesh_sig()
+    dst.plan(batch)
+    assert dst.stats["collections"] == 0
+
+
+def test_kill_and_resume_across_mesh_reshape(tmp_path, one_thread):
+    """8 steps under a (1, 2) mesh budget against 4, a snapshot, and 4
+    more resumed onto (2, 1) with fresh objects: the planner replays its
+    samples (no collection, no refit), the losses are those of the
+    uninterrupted run bitwise (the roomy budget keeps every plan KEEP),
+    and the restore summary equals the reference's on the same
+    schedule."""
+    from repro.sharding.budget import MeshBudget as RefMeshBudget
+    from repro_torch.sharding.budget import MeshBudget
+    batches = _batches(8)
+
+    def fresh(shape):
+        lm = _lm()
+        return Trainer(lm, MimosePlanner(
+            lm, None, quantum=64, warmup_samples=1,
+            mesh_budget=MeshBudget.from_shape(shape, HBM)), AdamW(lr=1e-3))
+    tr_a = fresh([1, 2])
+    tr_a.run(batches)
+    want = [s.loss for s in tr_a.history]
+    tr_b = fresh([1, 2])
+    st = tr_b.run(batches[:4])
+    tr_b.save_snapshot(st, SnapshotManager(str(tmp_path / "port")))
+    tr_c = fresh([2, 1])
+    tr_c.snapshots = SnapshotManager(str(tmp_path / "port"))
+    st_c, r = tr_c.restore(tr_c.optimizer.init(tr_c.params))
+    assert r.step == r.data_cursor == 4
+    assert r.planner_summary["mesh_changed"]
+    assert r.planner_summary["restored_samples"] >= 1
+    tr_c.run(batches[r.data_cursor:], st_c)
+    assert [s.loss for s in tr_c.history] == want[4:]
+    assert tr_c.planner.stats["collections"] == 0
+    assert tr_c.planner.stats["refits"] == 0
+    n_buckets = len({s.bucket for s in tr_c.history})
+    assert tr_c.cache_stats["compiles"] <= n_buckets
+    assert tr_c.summary()["restores"] == 1
+
+    # the reference's schedule: 4 steps under (1, 2), snapshot, (2, 1)
+    jlm = build_model(jax_get_config("bert_base_paper").reduced(**REDUCED))
+    params = jlm.init(jax.random.PRNGKey(0))
+
+    def jfresh(shape):
+        return JaxTrainer(jlm, RefMimose(
+            jlm, None, quantum=64, warmup_samples=1,
+            mesh_budget=RefMeshBudget.from_shape(shape, HBM)),
+            JaxAdamW(lr=1e-3))
+    jbatches = list(jax_make_batches("swag", batch_size=2, vocab_size=256,
+                                     num_batches=8, quantum=64, seed=0))
+    jtr = jfresh([1, 2])
+    jp = jax.tree_util.tree_map(lambda a: a.copy(), params)
+    js = jtr.optimizer.init(jp)
+    for b in jbatches[:4]:
+        jp, js, _ = jtr.step(jp, js, b)
+    sm = RefSnapshots(str(tmp_path / "ref"))
+    sm.save(step=4, params=jp, opt_state=js, planner=jtr.planner,
+            data_cursor=4)
+    jtr2 = jfresh([2, 1])
+    jr = sm.restore_latest(params_like=params,
+                           opt_like=jtr2.optimizer.init(params),
+                           planner=jtr2.planner)
+    assert r.planner_summary == jr.planner_summary
+
+
+def test_launcher_resume_across_mesh_reshape(tmp_path, capsys, one_thread):
+    """The launcher's drill: 8 steps under ``--mesh-shape 1x1`` with a
+    snapshot at step 4, then ``--resume`` from it under ``4x2 --zero1``
+    (planned per device, executed on one device): the planner replays
+    its samples under the new mesh, drops every stored plan, collects
+    nothing, remats no more units per bucket, and the losses are the
+    uninterrupted run's."""
+    import shutil
+    d, d2 = str(tmp_path / "ck"), str(tmp_path / "ck4")
+    common = ["--device", "cpu", "--reduced", "--steps", "8",
+              "--batch-size", "4", "--dataset", "squad", "--quantum", "64"]
+    tr = launch_train.main(common + [
+        "--mesh-shape", "1x1", "--budget-mb", "65", "--checkpoint-dir", d,
+        "--checkpoint-every-steps", "4"])
+    capsys.readouterr()
+    assert any(s.remat_units for s in tr.history)
+    snap = SnapshotManager(d).snapshots()[0]
+    assert snap.endswith("snap-00000004")
+    shutil.copytree(snap, os.path.join(d2, os.path.basename(snap)))
+    with open(os.path.join(snap, "planner.json")) as f:
+        stored = json.load(f)
+    tr2 = launch_train.main(common + [
+        "--mesh-shape", "4x2", "--zero1", "--hbm-gb", str(65 / 1024),
+        "--checkpoint-dir", d2, "--resume"])
+    out = capsys.readouterr().out
+    assert "planning per device, executing on one device" in out
+    st = tr2.planner.stats
+    assert st["restored_samples"] == len(stored["sample_log"])
+    assert st["restored_plans"] == 0
+    assert st["dropped_plans"] == len(stored["plans"]) > 0
+    assert st["collections"] == 0
+    assert [s.loss for s in tr2.history] == \
+        [s.loss for s in tr.history[4:]]
+    first = {}
+    for s in tr.history:
+        first.setdefault(s.bucket, s.remat_units)
+    for s in tr2.history:
+        if s.bucket in first:
+            assert s.remat_units <= first[s.bucket]

@@ -143,8 +143,9 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     assert res.returncode == 0, res.stderr
     loaded = set(res.stdout.split())
     assert len(loaded) >= 20
-    # the planner's decision space, host offload, telemetry and the MoE
-    # and hybrid families (with their configs) are reached by the walk
+    # the planner's decision space, host offload, telemetry, the MoE
+    # and hybrid families (with their configs) and sharding are reached
+    # by the walk
     assert {"repro_torch.core.simulator", "repro_torch.core.solver",
             "repro_torch.models.moe", "repro_torch.models.hymba",
             "repro_torch.configs.granite_moe_1b_a400m",
@@ -157,4 +158,6 @@ def test_port_imports_nothing_of_jax_or_the_reference():
             "repro_torch.launch.report", "repro_torch.obs",
             "repro_torch.obs.metrics", "repro_torch.obs.events",
             "repro_torch.obs.tracing", "repro_torch.train.checkpoint",
-            "repro_torch.train.resilience"} <= loaded
+            "repro_torch.train.resilience", "repro_torch.sharding",
+            "repro_torch.sharding.budget", "repro_torch.sharding.specs",
+            "repro_torch.launch.mesh"} <= loaded
