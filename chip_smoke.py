@@ -60,6 +60,23 @@ Phases (each raises on failure; the script then exits non-zero):
    GiB a device on (1,), (4, 2) and (4, 2) with ZeRO-1: fixed bytes per
    device within 1 % of 141.2, 70.6 and 35.3 GB, (1,) infeasible, (4,
    2) with ZeRO-1 feasible; each part's wall time;
+3b3. distributed path (after the sharding path; ``run_distributed_path``,
+   each phase's wall time logged): D1, ``launch.dryrun.run_one`` for
+   ``qwen3_1p7b`` at ``train_4k`` and ``mamba2_1p3b`` at ``decode_32k``
+   on the 16x16 mesh under a fake process group of 256 ranks, every
+   tensor on ``meta``: each ``ok`` with FLOPs per device above 0, its
+   record, useful-FLOPs ratio and bottleneck logged; D2, the bert main
+   path's first 8 steps through ``launch.steps.build_setup``'s train
+   step on a built (1, 1) ``nccl`` mesh (the main path's weights, plans
+   and batches; the flash kernels on the heads through ``local_map``):
+   every loss and the step-8 parameters bitwise the main path's (the
+   sharding path's (a) snapshot), K1 = sum (12 + REMAT units), K2 = K3
+   = 12 a step; D3, the same step at (4, 2) with ZeRO-1 under a fake
+   group of 8 ranks, rank 0's shards on this card (2 of 8 rows, 6 of
+   12 heads, half of d_ff), one step per bucket under the sharding
+   path's (b) plans: launches by the same formula, and each bucket's
+   allocator peak logged beside the per-device simulated peak and
+   prediction (the fake collectives leave the values meaningless);
 3c. offload path: full-width ``bert_base_paper``, the first 8 batches,
    each run through ``repro_torch.launch.train.main`` with every
    telemetry sink on (``--metrics``, ``--events-out``, ``--trace-out``
@@ -209,8 +226,9 @@ Phases (each raises on failure; the script then exits non-zero):
    its device time (busy share) and kernel launches per layer;
 
 then prints the card line, one ``{"kernels": [...]}`` JSON line (no new
-kernel on the sharding, offload and resilience paths: they run K1-K3;
-K1-K3 launches are the bert, sharding, resilience, hymba, granite,
+kernel on the sharding, distributed, offload and resilience paths: they
+run K1-K3; K1-K3 launches are the bert, sharding, distributed (D2 and
+D3, also ``distributed_launches``), resilience, hymba, granite,
 seamless, qwen2-vl, stablelm and gemma3 paths', with each bf16 family's
 ``<family>_max_abs_err`` beside the maximum and the stablelm and gemma3
 instances' launches, ms, plain, bound and library ms as
@@ -1201,7 +1219,10 @@ def run_sharding_path(args, budget_mb, main_run):
     snapshot under ``--mesh-shape 4x2 --zero1 --hbm-gb`` the main budget
     in GiB, planned per device and executed on this card; (c)
     full-depth gemma3_12b on ``meta`` planned per device.  Returns the
-    flash launches of (a) and (b)."""
+    flash launches of (a) and (b) (``launches``), (a)'s step-8 snapshot
+    parameters on the host (``params_half``, the main path's: its losses
+    are) and (b)'s per-bucket plans with their per-device peaks
+    (``buckets``), which the distributed phases read."""
     import ast
     import contextlib
     import os
@@ -1234,6 +1255,9 @@ def run_sharding_path(args, budget_mb, main_run):
         }
         plans_1x1 = {k[0]: p.n_remat
                      for k, p in _cached_plans(trainer.planner)}
+        params_half = torch.load(
+            os.path.join(ck, f"snap-{half:08d}", "params.ckpt"),
+            map_location="cpu", weights_only=True)["leaves"]
         timing["a"] = time.perf_counter() - t0
         log(f"sharding (a) 1x1 mesh: {len(losses)} steps, launches "
             f"{ {k: la[k] for k in FLASH_KERNELS} }, n_remat per bucket "
@@ -1281,6 +1305,7 @@ def run_sharding_path(args, budget_mb, main_run):
                                    planner.est_output.predict(b))
             steps = [s for s in trainer.history if s.bucket == b]
             per_bucket[b] = {
+                "actions": [int(a) for a in plan.as_actions()],
                 "n_remat": plan.n_remat, "n_remat_1x1": plans_1x1.get(b),
                 "sim_peak_per_device_mib": sim.peak_bytes_per_device / 2**20,
                 "predicted_peak_mib": max((s.predicted_peak_bytes
@@ -1336,7 +1361,8 @@ def run_sharding_path(args, budget_mb, main_run):
     log("sharding: " + json.dumps({"card": card_line(), **res})
         + f"; wall (a) {timing['a']:.1f} s, (b) {timing['b']:.1f} s, (c) "
         f"{timing['c']:.1f} s, total {sum(timing.values()):.1f} s")
-    return {k: la[k] + lb[k] for k in FLASH_KERNELS}
+    return {"launches": {k: la[k] + lb[k] for k in FLASH_KERNELS},
+            "params_half": params_half, "buckets": res["b"]["buckets"]}
 
 
 def plan_gemma3_on_meshes():
@@ -1384,6 +1410,239 @@ def plan_gemma3_on_meshes():
     if not all(ok.values()):
         raise AssertionError(f"sharding (c) checks failed: {ok}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the distributed path (D1-D3): the dry run on meta, and bert's train step
+# (launch/steps.build_setup) on DTensor shards of a built mesh
+# ---------------------------------------------------------------------------
+
+# D1: two full-scale pairs on the 16x16 production mesh, a fake group of
+# 256 ranks, every tensor on meta
+DRYRUN_PAIRS = [("qwen3_1p7b", "train_4k"), ("mamba2_1p3b", "decode_32k")]
+# D3: bert at (4, 2) with ZeRO-1 under a fake group of 8 ranks, rank 0's
+# shards on this card (the mesh of the sharding path's (b))
+D3_MESH = (4, 2)
+
+
+def _prepared(batch, quantum):
+    """A main-path batch as ``Trainer._prepare`` hands it to the step:
+    bucket-padded, on the card, token ids and labels int64, lengths
+    int32, the rest fp32."""
+    from repro_torch.data.pipeline import pad_batch
+    b = pad_batch(batch, quantum)
+    B, S = np.shape(b["tokens"])
+    if "lengths" not in b:
+        b = dict(b, lengths=np.full((B,), S, np.int32))
+    dtypes = {"tokens": torch.long, "labels": torch.long,
+              "lengths": torch.int32}
+    return {k: torch.as_tensor(np.asarray(v)).to(
+        device="cuda", dtype=dtypes.get(k, torch.float32))
+        for k, v in b.items()}
+
+
+def _bert_setup(args, mesh, actions, **kw):
+    """``build_setup``'s train step for the bert main path on ``mesh``:
+    the launcher's model (seed 0, flash kernels) and optimizer (AdamW on
+    its cosine schedule), ``actions`` as the planned mask."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch.steps import build_setup
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    shape = ShapeConfig("bert_main", 448, args["batch_size"], "train")
+    return build_setup(path_config(args), shape, mesh, remat=actions,
+                       attn_impl="flash", device="cuda", seed=0,
+                       optimizer=AdamW(lr=cosine_schedule(
+                           3e-4, 10, args["steps"])), **kw)
+
+
+def _expected_flash(actions_per_step):
+    """K1 = sum (12 + REMAT units), K2 = K3 = 12 a step (bert, k = 1)."""
+    from repro_torch.actions import Action, as_actions
+    fwd = sum(12 + sum(a is not Action.KEEP for a in as_actions(acts))
+              for acts in actions_per_step)
+    return fwd, 12 * len(actions_per_step)
+
+
+def _check_flash(label, launches, actions_per_step):
+    fwd, bwd = _expected_flash(actions_per_step)
+    ok = (launches["flash_fwd"] == fwd
+          and launches["flash_bwd_dq"] == launches["flash_bwd_dkv"] == bwd
+          and all(launches[k] == 0 for k in FMA_OF.values()))
+    log(f"{label} launches: " + json.dumps(
+        {k: launches[k] for k in FLASH_KERNELS + list(FMA_OF.values())})
+        + f" (K1 = {fwd}, K2 = K3 = {bwd} expected)")
+    if not ok:
+        raise AssertionError(f"{label}: launches {launches}")
+    return {k: launches[k] for k in FLASH_KERNELS}
+
+
+def run_dryrun_pairs():
+    """D1: ``launch.dryrun.run_one`` at full scale on meta, each pair
+    ``ok`` with FLOPs per device above 0."""
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import fake_group, run_one
+    if dist.is_initialized():
+        raise AssertionError("D1: a process group is still alive")
+    recs = []
+    with fake_group(256):
+        for arch, shape in DRYRUN_PAIRS:
+            t0 = time.perf_counter()
+            rec = run_one(arch, shape, multi_pod=False, remat="mimose",
+                          zero1=False, seq_parallel=False, logits_f32=True)
+            rec["wall_s"] = round(time.perf_counter() - t0, 1)
+            log(f"D1 dry run {arch} {shape} on 16x16 (fake group of 256, "
+                f"meta): " + json.dumps(rec))
+            if rec["status"] != "ok" or not rec["flops_per_dev"] > 0:
+                raise AssertionError(f"D1 {arch} {shape}: {rec}")
+            log(f"D1 {arch} {shape}: useful_flops_ratio "
+                f"{rec['useful_flops_ratio']}, bottleneck "
+                f"{rec['bottleneck']}, {rec['wall_s']} s")
+            recs.append(rec)
+    return recs
+
+
+def run_sharded_main_path(args, main_run, params_half):
+    """D2: the bert main path's first half on a built (1, 1) ``nccl``
+    mesh through ``build_setup``'s train step: the main path's weights
+    (seed 0), plans and batches; every loss and the parameters after the
+    last step bitwise the ``Trainer``'s (the sharding path's (a)
+    snapshot at that step); K1 = sum (12 + REMAT units), K2 = K3 = 12 a
+    step, through ``local_map`` on the heads."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import (ensure_process_group,
+                                         make_production_mesh)
+    from repro_torch.launch.steps import place
+    from repro_torch.sharding import specs as SP
+    half = args["steps"] // 2
+    batches = main_path_batches(args)[:half]
+    actions = main_run["actions"][:half]
+    own = ensure_process_group("cuda")
+    try:
+        mesh = make_production_mesh(shape=(1, 1), device_type="cuda")
+        setup = _bert_setup(args, mesh, actions[0])
+        params, opt_state = setup.args[0], setup.args[1]
+        ops.reset_launches()
+        losses = []
+        for batch, acts in zip(batches, actions):
+            b = _prepared(batch, args["quantum"])
+            b = place(b, SP.batch_shardings(b, mesh), mesh)
+            params, opt_state, loss = setup.fn(params, opt_state, b,
+                                               actions=acts)
+            losses.append(float(loss.full_tensor()))
+        torch.cuda.synchronize()
+        launches = _check_flash("D2 (1, 1) nccl mesh", dict(ops.LAUNCHES),
+                                actions)
+        got = {n: p.to_local().detach().cpu() for n, p in params.items()}
+    finally:
+        if own:
+            dist.destroy_process_group()
+    checks = {
+        "losses bitwise the main path's":
+            losses == main_run["losses"][:half],
+        f"parameters after step {half} bitwise the main path's": (
+            set(got) == set(params_half)
+            and all(torch.equal(got[n], params_half[n]) for n in got)),
+        "every parameter a DTensor on (data 1, model 1)":
+            tuple(mesh.mesh_dim_names) == ("data", "model"),
+    }
+    log(f"D2 bert's sharded step on a (1, 1) nccl mesh, {half} steps: "
+        f"losses {losses} vs {main_run['losses'][:half]}; checks "
+        + json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"D2 checks failed: {checks}")
+    del setup, params, opt_state
+    _free()
+    return launches
+
+
+def run_sharded_per_device(args, buckets):
+    """D3: bert's train step at (4, 2) with ZeRO-1 under a fake group of
+    8 ranks: rank 0 runs its own shards on this card (2 of 8 rows, 6 of
+    12 heads through K1-K3, half of d_ff, a quarter of each moment).  One
+    step at each bucket under the sharding path's (b) plan; its
+    allocator peak beside the per-device simulated peak and prediction.
+    The fake collectives leave the values meaningless: only the launches
+    and the memory are checked."""
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import place
+    from repro_torch.sharding import specs as SP
+    if dist.is_initialized():
+        raise AssertionError("D3: a process group is still alive")
+    first = {}                  # the planner's bucket key: B x S tokens
+    for batch in main_path_batches(args):
+        first.setdefault(int(np.prod(np.shape(batch["tokens"]))), batch)
+    out, acts_run = {}, []
+    _free()
+    with fake_group(math.prod(D3_MESH)):
+        mesh = make_production_mesh(shape=D3_MESH, device_type="cuda")
+        some = next(iter(buckets.values()))["actions"]
+        setup = _bert_setup(args, mesh, some, zero1=True)
+        params, opt_state = setup.args[0], setup.args[1]
+        local = {n: tuple(params[n].to_local().shape) for n in (
+            "blocks.0.attn.wq", "blocks.0.mlp.wi", "embed")}
+        moment = tuple(opt_state.m["blocks.0.mlp.wi"].to_local().shape)
+        ops.reset_launches()
+        for key, plan in sorted(buckets.items()):
+            b = _prepared(first[int(key)], args["quantum"])
+            b = place(b, SP.batch_shardings(b, mesh), mesh)
+            rows = tuple(b["tokens"].to_local().shape)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            params, opt_state, _ = setup.fn(params, opt_state, b,
+                                            actions=plan["actions"])
+            torch.cuda.synchronize()
+            acts_run.append(plan["actions"])
+            out[key] = {"local_batch": rows,
+                        "resident_before_mib": resident / 2**20,
+                        "allocator_peak_mib":
+                            torch.cuda.max_memory_allocated() / 2**20,
+                        "sim_peak_per_device_mib":
+                            plan["sim_peak_per_device_mib"],
+                        "predicted_peak_mib": plan["predicted_peak_mib"],
+                        "n_remat": plan["n_remat"]}
+        torch.cuda.synchronize()
+        launches = _check_flash(f"D3 {D3_MESH} zero1 (fake group of 8)",
+                                dict(ops.LAUNCHES), acts_run)
+        del setup, params, opt_state
+    _free()
+    log(f"D3 bert at {D3_MESH} ZeRO-1, rank 0's shards on this card "
+        f"({card_line()}): local shapes {local}, moment of "
+        f"blocks.0.mlp.wi {moment}; per bucket " + json.dumps(out))
+    checks = {
+        "2 of 8 rows": all(v["local_batch"][0] == args["batch_size"] // 4
+                           for v in out.values()),
+        "6 of 12 heads (wq 768 x 384)":
+            local["blocks.0.attn.wq"] == (768, 384),
+        "half of d_ff (wi 768 x 1536)": local["blocks.0.mlp.wi"] == (768,
+                                                                     1536),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"D3 checks failed: {checks}")
+    return launches, out
+
+
+def run_distributed_path(args, main_run, sharding):
+    """D1, D2 and D3, each's wall time logged; returns D2's and D3's
+    flash launches."""
+    timing = {}
+    t0 = time.perf_counter()
+    run_dryrun_pairs()
+    timing["D1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l2 = run_sharded_main_path(args, main_run, sharding["params_half"])
+    timing["D2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l3, per_bucket = run_sharded_per_device(args, sharding["buckets"])
+    timing["D3"] = time.perf_counter() - t0
+    log("distributed: " + json.dumps({
+        "card": card_line(), "D3": per_bucket,
+        "wall_s": {k: round(v, 1) for k, v in timing.items()}}))
+    return {k: l2[k] + l3[k] for k in FLASH_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -3972,8 +4231,14 @@ def main() -> int:
 
     # -- sharding path: per-device planning on a mesh -----------------------
     t0 = time.perf_counter()
-    sh_launches = run_sharding_path(BERT_ARGS, budget_mb, main_run)
+    sharding = run_sharding_path(BERT_ARGS, budget_mb, main_run)
+    sh_launches = sharding["launches"]
     log(f"sharding path: {time.perf_counter() - t0:.1f} s")
+
+    # -- distributed path: the dry run, bert's sharded step (D1-D3) ------
+    t0 = time.perf_counter()
+    d_launches = run_distributed_path(BERT_ARGS, main_run, sharding)
+    log(f"distributed path: {time.perf_counter() - t0:.1f} s")
 
     # -- offload path: OFFLOAD / OFFLOAD_OPT and telemetry on bert --------
     t0 = time.perf_counter()
@@ -4124,6 +4389,7 @@ def main() -> int:
         launches[name] += (h_launches[name] + g_launches[name]
                            + s_launches[name] + v_launches[name]
                            + r_launches[name] + sh_launches[name]
+                           + d_launches[name]
                            + sum(w["launches"][name] for w in wide.values()))
         errs[name] = max([errs[name]] + [e[name]
                                          for e in family_errs.values()])
@@ -4144,6 +4410,8 @@ def main() -> int:
             # family's part of it
             row.update({f"{f}_max_abs_err": e[name]
                         for f, e in family_errs.items()})
+            # D2 and D3: bert's step on DTensor shards (part of launches)
+            row["distributed_launches"] = d_launches[name]
             # the head-dim 80 and 256 instances at their paths' shapes
             for f, w in wide.items():
                 row[f"{f}_launches"] = w["launches"][name]

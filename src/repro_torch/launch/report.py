@@ -6,10 +6,17 @@ restores, OOMs, escalations, retries), and the planner's
 predicted-vs-actual peak bytes per bucket; and the serve report a serve
 run prints.  Copied from the reference's ``launch/report.py``
 (``engine_report``, ``drift_table``, ``serve_report``); built from the
-run's ``MetricsRegistry`` snapshot, not from trainer internals.  The
-dryrun and roofline tables (A20) are not ported.
+run's ``MetricsRegistry`` snapshot, not from trainer internals.  And
+the dry run's and roofline sweep's markdown tables from their JSONL
+records (``load``, ``dryrun_table``, ``roofline_table``):
+
+    PYTHONPATH=src python -m repro_torch.launch.report out.jsonl --kind dryrun
 """
 from __future__ import annotations
+
+import argparse
+import json
+from collections import OrderedDict
 
 
 # -- metrics-snapshot accessors ---------------------------------------------
@@ -199,3 +206,56 @@ def serve_report(engine, result) -> str:
                      sorted(result.compile_counts.items()))
     lines.append(f"| compiled geometries | {comp} |")
     return "\n".join(lines)
+
+
+def load(path):
+    recs = [json.loads(l) for l in open(path)]
+    seen = OrderedDict()
+    for r in recs:                      # keep the latest record per key
+        seen[(r["arch"], r["shape"], r.get("mesh", ""))] = r
+    return list(seen.values())
+
+
+def dryrun_table(recs):
+    print("| arch | shape | mesh | status | step | compile_s | "
+          "temp GiB/dev | args GiB/dev | remat plan |")
+    print("|---|---|---|---|---|---|---|---|---|")
+    for r in recs:
+        if r["status"] == "ok":
+            print(f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok | "
+                  f"{r['step']} | {r['compile_s']} | "
+                  f"{r['temp_gib_per_dev']} | {r['arg_gib_per_dev']} | "
+                  f"`{r.get('remat_mask') or '-'}` |")
+        else:
+            reason = r.get("reason", r.get("error", ""))[:60]
+            print(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+                  f"{r['status']} | - | - | - | - | {reason} |")
+
+
+def roofline_table(recs):
+    print("| arch | shape | t_compute ms | t_memory ms | t_coll ms | "
+          "bottleneck | useful FLOPs | MFU bound | temp GiB/dev |")
+    print("|---|---|---|---|---|---|---|---|---|")
+    for r in recs:
+        if r["status"] != "ok":
+            print(f"| {r['arch']} | {r['shape']} | - | - | - | "
+                  f"{r['status']} | - | - | - |")
+            continue
+        print(f"| {r['arch']} | {r['shape']} | {r['t_compute_ms']} | "
+              f"{r['t_memory_ms']} | {r['t_collective_ms']} | "
+              f"**{r['bottleneck']}** | {r['useful_flops_ratio']} | "
+              f"{r['mfu_bound']} | {r['temp_gib_per_dev']} |")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("path")
+    ap.add_argument("--kind", choices=["dryrun", "roofline"],
+                    default="dryrun")
+    args = ap.parse_args(argv)
+    recs = load(args.path)
+    (dryrun_table if args.kind == "dryrun" else roofline_table)(recs)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,7 @@
-"""Planning constants of the H100 and the per-plan-unit analytic cost
+"""Planning constants of the H100, the per-plan-unit analytic cost
 model (copied from the reference's ``launch/roofline.py``, for the
 block kinds: dense, moe, ssm, hybrid, and an encoder-decoder's enc and
-dec).
+dec), and the dry run's roofline analysis.
 
 The simulator, scheduler, solver and planners bind the constants below
 at import, as the reference binds its own.  They price a plan's
@@ -16,8 +16,25 @@ by ``repro_torch.launch.calibrate`` (run by ``chip_smoke.py``).
 Forward FLOPs of one schedulable unit at a given batch geometry.
 Rematerialising a unit re-runs exactly this forward, so these numbers
 are the recompute cost the cost-aware scheduler scores against.
+
+The roofline (``analyse``, ``Roofline``) has three terms per (arch x
+shape x mesh), from the counts ``launch/steps.count_setup`` takes of one
+device's step:
+
+    compute    = FLOPs per device / the GEMM rate of the model's dtype
+    memory     = bytes per device / HBM_BW
+    collective = collective bytes per device / NVLINK_BW
+
+The reference divides by one TPU rate; here fp32 models divide by
+``PEAK_FLOPS`` and bf16 ones by ``PEAK_FLOPS_BF16`` (``peak_flops_for``).
+Collective bytes are the result bytes of every collective the step
+issued, all-reduce counted twice (reduce-scatter + all-gather
+equivalent traffic), as the reference counts them.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterable, Tuple
 
 import numpy as np
 
@@ -44,6 +61,13 @@ PCIE_BW = 5.4387e10
 # the host's dispatch of 2,600 more kernels, so it follows the host's
 # load more than the card.
 MICROBATCH_OVERHEAD_S = 0.063917
+# HBM3 bandwidth of the H100 SXM5 80 GB, from NVIDIA's data sheet (the
+# figure PERF.md's kernel bounds use)
+HBM_BW = 3.35e12
+# NVLink 4 on the H100 SXM5: 900 GB/s per card both ways, 450e9 bytes/s
+# each way, from NVIDIA's data sheet.  One card cannot measure it: the
+# chip runs of this repository have one NVIDIA H100 80GB HBM3.
+NVLINK_BW = 450e9
 
 
 def _attention_flops(cfg, B: int, S: int, *, causal: bool = True,
@@ -144,10 +168,7 @@ def recompute_scale(dtype) -> float:
     its name): what a FLOPs vector is multiplied by so that dividing it
     by ``PEAK_FLOPS`` prices the recompute at the model's own rate.
     Reads the constants when called."""
-    name = str(dtype).replace("torch.", "")
-    if name in ("bfloat16", "float16"):
-        return PEAK_FLOPS / PEAK_FLOPS_BF16
-    return 1.0
+    return PEAK_FLOPS / peak_flops_for(dtype)
 
 
 def plan_unit_flops(lm, batch) -> np.ndarray:
@@ -158,3 +179,128 @@ def plan_unit_flops(lm, batch) -> np.ndarray:
                                     is_global=m["is_global"],
                                     enc_frames=m.get("enc_frames", 0))
                      for m in lm.plan_unit_meta(batch)], dtype=np.float64)
+
+
+# ---------------------------------------------------------------------------
+# the dry run's roofline
+# ---------------------------------------------------------------------------
+
+def peak_flops_for(dtype) -> float:
+    """The GEMM rate the compute term divides by: ``PEAK_FLOPS_BF16``
+    for a bf16 (or fp16) model, ``PEAK_FLOPS`` for fp32.  Reads the
+    constants when called."""
+    name = str(dtype).replace("torch.", "")
+    return PEAK_FLOPS_BF16 if name in ("bfloat16", "float16") else PEAK_FLOPS
+
+
+def collective_bytes(records: Iterable[Tuple[str, float]]
+                     ) -> Dict[str, float]:
+    """Per-device bytes moved by each collective kind, from the step's
+    recorded ``(kind, result bytes)`` pairs (kinds named as the
+    reference's HLO: all-gather, all-reduce, reduce-scatter, all-to-all,
+    collective-permute)."""
+    out: Dict[str, float] = {}
+    for kind, nbytes in records:
+        out[kind] = out.get(kind, 0.0) + float(nbytes)
+    return out
+
+
+def collective_total(coll: Dict[str, float]) -> float:
+    """The collective term's bytes: all-reduce traffic ~ 2x its payload
+    (reduce-scatter + all-gather phases)."""
+    return sum(v * (2.0 if k == "all-reduce" else 1.0)
+               for k, v in coll.items())
+
+
+@dataclasses.dataclass
+class Roofline:
+    arch: str
+    shape: str
+    mesh: str
+    chips: int
+    flops_per_dev: float
+    bytes_per_dev: float
+    coll_bytes_per_dev: float
+    coll_breakdown: Dict[str, float]
+    temp_bytes_per_dev: float
+    arg_bytes_per_dev: float
+    model_flops: float              # 6 * N_active * tokens (global)
+    peak_flops: float               # the model dtype's GEMM rate
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops_per_dev / self.peak_flops
+
+    @property
+    def t_memory(self) -> float:
+        return self.bytes_per_dev / HBM_BW
+
+    @property
+    def t_collective(self) -> float:
+        return self.coll_bytes_per_dev / NVLINK_BW
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """MODEL_FLOPS / (counted FLOPs aggregated over devices)."""
+        total = self.flops_per_dev * self.chips
+        return self.model_flops / total if total else 0.0
+
+    @property
+    def step_time_bound_s(self) -> float:
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    @property
+    def mfu_bound(self) -> float:
+        """MFU if the step ran exactly at the dominant roofline term."""
+        t = self.step_time_bound_s
+        if not t:
+            return 0.0
+        return self.model_flops / (self.chips * self.peak_flops * t)
+
+    def row(self) -> dict:
+        return {
+            "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
+            "t_compute_ms": round(self.t_compute * 1e3, 3),
+            "t_memory_ms": round(self.t_memory * 1e3, 3),
+            "t_collective_ms": round(self.t_collective * 1e3, 3),
+            "bottleneck": self.bottleneck,
+            "useful_flops_ratio": round(self.useful_flops_ratio, 3),
+            "mfu_bound": round(self.mfu_bound, 3),
+            "temp_gib_per_dev": round(self.temp_bytes_per_dev / 2**30, 2),
+            "arg_gib_per_dev": round(self.arg_bytes_per_dev / 2**30, 2),
+        }
+
+
+def model_flops_for(cfg, shape) -> float:
+    """6*N*D (dense) / 6*N_active*D (MoE); decode counts one token/seq."""
+    n = cfg.active_param_count()
+    if shape.kind == "decode":
+        tokens = shape.global_batch          # one new token per sequence
+        return 2.0 * n * tokens              # forward only
+    tokens = shape.global_batch * shape.seq_len
+    mult = 6.0 if shape.kind == "train" else 2.0
+    return mult * n * tokens
+
+
+def analyse(counts, *, arch: str, shape_cfg, cfg, mesh_name: str,
+            chips: int) -> Roofline:
+    """The roofline of one device's step from ``counts`` (a
+    ``launch.steps.StepCounts``)."""
+    coll = collective_bytes(counts.collectives)
+    return Roofline(
+        arch=arch, shape=shape_cfg.name, mesh=mesh_name, chips=chips,
+        flops_per_dev=float(counts.flops),
+        bytes_per_dev=float(counts.bytes),
+        coll_bytes_per_dev=collective_total(coll),
+        coll_breakdown=coll,
+        temp_bytes_per_dev=float(counts.temp_bytes),
+        arg_bytes_per_dev=float(counts.arg_bytes),
+        model_flops=model_flops_for(cfg, shape_cfg),
+        peak_flops=peak_flops_for(cfg.dtype),
+    )

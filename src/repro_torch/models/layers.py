@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.sharding.dtensor import (even, hold, local_attention,
+                                          split_heads)
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
@@ -189,10 +191,10 @@ def _project_qkv(params, cfg: ModelConfig, x: torch.Tensor, positions,
     are given) of self attention, or ``cross_kv`` as they are."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
-    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
+    q = split_heads(x @ params["wq"], cfg.num_heads, hd)
     if cross_kv is None:
-        k = (x @ params["wk"]).reshape(B, S, cfg.num_kv_heads, hd)
-        v = (x @ params["wv"]).reshape(B, S, cfg.num_kv_heads, hd)
+        k = split_heads(x @ params["wk"], cfg.num_kv_heads, hd)
+        v = split_heads(x @ params["wv"], cfg.num_kv_heads, hd)
     else:
         k, v = cross_kv
     if cfg.qk_norm:
@@ -246,28 +248,40 @@ def attention_apply(params, cfg: ModelConfig, x: torch.Tensor, *,
     hd = cfg.resolved_head_dim()
     q, k, v = _project_qkv(params, cfg, x, positions, mrope_positions,
                            cross_kv)
-    W = cfg.sliding_window
+    # on DTensors: each device's batch rows and heads
+    out = local_attention(_attend, q, k, v, positions, kv_len,
+                          window=cfg.sliding_window,
+                          layer_is_global=layer_is_global, impl=impl,
+                          causal_self=cross_kv is None and causal,
+                          cross=cross_kv is not None)
+    return hold(out.reshape(B, S, cfg.num_heads * hd)) @ params["wo"]
+
+
+def _attend(q, k, v, positions, kv_len, *, window: int,
+            layer_is_global: bool, impl: str, causal_self: bool,
+            cross: bool) -> torch.Tensor:
+    """The attention of ``attention_apply`` on projected q (B, S, H, hd),
+    k, v (B, Sk, Hkv, hd): (B, S, H, hd)."""
+    B, S = q.shape[:2]
+    W = window
     is_local = not layer_is_global and W > 0
-    causal_self = cross_kv is None and causal
     if impl == "flash" and causal_self:
         from repro_torch.kernels import ops as kernel_ops
-        out = kernel_ops.flash_attention(q, k, v, kv_len, causal=True,
-                                         window=W if is_local else 0)
-    elif causal_self and is_local and S % W == 0 and S >= 2 * W:
-        out = sdpa_banded_local(q, k, v, W)
+        return kernel_ops.flash_attention(q, k, v, kv_len, causal=True,
+                                          window=W if is_local else 0)
+    if causal_self and is_local and S % W == 0 and S >= 2 * W:
+        return sdpa_banded_local(q, k, v, W)
+    Sk = k.shape[1]
+    if causal_self:
+        mask = build_mask(positions, positions, W, layer_is_global)
     else:
-        Sk = k.shape[1]
-        if causal_self:
-            mask = build_mask(positions, positions, W, layer_is_global)
-        else:
-            mask = torch.ones((B, S, Sk), dtype=torch.bool, device=x.device)
-        if kv_len is not None and cross_kv is None:
-            # bidirectional: a padded key would reach every valid query
-            key_valid = torch.arange(Sk, device=x.device)[None, :] \
-                < kv_len[:, None]                              # (B, Sk)
-            mask = mask & key_valid[:, None, :]
-        out = sdpa_reference(q, k, v, mask)
-    return out.reshape(B, S, cfg.num_heads * hd) @ params["wo"]
+        mask = torch.ones((B, S, Sk), dtype=torch.bool, device=q.device)
+    if kv_len is not None and not cross:
+        # bidirectional: a padded key would reach every valid query
+        key_valid = torch.arange(Sk, device=q.device)[None, :] \
+            < kv_len[:, None]                                  # (B, Sk)
+        mask = mask & key_valid[:, None, :]
+    return sdpa_reference(q, k, v, mask)
 
 
 def cache_write(buf: torch.Tensor, new: torch.Tensor, index) -> None:
@@ -323,6 +337,8 @@ def attention_decode(params, cfg: ModelConfig, x: torch.Tensor, *,
     ck, cv = kv_cache["k"], kv_cache["v"]
     cache_write(ck, k, cache_index)
     cache_write(cv, v, cache_index)
+    # on DTensors: query heads split into whole kv groups per device
+    q = even(q, 2, cfg.num_kv_heads)
     Smax = ck.shape[1]
     k_pos = torch.arange(Smax, device=x.device)[None].expand(B, Smax)
     mask = (build_mask(positions, k_pos, cfg.sliding_window, layer_is_global)

@@ -53,6 +53,7 @@ from repro_torch.models import hymba as HY
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
+from repro_torch.sharding import dtensor as D
 from repro_torch.train.transfer import TransferLane
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -131,7 +132,8 @@ def block_apply(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
                 impl: str = "xla",
                 seq_lens: Optional[torch.Tensor] = None,
                 enc_out: Optional[torch.Tensor] = None,
-                mrope_positions: Optional[torch.Tensor] = None
+                mrope_positions: Optional[torch.Tensor] = None,
+                constrain: Optional[Callable] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block: pre-norm mixer (attention; the Mamba2 mixer for
     ``kind="ssm"``; attention and Mamba2 in parallel for ``"hybrid"``)
@@ -139,26 +141,30 @@ def block_apply(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
     ``d_ff`` has no MLP.  ``"enc"``'s self attention is bidirectional;
     ``"dec"`` adds a pre-norm cross attention over ``enc_out`` (B, F, d)
     after its causal self attention, with keys and values projected from
-    ``enc_out`` (no RoPE).  Returns ``(x, aux)``: the MoE's load-balance
-    loss, or None."""
+    ``enc_out`` (no RoPE).  ``constrain`` (None: identity) is applied to
+    each branch's normed input and to its output before the residual add
+    (the residual stream's placements on a mesh, ``LM.act_sharding``).
+    Returns ``(x, aux)``: the MoE's load-balance loss, or None."""
     eps = cfg.norm_eps
-    h = L.rmsnorm_apply(params["norm1"], x, eps)
+    c = constrain or (lambda t: t)
+    h = c(L.rmsnorm_apply(params["norm1"], x, eps))
     if kind == "ssm":
-        x = x + M.mamba2_apply(params["ssm"], cfg, h, seq_lens=seq_lens,
-                               impl=impl)
+        x = x + c(M.mamba2_apply(params["ssm"], cfg, h, seq_lens=seq_lens,
+                                 impl=impl))
         if not cfg.d_ff:
             return x, None
     elif kind == "hybrid":
-        x = x + HY.hymba_apply(params["mixer"], cfg, h, positions=positions,
-                               layer_is_global=layer_is_global, impl=impl,
-                               seq_lens=seq_lens)
+        x = x + c(HY.hymba_apply(params["mixer"], cfg, h,
+                                 positions=positions,
+                                 layer_is_global=layer_is_global, impl=impl,
+                                 seq_lens=seq_lens))
     else:
-        x = x + L.attention_apply(params["attn"], cfg, h,
-                                  positions=positions,
-                                  layer_is_global=layer_is_global,
-                                  impl=impl, kv_len=seq_lens,
-                                  mrope_positions=mrope_positions,
-                                  causal=kind != "enc")
+        x = x + c(L.attention_apply(params["attn"], cfg, h,
+                                    positions=positions,
+                                    layer_is_global=layer_is_global,
+                                    impl=impl, kv_len=seq_lens,
+                                    mrope_positions=mrope_positions,
+                                    causal=kind != "enc"))
     if kind == "dec":
         # k and v in one product: the encoder output's gradient then
         # takes one term per decoder layer, summed in the same order
@@ -167,20 +173,21 @@ def block_apply(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
         wkv = torch.cat([params["cross"]["wk"], params["cross"]["wv"]], 1)
         ck, cv = (enc_out @ wkv).reshape(
             B, F, 2, cfg.num_kv_heads, cfg.resolved_head_dim()).unbind(2)
-        hx = L.rmsnorm_apply(params["norm_cross"], x, eps)
-        x = x + L.attention_apply(params["cross"], cfg, hx,
-                                  positions=positions, impl=impl,
-                                  cross_kv=(ck, cv))
-    return _ffn(params, cfg, x, kind)
+        hx = c(L.rmsnorm_apply(params["norm_cross"], x, eps))
+        x = x + c(L.attention_apply(params["cross"], cfg, hx,
+                                    positions=positions, impl=impl,
+                                    cross_kv=(ck, cv)))
+    return _ffn(params, cfg, x, kind, c)
 
 
-def _ffn(params, cfg: ModelConfig, x, kind: str):
-    """The pre-norm MLP (the MoE for ``"moe"``), residual: ``(x, aux)``."""
-    h2 = L.rmsnorm_apply(params["norm2"], x, cfg.norm_eps)
+def _ffn(params, cfg: ModelConfig, x, kind: str, c=lambda t: t):
+    """The pre-norm MLP (the MoE for ``"moe"``), residual: ``(x, aux)``;
+    ``c`` constrains the branch's output (``block_apply``)."""
+    h2 = c(L.rmsnorm_apply(params["norm2"], x, cfg.norm_eps))
     if kind == "moe":
         out, aux = MOE.moe_apply(params["moe"], cfg, h2)
-        return x + out, aux
-    return x + L.mlp_apply(params["mlp"], h2, cfg.mlp_act), None
+        return x + c(out), aux
+    return x + c(L.mlp_apply(params["mlp"], h2, cfg.mlp_act)), None
 
 
 def block_decode(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
@@ -190,9 +197,10 @@ def block_decode(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
                  ) -> torch.Tensor:
     """``block_apply`` over the layer's cache (the reference's
     ``block_apply`` with ``cache`` and ``decode=True``, kinds dense, moe,
-    ssm and hybrid): x (B, C, d) are the C new tokens at ``positions``.
-    The cache dict is updated: k and v written in place at
-    ``cache_index``, ``ssm`` and ``conv`` replaced by the new states.
+    ssm, hybrid and dec): x (B, C, d) are the C new tokens at
+    ``positions``.  The cache dict is updated: k and v written in place
+    at ``cache_index``, ``ssm`` and ``conv`` replaced by the new states;
+    a dec block's cross attention reads the cached ``ck`` and ``cv``.
     The MoE's auxiliary loss is dropped, as the reference's decode
     drops it."""
     h = L.rmsnorm_apply(params["norm1"], x, cfg.norm_eps)
@@ -212,6 +220,11 @@ def block_decode(params, cfg: ModelConfig, x: torch.Tensor, kind: str, *,
                                    cache_index=cache_index,
                                    layer_is_global=layer_is_global,
                                    mrope_positions=mrope_positions)[0]
+    if kind == "dec":
+        hx = L.rmsnorm_apply(params["norm_cross"], x, cfg.norm_eps)
+        x = x + L.attention_apply(params["cross"], cfg, hx,
+                                  positions=positions,
+                                  cross_kv=(cache["ck"], cache["cv"]))
     return _ffn(params, cfg, x, kind)[0]
 
 
@@ -350,6 +363,18 @@ class LM(nn.Module):
         # use, or set by the trainer to carry its telemetry
         self.offload_exec = True
         self.transfer_lane: Optional[TransferLane] = None
+        # the reference's perf switches (set by ``launch/steps.py``):
+        # the residual stream's placements on a mesh (DTensor
+        # placements; None leaves them to DTensor's propagation), logits
+        # in fp32, and prefill logits for the last position only
+        self.act_sharding = None
+        self.logits_f32 = True
+        self.last_logits_only = False
+
+    def _constrain(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` on ``act_sharding`` (a plain tensor, or no
+        ``act_sharding``: ``x``)."""
+        return D.constrain(x, self.act_sharding)
 
     @property
     def device(self) -> torch.device:
@@ -433,7 +458,7 @@ class LM(nn.Module):
         token embeddings, behind the vision prefix for the vlm family."""
         tokens = batch["tokens"]
         B, St = tokens.shape
-        x = self.embed[tokens]
+        x = D.embed_lookup(self.embed, tokens)
         mrope_positions = None
         if self.vision:
             x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
@@ -449,9 +474,10 @@ class LM(nn.Module):
 
     def forward_aux(self, batch: Dict[str, torch.Tensor], actions=None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(logits (B, S, V) in fp32, the blocks' summed auxiliary loss or
-        None).  ``actions``: per-unit plan (bools or ``Action``), the
-        encoder's units first; every layer of a REMAT unit is
+        """(logits (B, S, V), the blocks' summed auxiliary loss or None);
+        the logits in fp32 unless ``logits_f32`` is off, and at the last
+        position only (B, 1, V) with ``last_logits_only``.  ``actions``:
+        per-unit plan (bools or ``Action``), the encoder's units first; every layer of a REMAT unit is
         checkpointed, every layer input of an OFFLOAD unit goes to host
         memory.  ``lengths`` ((B,) true text lengths of a bucket-padded
         batch; the vision prefix is added to them) are threaded into
@@ -459,6 +485,7 @@ class LM(nn.Module):
         as the reference's."""
         cfg = self.cfg
         x, positions, mrope_positions = self._embed_inputs(batch)
+        x = self._constrain(x)
         seq_lens = batch.get("lengths")
         if seq_lens is not None:
             seq_lens = seq_lens.to(device=x.device, dtype=torch.int32)
@@ -478,9 +505,17 @@ class LM(nn.Module):
                                      enc_out=enc_out,
                                      mrope_positions=mrope_positions,
                                      chain=chain)
-        x = L.rmsnorm_apply(self.final_norm, x, cfg.norm_eps)
+        return self._head(x), aux
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and the vocabulary projection, under
+        ``last_logits_only`` and ``logits_f32``."""
+        if self.last_logits_only:
+            x = x[:, -1:]
+        x = L.rmsnorm_apply(self.final_norm, x, self.cfg.norm_eps)
         head = self.embed.t() if self.lm_head is None else self.lm_head
-        return (x @ head).float(), aux
+        logits = x @ head
+        return logits.float() if self.logits_f32 else logits
 
     def lane(self) -> TransferLane:
         """The transfer lane OFFLOAD units copy through."""
@@ -536,7 +571,9 @@ class LM(nn.Module):
         each layer of a unit under ``_layer``); a decoder layer reads
         ``enc_out`` as a tensor input, so its gradient reaches the
         encoder under every action.  Returns the last block's output and
-        the summed auxiliary loss (None when no block has one)."""
+        the summed auxiliary loss (None when no block has one).  Each
+        layer's output, and each of its branches' outputs, is put on
+        ``act_sharding`` (the reference's constraint point)."""
         bounds = self.unit_bounds()
         acts = (as_actions(actions) if actions is not None
                 else (Action.KEEP,) * len(bounds))
@@ -545,6 +582,7 @@ class LM(nn.Module):
                              f"{len(bounds)} units")
         extra = () if enc_out is None else (enc_out,)
         chain = chain or self._offload_chain(acts)
+        pin = None if self.act_sharding is None else self._constrain
         aux = None
         for act, (s, e) in zip(acts, bounds):
             for i in range(s, e):
@@ -556,10 +594,12 @@ class LM(nn.Module):
                                        impl=self.attn_impl,
                                        seq_lens=seq_lens,
                                        enc_out=enc[0] if enc else None,
-                                       mrope_positions=mrope_positions)
+                                       mrope_positions=mrope_positions,
+                                       constrain=pin)
                 x, a = self._layer(act, one, x,
                                    list(self.blocks[i].parameters()),
                                    extra, chain)
+                x = self._constrain(x)
                 if a is not None:
                     aux = a if aux is None else aux + a
         return x, aux
@@ -578,8 +618,7 @@ class LM(nn.Module):
         weights = batch.get("weights")
         if weights is None:
             weights = torch.ones(labels.shape, device=logits.device)
-        lse = torch.logsumexp(logits, dim=-1)
-        label_logit = logits.gather(-1, labels[..., None])[..., 0]
+        lse, label_logit = D.ce_terms(logits, labels)
         total_w = weights.float().sum().clamp_min(1.0)
         ce = ((lse - label_logit) * weights).sum() / total_w
         if aux is None:
@@ -598,13 +637,17 @@ class LM(nn.Module):
     # the cache in place: a caller that wants the old cache clones it.
 
     @torch.inference_mode()
-    def init_cache(self, batch_size: int, max_len: int,
-                   device=None) -> List[Dict[str, torch.Tensor]]:
+    def init_cache(self, batch_size: int, max_len: int, device=None, *,
+                   cross_frames: Optional[int] = None
+                   ) -> List[Dict[str, torch.Tensor]]:
         """A zero cache of ``batch_size`` rows and ``max_len`` positions,
         on ``device`` (the model's by default; ``"meta"`` allocates
-        nothing).  The encoder-decoder family has none: its decoder needs
-        each request's encoder frames."""
-        if self.kind == "dec":
+        nothing).  The encoder-decoder family's decoder needs each
+        request's encoder frames: it has a cache only with
+        ``cross_frames``, which adds the reference's cross-attention keys
+        and values ``ck``, ``cv`` (B, cross_frames, Hkv, hd) to k and v
+        (zeros here: the dry run's decode step reads them as cached)."""
+        if self.kind == "dec" and cross_frames is None:
             raise ValueError(
                 "encoder/decoder serving needs encoder frames per request;"
                 " the continuous-batching engine serves decoder-only "
@@ -613,10 +656,13 @@ class LM(nn.Module):
         dev = self.device if device is None else torch.device(device)
         B = batch_size
         one = {}
-        if self.kind in ("dense", "moe", "hybrid"):
-            hd = cfg.resolved_head_dim()
+        hd = cfg.resolved_head_dim()
+        if self.kind in ("dense", "moe", "hybrid", "dec"):
             for key in ("k", "v"):
                 one[key] = ((B, max_len, cfg.num_kv_heads, hd), dt)
+        if self.kind == "dec":
+            for key in ("ck", "cv"):
+                one[key] = ((B, cross_frames, cfg.num_kv_heads, hd), dt)
         if self.kind in ("ssm", "hybrid"):
             _, H, N, conv_dim = M.mamba2_dims(cfg)
             one["ssm"] = ((B, H, cfg.ssm_head_dim, N), torch.float32)
@@ -677,7 +723,6 @@ class LM(nn.Module):
                 p[self._rows(p, slot, 1)] = 0
         return pool
 
-    @torch.inference_mode()
     def decode_step(self, tokens: torch.Tensor, cache, index
                     ) -> Tuple[torch.Tensor, list]:
         """tokens: (B, C) integer, C == 1 for token decode or a block of
@@ -688,10 +733,20 @@ class LM(nn.Module):
         (logits (B, C, V) fp32, cache), the cache advanced by C
         positions in place.  Every mixer runs its plain path, as the
         reference's decode runs ``impl="xla"``; the vlm family decodes
-        text only, its M-RoPE streams all at the text positions."""
+        text only, its M-RoPE streams all at the text positions.  Runs
+        under ``torch.inference_mode``, or ``no_grad`` on DTensor
+        parameters (DTensor's views cannot be made of parameters in
+        inference mode)."""
+        grad_off = (torch.no_grad() if D.is_dtensor(self.embed)
+                    else torch.inference_mode())
+        with grad_off:
+            return self._decode_step(tokens, cache, index)
+
+    def _decode_step(self, tokens: torch.Tensor, cache, index
+                     ) -> Tuple[torch.Tensor, list]:
         cfg = self.cfg
         B, C = tokens.shape
-        x = self.embed[tokens]
+        x = D.embed_lookup(self.embed, tokens)
         offs = torch.arange(C, device=x.device)
         if isinstance(index, torch.Tensor) and index.ndim >= 1:
             index = index.to(device=x.device, dtype=torch.long)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.sharding.dtensor import local_ssd, split_heads
 
 
 def mask_dt(dt: torch.Tensor, seq_lens: Optional[torch.Tensor]):
@@ -176,12 +177,17 @@ def mamba2_apply(params, cfg: ModelConfig, u: torch.Tensor, *,
 
     if impl == "flash":
         from repro_torch.kernels import ops as kernel_ops
-        y = kernel_ops.ssd_scan(x, dt, A, B_, C_, seq_lens,
-                                chunk=cfg.ssm_chunk)
+
+        def scan(x, dt, A, B_, C_, lens):
+            return kernel_ops.ssd_scan(x, dt, A, B_, C_, lens,
+                                       chunk=cfg.ssm_chunk)
     elif impl == "xla":
-        y, _ = ssd_chunked(x, dt, A, B_, C_, cfg.ssm_chunk)
+        def scan(x, dt, A, B_, C_, lens):
+            return ssd_chunked(x, dt, A, B_, C_, cfg.ssm_chunk)[0]
     else:
         raise ValueError(f"ssd impl must be 'xla' or 'flash', not {impl!r}")
+    # on DTensors: each device's batch rows and heads
+    y = local_ssd(scan, x, dt, A, B_, C_, seq_lens)
     return _mixer_out(params, cfg, y, x, z)
 
 
@@ -190,7 +196,7 @@ def _ssd_inputs(params, cfg: ModelConfig, xBC, dt_raw):
     the convolved ``xBC`` and the raw step sizes."""
     d_inner, H, N, _ = mamba2_dims(cfg)
     x, B_, C_ = torch.split(F.silu(xBC), [d_inner, N, N], dim=-1)
-    x = x.reshape(*x.shape[:2], H, cfg.ssm_head_dim)
+    x = split_heads(x, H, cfg.ssm_head_dim)
     dt = softplus(dt_raw.float() + params["dt_bias"])
     return x, B_, C_, dt, -torch.exp(params["A_log"])
 

@@ -804,3 +804,51 @@ def test_shardings_become_placements(group, name):
     c_sh = SP.cache_shardings(cache, mesh)
     assert len(c_sh) == len(cache)
     assert all(set(a) == set(b) for a, b in zip(c_sh, cache))
+
+
+@pytest.mark.parametrize("qk_norm,impl", [(True, "xla"), (False, "xla"),
+                                          (False, "flash")])
+def test_train_step_on_a_one_device_mesh_is_the_plain_step(group,
+                                                           one_thread,
+                                                           qk_norm, impl):
+    """``launch/steps.build_setup``'s train step on a built (1, 1) gloo
+    mesh (reduced qwen3, fp32, real tensors, every unit REMAT): its loss
+    is the LM's bit for bit.  Without qk-norm, two steps also update the
+    parameters and moments bit for bit as the plain step (``lm.loss``,
+    the backward, ``AdamW.update``), the flash route (its plain version
+    here, through ``local_map`` on the mesh) included.  With qk-norm the
+    second loss may differ in the last bits: the k-norm's backward here
+    reduces a contiguous gradient (DTensor requires it) where the plain
+    path's is strided."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import build_setup, place
+    cfg = get_config("qwen3_1p7b").reduced(dtype="float32", qk_norm=qk_norm)
+    mesh = make_production_mesh(shape=(1, 1), device_type="cpu")
+    setup = build_setup(cfg, ShapeConfig("t", 32, 2, "train"), mesh,
+                        remat="all", device="cpu", seed=0, attn_impl=impl,
+                        optimizer=AdamW(lr=1e-3))
+    params, opt_state = setup.args[0], setup.args[1]
+    assert all(isinstance(p, DTensor) for p in params.values())
+    lm = LM(cfg, device="cpu", seed=0, attn_impl=impl)
+    ref = dict(lm.named_parameters())
+    opt = AdamW(lr=1e-3)
+    ref_state = opt.init(ref)
+    g = torch.Generator().manual_seed(3)
+    for step in range(1 if qk_norm else 2):
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 32),
+                                         generator=g),
+                 "labels": torch.randint(0, cfg.vocab_size, (2, 32),
+                                         generator=g),
+                 "lengths": torch.tensor([32, 17], dtype=torch.int32)}
+        b = place(batch, SP.batch_shardings(batch, mesh), mesh)
+        params, opt_state, loss = setup.fn(params, opt_state, b)
+        want, _ = lm.loss(batch, setup.remat_mask)
+        grads = dict(zip(ref, torch.autograd.grad(want, list(ref.values()))))
+        ref_state = opt.update(grads, ref_state, ref)
+        assert loss.to_local().item() == want.item(), step
+    if not qk_norm:
+        for n, p in ref.items():
+            assert torch.equal(params[n].to_local(), p.detach()), n
+            assert torch.equal(opt_state.m[n].to_local(), ref_state.m[n]), n

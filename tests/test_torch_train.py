@@ -125,13 +125,16 @@ def test_launcher_refuses_cuda_without_a_gpu():
 def test_port_imports_nothing_of_jax_or_the_reference():
     """Import every module of ``repro_torch`` in a fresh interpreter and
     check that neither ``jax`` nor ``repro`` (nor ``msgpack``, which the
-    card's machine lacks) was loaded."""
+    card's machine lacks) was loaded, and that no import made a process
+    group (the dry run makes its fake one in its entry point only)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'an import made a group'\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' "
         "or n.startswith(('jax.', 'jaxlib')) or n == 'repro' "
         "or n.startswith('repro.') or n == 'msgpack')\n"
@@ -160,4 +163,6 @@ def test_port_imports_nothing_of_jax_or_the_reference():
             "repro_torch.obs.tracing", "repro_torch.train.checkpoint",
             "repro_torch.train.resilience", "repro_torch.sharding",
             "repro_torch.sharding.budget", "repro_torch.sharding.specs",
-            "repro_torch.launch.mesh"} <= loaded
+            "repro_torch.launch.mesh", "repro_torch.launch.steps",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline_sweep",
+            "repro_torch.sharding.dtensor"} <= loaded
