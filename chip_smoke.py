@@ -224,12 +224,31 @@ Phases (each raises on failure; the script then exits non-zero):
    decode batch at the run's largest pool: its transient bytes within
    the engine's charge, its wall time and, under ``torch.profiler``,
    its device time (busy share) and kernel launches per layer;
+15. phase E, the public surface (each part's wall time logged): E1,
+   ``examples/torch_dynamic_training_e2e.py`` through its ``main`` at
+   full width (``bert_base_paper``, flash, qqp lengths at quantum 64,
+   ``--steps 24 --batch-size 4 --budget-gb 2.5``), first K1-K3 held
+   against their plain versions at each of its bucket shapes (B 4, S
+   64-384) with its lengths: every loss finite, K1 = sum (12 + REMAT
+   units), K2 = K3 = 12 a step, no FMA launch, the checkpoint it writes
+   loaded back bitwise, the trained model's loss through the kernels
+   against the plain path (rtol 1e-4); tokens/s, warm step time by
+   bucket, remat units per bucket, collections and cache hits, and one
+   warm step profiled as the bert path's; E2, ``torch_quickstart.py``, 30
+   swag batches (plain attention: no launch); E3,
+   ``torch_serve_decode.py`` in engine mode (12 requests served, none
+   rejected, the three peaks within its budget) and ``--sequential``
+   (no launch); E4, paper Tables 3-4 at full bert width: the port's
+   collector at 14 lengths with B 8, each of ``ESTIMATORS`` fitted on
+   the first 10, MAPE on the last 4, fit ms and predict us on the host;
+   one ``examples: {...}`` line;
 
 then prints the card line, one ``{"kernels": [...]}`` JSON line (no new
 kernel on the sharding, distributed, offload and resilience paths: they
 run K1-K3; K1-K3 launches are the bert, sharding, distributed (D2 and
 D3, also ``distributed_launches``), resilience, hymba, granite,
-seamless, qwen2-vl, stablelm and gemma3 paths', with each bf16 family's
+seamless, qwen2-vl, stablelm, gemma3 and E1 (also
+``examples_launches``) paths', with each bf16 family's and E1's
 ``<family>_max_abs_err`` beside the maximum and the stablelm and gemma3
 instances' launches, ms, plain, bound and library ms as
 ``<family>_<key>``; K4's are the mamba2 and hymba paths' launches of
@@ -4167,6 +4186,212 @@ def run_serve_path(ops):
     return {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
 
 
+# ---------------------------------------------------------------------------
+# phase E: the public surface -- the three examples, Tables 3-4
+# ---------------------------------------------------------------------------
+
+# E1: the end-to-end example at full width (bert_base_paper, 110M, fp32,
+# its qqp lengths at quantum 64 from seed 0 and its flash kernels), cut
+# to 24 steps; E1_ARGS gives main_path_batches the example's batches
+E1_ARGS = dict(arch="bert_base_paper", dataset="qqp", batch_size=4,
+               steps=24, quantum=64)
+E1_ARGV = ["--steps", str(E1_ARGS["steps"]),
+           "--batch-size", str(E1_ARGS["batch_size"]), "--budget-gb", "2.5"]
+# E2: the quickstart's own count of swag batches
+E2_ARGV = ["--num-batches", "30"]
+# E4: benchmarks/table34_estimator.py's sizes at bert's B 8, the first
+# 10 fitted, the last 4 held out; predict time over 50 calls
+E4_SIZES = np.linspace(32, 352, 14).astype(int)
+E4_BATCH = 8
+E4_TRAIN = 10
+E4_PREDICTS = 50
+
+
+def _example(name):
+    """``examples/<name>.py`` as a module (its ``main(argv)``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_e2e_example(fa, ops):
+    """E1: K1-K3 held against their plain versions at each of the
+    example's bucket shapes and lengths; then
+    ``torch_dynamic_training_e2e.main`` on the card: every loss finite,
+    each step's bucket the checked batches', K1 = sum (12 + REMAT
+    units), K2 = K3 = 12 a step, no FMA launch; the checkpoint it writes
+    loads back bitwise equal; the trained model's loss through the
+    kernels against the plain path on the first batch; one warm step at
+    the most common bucket profiled.  Returns the launches, the max abs
+    error per kernel and the warm tokens/s."""
+    import tempfile
+    from repro_torch.train import checkpoint
+    batches = main_path_batches(E1_ARGS)
+    cases = flash_main_cases(E1_ARGS, batches)
+    errs = check_kernels(fa, ops, list(cases), cases)
+    log(f"E1 kernel checks passed at its {len(cases)} bucket shapes; max "
+        f"abs error {errs}")
+    e2e = _example("torch_dynamic_training_e2e")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "bert_base_mimose.pt")
+        argv = E1_ARGV + ["--save", path]
+        log("E1: examples/torch_dynamic_training_e2e.py " + " ".join(argv))
+        ops.reset_launches()
+        trainer = e2e.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        _bitwise("E1 checkpoint", checkpoint.load(path, trainer.params),
+                 trainer.params)
+    h = trainer.history
+    losses = [s.loss for s in h]
+    if len(h) != E1_ARGS["steps"] or not all(math.isfinite(x)
+                                             for x in losses):
+        raise AssertionError(f"E1: {len(h)} steps, losses {losses}")
+    shapes = [int(np.prod(b["tokens"].shape)) for b in batches]
+    if [s.bucket for s in h] != shapes:
+        raise AssertionError(f"E1: buckets {[s.bucket for s in h]}, the "
+                             f"checked batches' {shapes}")
+    got = _check_flash("E1", launches, _step_actions(trainer))
+    summ, stats = trainer.summary(), trainer.planner.stats
+    remat = {}
+    for st in h:
+        remat.setdefault(st.bucket, set()).add(st.remat_units)
+    remat = {b: sorted(r) for b, r in sorted(remat.items())}
+    warm = [s for s in h if not s.compile]
+    log("E1 losses: " + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"E1: tokens/s {summ['tokens_per_s']:.1f} over {len(warm)} warm "
+        f"steps, mean warm step {summ['mean_step_s'] * 1e3:.2f} ms (plan "
+        f"{np.mean([s.plan_time_s for s in warm]) * 1e3:.2f} ms of it), "
+        f"warm step ms by bucket " + json.dumps(
+            {b: round(1e3 * float(np.mean([s.step_time_s for s in warm
+                                           if s.bucket == b])), 2)
+             for b in sorted({s.bucket for s in warm})})
+        + f"; remat units per bucket (B x S) {json.dumps(remat)}"
+        f"; collections {stats['collections']}, cache_hits "
+        f"{stats['cache_hits']}; checkpoint loads back bitwise")
+    check_model(trainer.lm, batches[0], E1_ARGS["quantum"], 1e-4)
+    _, batch = most_common_bucket(batches)
+    profile_step(trainer, batch,
+                 [("flash kernels", ("flash_",)),
+                  ("gemm", ("gemm", "cutlass", "xmma"))])
+    del trainer
+    _free()
+    return got, errs, summ["tokens_per_s"]
+
+
+def run_quickstart_example(ops):
+    """E2: ``torch_quickstart.main`` on the card (plain attention, the
+    reference's default: no kernel launch)."""
+    before = dict(ops.LAUNCHES)
+    trainer = _example("torch_quickstart").main(E2_ARGV + ["--device",
+                                                           "cuda"])
+    losses = [s.loss for s in trainer.history]
+    ran = _launched(ops, before)
+    if (len(losses) != 30 or not all(math.isfinite(x) for x in losses)
+            or ran):
+        raise AssertionError(f"E2: losses {losses}, launched {ran}")
+    tps = trainer.summary()["tokens_per_s"]
+    log(f"E2: 30 swag batches, final loss {losses[-1]:.4f}, tokens/s "
+        f"{tps:.1f}")
+    del trainer
+    _free()
+    return tps
+
+
+def run_serve_example(ops):
+    """E3: ``torch_serve_decode.main`` in engine mode and with
+    ``--sequential`` at its reduced sizes (decode runs the plain paths:
+    no kernel launch); every request served, the engine's peaks within
+    its budget."""
+    serve = _example("torch_serve_decode")
+    before = dict(ops.LAUNCHES)
+    engine, result = serve.main([])
+    summ = result.summary()
+    budget_mb = engine.hbm_bytes / 1e6
+    peaks = {k: summ[k] for k in ("peak_predicted_mb", "peak_actual_mb",
+                                  "peak_allocated_mb")}
+    log(f"E3 engine: {result.completed} served, {result.rejected} "
+        f"rejected, tokens/s {result.tokens_per_s:.1f}, peaks "
+        f"{json.dumps(peaks)} MB against the budget {budget_mb:.1f} MB")
+    if result.rejected or result.completed != 12 or any(
+            v > budget_mb for v in peaks.values()):
+        raise AssertionError(f"E3 engine: {summ}")
+    del engine, result
+    _free()
+    out = serve.main(["--sequential"])
+    if tuple(out.shape) != (4, 32):
+        raise AssertionError(f"E3 sequential: tokens {tuple(out.shape)}")
+    ran = _launched(ops, before)
+    if ran:
+        raise AssertionError(f"E3 launched kernels: {ran}")
+    _free()
+    return summ["tokens_per_s"], peaks, budget_mb
+
+
+def run_estimator_table():
+    """E4: paper Tables 3-4 at full bert width: the port's collector at
+    ``E4_SIZES`` with B 8, each of ``ESTIMATORS`` fitted on the first
+    ``E4_TRAIN`` sizes; MAPE on the rest, fit ms and predict us on this
+    host."""
+    from repro_torch.core import ESTIMATORS, ShuttlingCollector
+    from repro_torch.models.lm import LM
+    lm = LM(path_config(BERT_ARGS), device="meta")
+    col = ShuttlingCollector(lm)
+    data = {}
+    for S in E4_SIZES:
+        res = col.collect({"tokens": torch.ones((E4_BATCH, int(S)),
+                                                 dtype=torch.long)})
+        data[res.input_size] = res.activation_vector()
+    sizes = list(data)
+    train, test = sizes[:E4_TRAIN], sizes[E4_TRAIN:]
+    truth = np.stack([data[s] for s in test])
+    rows = {}
+    for name, make in ESTIMATORS.items():
+        est = make()
+        for s in train:
+            est.add_sample(s, data[s])
+        t0 = time.perf_counter()
+        est.fit()
+        fit_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(E4_PREDICTS):
+            est.predict_total(test[0])
+        pred_us = (time.perf_counter() - t0) / E4_PREDICTS * 1e6
+        rows[name] = {"mape": est.mape(test, truth), "fit_ms": fit_ms,
+                      "predict_us": pred_us}
+        log(f"E4 {name}: MAPE {100 * rows[name]['mape']:.4f} % on sizes "
+            f"{test}, fit {fit_ms:.3f} ms, predict {pred_us:.2f} us")
+    if len(rows) != 4 or not all(math.isfinite(r["mape"])
+                                 for r in rows.values()):
+        raise AssertionError(f"E4: {rows}")
+    return rows
+
+
+def run_examples_phase(fa, ops):
+    """E1-E4, each one's wall time logged; returns E1's K1-K3 launches
+    and its kernels' max abs errors at its shapes."""
+    walls, out = {}, {}
+    t0 = time.perf_counter()
+    e_launches, e_errs, out["e1_tokens_per_s"] = run_e2e_example(fa, ops)
+    walls["E1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["e2_tokens_per_s"] = run_quickstart_example(ops)
+    walls["E2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (out["e3_tokens_per_s"], out["e3_peaks_mb"],
+     out["e3_budget_mb"]) = run_serve_example(ops)
+    walls["E3"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["e4"] = run_estimator_table()
+    walls["E4"] = time.perf_counter() - t0
+    out["wall_s"] = walls
+    log("examples: " + json.dumps(out))
+    return e_launches, e_errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4384,12 +4609,17 @@ def main() -> int:
     serve_launches = run_serve_path(ops)
     log(f"serve path: {time.perf_counter() - t0:.1f} s")
 
+    # -- phase E: the examples and Tables 3-4 (E1 runs K1-K3) ------------
+    t0 = time.perf_counter()
+    e_launches, family_errs["e1"] = run_examples_phase(fa, ops)
+    log(f"examples phase: {time.perf_counter() - t0:.1f} s")
+
     launches["ssd_scan"] += h_launches["ssd_scan"]
     for name in FLASH_KERNELS:
         launches[name] += (h_launches[name] + g_launches[name]
                            + s_launches[name] + v_launches[name]
                            + r_launches[name] + sh_launches[name]
-                           + d_launches[name]
+                           + d_launches[name] + e_launches[name]
                            + sum(w["launches"][name] for w in wide.values()))
         errs[name] = max([errs[name]] + [e[name]
                                          for e in family_errs.values()])
@@ -4412,6 +4642,8 @@ def main() -> int:
                         for f, e in family_errs.items()})
             # D2 and D3: bert's step on DTensor shards (part of launches)
             row["distributed_launches"] = d_launches[name]
+            # E1: the end-to-end example (part of launches)
+            row["examples_launches"] = e_launches[name]
             # the head-dim 80 and 256 instances at their paths' shapes
             for f, w in wide.items():
                 row[f"{f}_launches"] = w["launches"][name]

@@ -1,10 +1,13 @@
 """Lightning memory estimator (paper §4.3): a numpy copy of the
-reference's ``PolyEstimator``.
+reference's ``core/estimator.py``.
 
 Per plan-unit polynomial regression of activation bytes against input
 size.  Activation memory is at most quadratic in the input size
 (attention's (S, S) score tensor), so degree 2 is the default.
 ``state_dict`` / ``load_state`` carry the raw samples into a snapshot.
+The small CART tree and the polynomials of degree 1 and 3
+(``ESTIMATORS``) are the paper's Tables 3-4 comparison; ``mape`` scores
+any of them on held-out sizes.
 """
 from __future__ import annotations
 
@@ -91,3 +94,88 @@ class PolyEstimator:
         if self.ready:
             self.fit()
         return self
+
+    def mape(self, sizes: Sequence[float], truth: np.ndarray) -> float:
+        """truth: (n_samples, n_units) actual bytes."""
+        return _mape(self, sizes, truth)
+
+
+def _mape(est, sizes, truth) -> float:
+    """Mean absolute percentage error of the predicted total bytes."""
+    preds = np.stack([est.predict(s) for s in sizes])
+    tot_p, tot_t = preds.sum(1), truth.sum(1)
+    return float(np.mean(np.abs(tot_p - tot_t) / np.maximum(tot_t, 1.0)))
+
+
+class DecisionTreeEstimator:
+    """Tiny CART regressor on the per-unit bytes (Table 3 baseline):
+    splits at the midpoint between distinct sorted sizes, predicts a
+    leaf's mean, constant past the last leaf."""
+
+    def __init__(self, max_depth: int = 4, min_leaf: int = 1):
+        self.max_depth = max_depth
+        self.min_leaf = min_leaf
+        self._sizes: List[float] = []
+        self._acts: List[np.ndarray] = []
+        self._tree = None
+
+    def add_sample(self, input_size, activation_bytes):
+        self._sizes.append(float(input_size))
+        self._acts.append(np.asarray(activation_bytes, dtype=np.float64))
+        self._tree = None
+
+    @property
+    def ready(self) -> bool:
+        return len(self._sizes) >= 2
+
+    def _build(self, xs, ys, depth):
+        if depth >= self.max_depth or len(xs) <= self.min_leaf:
+            return ("leaf", ys.mean(axis=0))
+        order = np.argsort(xs)
+        xs, ys = xs[order], ys[order]
+        best = None
+        for i in range(1, len(xs)):
+            if xs[i] == xs[i - 1]:
+                continue
+            sse = (((ys[:i] - ys[:i].mean(0)) ** 2).sum()
+                   + ((ys[i:] - ys[i:].mean(0)) ** 2).sum())
+            if best is None or sse < best[0]:
+                best = (sse, (xs[i - 1] + xs[i]) / 2, i)
+        if best is None:
+            return ("leaf", ys.mean(axis=0))
+        _, thr, i = best
+        return ("node", thr, self._build(xs[:i], ys[:i], depth + 1),
+                self._build(xs[i:], ys[i:], depth + 1))
+
+    def fit(self):
+        if not self._sizes:
+            raise RuntimeError(
+                "DecisionTreeEstimator has no samples: call add_sample() "
+                "before predict/fit.")
+        t0 = time.perf_counter()
+        self._tree = self._build(np.asarray(self._sizes),
+                                 np.stack(self._acts), 0)
+        self.fit_time_s = time.perf_counter() - t0
+        return self
+
+    def predict(self, input_size: float) -> np.ndarray:
+        if self._tree is None:
+            self.fit()
+        node = self._tree
+        while node[0] == "node":
+            node = node[2] if input_size <= node[1] else node[3]
+        return node[1]
+
+    def predict_total(self, input_size: float) -> float:
+        return float(np.sum(self.predict(input_size)))
+
+    def mape(self, sizes, truth) -> float:
+        return _mape(self, sizes, truth)
+
+
+ESTIMATORS = {
+    "poly1": lambda: PolyEstimator(1),
+    "poly2": lambda: PolyEstimator(2),
+    "poly3": lambda: PolyEstimator(3),
+    "tree": lambda: DecisionTreeEstimator(),
+}

@@ -25,6 +25,14 @@ def bucket_length(max_len: int, quantum: int) -> int:
     return ((int(max_len) + q - 1) // q) * q
 
 
+def bucket_edges(dist: "LengthDistribution", quantum: int) -> List[int]:
+    """Every padded sequence length the distribution can produce: the
+    bound on the distinct batch geometries (and plan-cache keys)."""
+    lo = bucket_length(dist.lo, quantum)
+    hi = bucket_length(dist.hi, quantum)
+    return list(range(lo, hi + 1, max(int(quantum), 1)))
+
+
 def pad_batch(batch: dict, quantum: int) -> dict:
     """Pad a ragged batch's sequence axis up to its bucket length.
 
@@ -137,3 +145,14 @@ def make_batches(dataset: str, *, batch_size: int, vocab_size: int,
         if extra:
             batch.update({k: fn(batch_size, S) for k, fn in extra.items()})
         yield batch
+
+
+def epoch_sizes(dataset: str, batch_size: int, num_batches: int,
+                quantum: int = 32, seed: int = 0) -> np.ndarray:
+    """Just the padded input sizes (B x S) of an epoch (for
+    distribution plots)."""
+    return np.array([b["tokens"].size
+                     for b in make_batches(dataset, batch_size=batch_size,
+                                           vocab_size=100,
+                                           num_batches=num_batches,
+                                           quantum=quantum, seed=seed)])

@@ -34,7 +34,7 @@ equivalent traffic), as the reference counts them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
@@ -179,6 +179,16 @@ def plan_unit_flops(lm, batch) -> np.ndarray:
                                     is_global=m["is_global"],
                                     enc_frames=m.get("enc_frames", 0))
                      for m in lm.plan_unit_meta(batch)], dtype=np.float64)
+
+
+def offload_transfer_s(bytes_moved: float,
+                       pcie_bytes_per_s: Optional[float] = None) -> float:
+    """Round-trip host-offload time for ``bytes_moved`` residual bytes:
+    ``2 x bytes / bandwidth`` (out in the forward, back before the
+    unit's backward), the OFFLOAD counterpart of the REMAT cost ``flops
+    / PEAK_FLOPS``.  ``None`` reads ``PCIE_BW`` when called."""
+    rate = PCIE_BW if pcie_bytes_per_s is None else pcie_bytes_per_s
+    return 2.0 * float(bytes_moved) / float(rate)
 
 
 # ---------------------------------------------------------------------------

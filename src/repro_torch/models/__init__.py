@@ -1,1 +1,4 @@
-"""The dense language model and its layers."""
+"""The language model and its layers: the LM shell plus per-family
+block implementations (dense / MoE / SSM / hybrid / encoder-decoder)."""
+from repro_torch.models.lm import (LM, PlanUnit, block_apply,  # noqa: F401
+                                   block_init, build_model)

@@ -850,6 +850,13 @@ class LM(nn.Module):
         return units
 
 
+def build_model(cfg: ModelConfig, attn_impl: str = "xla", *,
+                device="cuda", seed: int = 0) -> LM:
+    """The reference's ``build_model``: ``LM``'s constructor, which draws
+    the parameters (from ``seed``) onto ``device``."""
+    return LM(cfg, attn_impl=attn_impl, device=device, seed=seed)
+
+
 def configure_offload(lm: LM, lane: Optional[TransferLane] = None) -> bool:
     """Make ``lm`` execute OFFLOAD for real, through ``lane`` when given.
     Returns whether OFFLOAD degrades to REMAT: never in the port (one

@@ -1,26 +1,30 @@
-"""Architecture registry: ``--arch <id>`` -> ``ModelConfig``.
+"""Architecture registry: ``--arch <id>`` -> (``ModelConfig``, ``LM``).
 
 Holds the configurations the port runs -- every one of the
-reference's -- under the reference's ids and its dashed public names.
+reference's -- under the reference's ids, in its order, and its dashed
+public names.
 """
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from repro_torch.config import ModelConfig
+from repro_torch.models.lm import LM, build_model
 
 ARCH_IDS = [
-    "bert_base_paper",
     "mamba2_1p3b",
-    "granite_moe_1b_a400m",
-    "kimi_k2_1t_a32b",
-    "hymba_1p5b",
-    "qwen3_1p7b",
-    "yi_9b",
     "seamless_m4t_large_v2",
-    "qwen2_vl_7b",
-    "stablelm_3b",
+    "granite_moe_1b_a400m",
     "gemma3_12b",
+    "yi_9b",
+    "stablelm_3b",
+    "qwen2_vl_7b",
+    "qwen3_1p7b",
+    "hymba_1p5b",
+    "kimi_k2_1t_a32b",
+    # the paper's own evaluation model (Bert-base scale)
+    "bert_base_paper",
 ]
 
 # configurations that train only reduced: their full-size weights do
@@ -51,3 +55,17 @@ def get_config(arch: str) -> ModelConfig:
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; the port runs: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+
+
+def get_model(arch: str, attn_impl: str = "xla", *, device="cuda") -> LM:
+    """The full-size model of ``arch``, its parameters drawn (seed 0) on
+    ``device``.  Refuses a configuration in ``REDUCED_ONLY``: build its
+    ``get_config(arch).reduced(...)`` with ``build_model`` instead."""
+    if canonical(arch) in REDUCED_ONLY:
+        raise ValueError(f"{arch} trains only reduced "
+                         f"({REDUCED_ONLY[canonical(arch)]})")
+    return build_model(get_config(arch), attn_impl=attn_impl, device=device)
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

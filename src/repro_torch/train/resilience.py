@@ -446,6 +446,11 @@ class SnapshotManager:
         return sorted(os.path.join(self.dir, d)
                       for d in os.listdir(self.dir) if d.startswith("snap-"))
 
+    def latest(self) -> Optional[str]:
+        """The newest snapshot dir, or None."""
+        snaps = self.snapshots()
+        return snaps[-1] if snaps else None
+
     def verify(self, path: str) -> dict:
         """Validate one snapshot dir against its manifest; returns the
         manifest, raises ``SnapshotError`` on a missing or corrupt

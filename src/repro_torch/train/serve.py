@@ -4,16 +4,45 @@ LM's KV / SSM caches.
 Counterpart of the reference's ``train/serve.py``.  The reference jits
 one serve step per LM and caches it on the model so every geometry
 compiles once; eager PyTorch compiles nothing, so ``cached_serve_step``
-is the LM's ``decode_step``.  The continuous-batching engine on top of
-this is ``train/engine.py``.
+is the LM's ``decode_step``; ``make_serve_step`` keeps the reference's
+functional form, the parameters an argument.  The continuous-batching
+engine on top of this is ``train/engine.py``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
+from torch import nn
 
 from repro_torch.models.lm import LM
+
+
+class _DecodeStep(nn.Module):
+    """``lm.decode_step`` as a module's forward, so ``functional_call``
+    can run it on other parameters."""
+
+    def __init__(self, lm: LM):
+        super().__init__()
+        self.lm = lm
+
+    def forward(self, tokens, cache, index):
+        return self.lm.decode_step(tokens, cache, index)
+
+
+def make_serve_step(lm: LM):
+    """The uncached decode step: (params, tokens (B, C), cache, index)
+    -> (logits, cache), ``params`` a ``{name: tensor}`` mapping of the
+    LM's parameters (``dict(lm.named_parameters())``) swapped in for
+    the call."""
+    module = _DecodeStep(lm)
+
+    def serve_step(params: Mapping[str, torch.Tensor], tokens, cache,
+                   index):
+        return torch.func.functional_call(
+            module, {f"lm.{n}": t for n, t in params.items()},
+            (tokens, cache, index))
+    return serve_step
 
 
 def cached_serve_step(lm: LM):

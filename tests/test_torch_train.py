@@ -133,6 +133,14 @@ def test_port_imports_nothing_of_jax_or_the_reference():
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        # the reference's public surface, from the port's packages
+        "from repro_torch.core import (ESTIMATORS, DecisionTreeEstimator, "
+        "MeshBudget, MimosePlanner, ShuttlingCollector, "
+        "offload_transfer_s)\n"
+        "from repro_torch.models import LM, build_model\n"
+        "from repro_torch.models.registry import all_configs, get_model\n"
+        "from repro_torch.data.pipeline import bucket_edges, epoch_sizes\n"
+        "from repro_torch.train.serve import make_serve_step\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized(), 'an import made a group'\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' "
@@ -165,4 +173,5 @@ def test_port_imports_nothing_of_jax_or_the_reference():
             "repro_torch.sharding.budget", "repro_torch.sharding.specs",
             "repro_torch.launch.mesh", "repro_torch.launch.steps",
             "repro_torch.launch.dryrun", "repro_torch.launch.roofline_sweep",
-            "repro_torch.sharding.dtensor"} <= loaded
+            "repro_torch.sharding.dtensor", "repro_torch.core",
+            "repro_torch.models"} <= loaded
