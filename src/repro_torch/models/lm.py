@@ -15,7 +15,9 @@ reference's ``_chunk_bounds``).  REMAT is ``torch.utils.checkpoint``
 (non-reentrant) around each layer of the unit — the reference's scan
 mode checkpoints the scan *body*, so a REMAT chunk keeps every layer
 input of the chunk, not one — and a rematerialised layer's forward runs
-again in the backward.
+again in the backward, inside a ``recompute`` span of ``lm.telemetry``'s
+tracer (the trainer's; a profiler range while ``torch.profiler``
+records).
 
     lm = LM(cfg, attn_impl="flash", device="cuda")
     loss, metrics = lm.loss(batch, actions)
@@ -53,6 +55,7 @@ from repro_torch.models import hymba as HY
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
+from repro_torch.obs import TRACK_STEP, Telemetry
 from repro_torch.sharding import dtensor as D
 from repro_torch.train.transfer import TransferLane
 
@@ -363,6 +366,9 @@ class LM(nn.Module):
         # use, or set by the trainer to carry its telemetry
         self.offload_exec = True
         self.transfer_lane: Optional[TransferLane] = None
+        # the telemetry whose tracer holds the ``recompute`` spans (the
+        # trainer's, bound by it)
+        self.telemetry = Telemetry.disabled()
         # the reference's perf switches (set by ``launch/steps.py``):
         # the residual stream's placements on a mesh (DTensor
         # placements; None leaves them to DTensor's propagation), logits
@@ -537,6 +543,8 @@ class LM(nn.Module):
         the host through ``chain`` (``_OffloadLayer``; as REMAT without a
         chain).  ``extra``: other tensors the layer reads, each given its
         gradient."""
+        if act in (Action.REMAT, Action.OFFLOAD):
+            fn = self._recompute_span(fn)
         if act is Action.OFFLOAD and chain is not None:
             out = _OffloadLayer.apply(x, fn, chain, len(extra), *extra,
                                       *params)
@@ -544,6 +552,17 @@ class LM(nn.Module):
         if act in (Action.REMAT, Action.OFFLOAD):
             return checkpoint(fn, x, *extra, use_reentrant=False)
         return fn(x, *extra)
+
+    def _recompute_span(self, fn):
+        """``fn`` with a ``recompute`` span around each call made by a
+        backward (the re-run; on autograd's thread on CUDA), and none
+        around the first forward's."""
+        def rerun(*args):
+            if torch._C._current_graph_task_id() == -1:
+                return fn(*args)
+            with self.telemetry.tracer.span("recompute", TRACK_STEP):
+                return fn(*args)
+        return rerun
 
     def encode(self, batch, actions, chain=None) -> torch.Tensor:
         """The bidirectional encoder over the stub ``frames`` (B, F, d),

@@ -19,7 +19,9 @@ the transfer lane:
 * ``telemetry.tracer`` — a Perfetto
   :class:`~repro_torch.obs.tracing.SpanTracer` (or
   :class:`~repro_torch.obs.tracing.NullTracer` whose ``span()`` returns a
-  shared singleton — zero allocation when disabled).
+  shared singleton — zero allocation when disabled).  While
+  ``torch.profiler`` records, either tracer's spans are also host
+  ranges ``repro_torch.<name>`` on the profiler's clock.
 
 ``Telemetry.disabled()`` is the default everywhere: metrics only, no
 events, no spans, no sinks — and is behavior-identical to the
@@ -33,8 +35,8 @@ from typing import Optional
 from .events import SCHEMA_VERSION, EventLog, NullEventLog, read_events
 from .metrics import (Counter, Gauge, Histogram, LabelView,
                       MetricsRegistry, StatsView)
-from .tracing import (NULL_SPAN, NullTracer, SpanTracer, TRACK_PLANNER,
-                      TRACK_SERVE, TRACK_SOLVER, TRACK_STEP,
+from .tracing import (NULL_SPAN, PROFILER_PREFIX, NullTracer, SpanTracer,
+                      TRACK_PLANNER, TRACK_SERVE, TRACK_SOLVER, TRACK_STEP,
                       TRACK_TRANSFER)
 
 __all__ = [
@@ -42,7 +44,7 @@ __all__ = [
     "MetricsRegistry", "StatsView", "LabelView",
     "Counter", "Gauge", "Histogram",
     "EventLog", "NullEventLog", "read_events", "SCHEMA_VERSION",
-    "SpanTracer", "NullTracer", "NULL_SPAN",
+    "SpanTracer", "NullTracer", "NULL_SPAN", "PROFILER_PREFIX",
     "TRACK_STEP", "TRACK_PLANNER", "TRACK_TRANSFER", "TRACK_SERVE",
     "TRACK_SOLVER",
 ]

@@ -8,8 +8,21 @@ own row in the Perfetto UI, so the transfer lane's measured
 ``exposed`` spans sit visually under the ``execute`` span they steal
 time from.
 
-The disabled path is a strict no-op: :class:`NullTracer.span` returns
-one shared :data:`NULL_SPAN` singleton (no allocation per call) whose
+While ``torch.profiler`` records, every ``span()`` -- of a
+:class:`SpanTracer` or of a :class:`NullTracer` -- also opens a host
+range ``repro_torch.<name>`` on the profiler's clock, on the thread
+that runs the span (autograd's device thread for a span inside the
+backward), so the device events and the idle gaps under it are put
+down to the span.  The range is a function-scope ``RecordFunction``
+(``_RecordFunctionFast``, as ``torch._dynamo`` opens its own): the
+profiler keeps it on the host and lays no device copy over the
+kernels, so a trace's device events are the same with and without the
+program's spans.  ``complete()`` and ``instant()`` stay in the Chrome
+JSON only (retroactive or zero-length).
+
+The disabled path is a strict no-op: with no profiler recording,
+:class:`NullTracer.span` returns one shared :data:`NULL_SPAN` singleton
+(no allocation per call, no dispatcher call) whose
 ``__enter__``/``__exit__`` do nothing.
 """
 from __future__ import annotations
@@ -20,7 +33,10 @@ import threading
 import time
 from typing import List, Optional
 
-__all__ = ["SpanTracer", "NullTracer", "NULL_SPAN",
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
+
+__all__ = ["SpanTracer", "NullTracer", "NULL_SPAN", "PROFILER_PREFIX",
            "TRACK_STEP", "TRACK_PLANNER", "TRACK_TRANSFER", "TRACK_SERVE",
            "TRACK_SOLVER"]
 
@@ -38,12 +54,15 @@ _TRACK_NAMES = {
     TRACK_SERVE: "serve",
     TRACK_SOLVER: "solver",
 }
+# the profiler range of span ``name`` is ``PROFILER_PREFIX + name``
+PROFILER_PREFIX = "repro_torch."
 
 
 class _Span:
-    """Context manager recording one complete event on exit."""
+    """Context manager recording one complete event on exit, inside
+    the span's profiler range while a profiler records."""
 
-    __slots__ = ("_tracer", "name", "track", "args", "_t0")
+    __slots__ = ("_tracer", "name", "track", "args", "_t0", "_range")
 
     def __init__(self, tracer: "SpanTracer", name: str, track: int,
                  args: Optional[dict]):
@@ -52,8 +71,12 @@ class _Span:
         self.track = track
         self.args = args
         self._t0 = 0.0
+        self._range = None
 
     def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = _RecordFunctionFast(PROFILER_PREFIX + self.name)
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
@@ -61,6 +84,9 @@ class _Span:
         self._tracer.complete(self.name, self._t0,
                               time.perf_counter() - self._t0,
                               track=self.track, args=self.args)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
         return False
 
 
@@ -157,12 +183,15 @@ class SpanTracer:
 
 
 class NullTracer:
-    """Disabled tracer: every span is the shared :data:`NULL_SPAN`."""
+    """Disabled tracer: every span is the shared :data:`NULL_SPAN`, or
+    only its profiler range while a profiler records."""
 
     enabled = False
 
     def span(self, name: str, track: int = TRACK_STEP,
-             args: Optional[dict] = None) -> _NullSpan:
+             args: Optional[dict] = None):
+        if _autograd_profiler._is_profiler_enabled:
+            return _RecordFunctionFast(PROFILER_PREFIX + name)
         return NULL_SPAN
 
     def complete(self, name, start_s, dur_s, track=TRACK_STEP,

@@ -32,6 +32,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.obs import NullTracer, TRACK_STEP
+
 
 def split_batch(batch: Dict[str, torch.Tensor], k: int
                 ) -> Dict[str, torch.Tensor]:
@@ -65,7 +67,8 @@ def split_batch(batch: Dict[str, torch.Tensor], k: int
 
 
 def accumulated_grads(lm, batch: Dict[str, torch.Tensor], k: int,
-                      actions=None) -> Tuple[torch.Tensor, dict, dict]:
+                      actions=None, tracer=NullTracer()
+                      ) -> Tuple[torch.Tensor, dict, dict]:
     """Loss, metrics and gradients of ``lm.loss`` over ``k`` microbatches.
 
     Returns ``(loss, metrics, grads)`` — ``grads`` by parameter name, in
@@ -78,7 +81,8 @@ def accumulated_grads(lm, batch: Dict[str, torch.Tensor], k: int,
     loss's weight clamp, ``grads_i * t_i`` likewise) to fp32
     accumulators, with ``t_i`` the loss's token count, or 0 for an
     all-pad microbatch; the final division by ``max(sum w, 1)`` restores
-    the full-batch mean.
+    the full-batch mean.  Each microbatch's forward and backward are
+    ``tracer``'s ``forward`` and ``backward`` spans.
     """
     k = max(int(k), 1)
     mbs = split_batch(batch, k)
@@ -89,9 +93,11 @@ def accumulated_grads(lm, batch: Dict[str, torch.Tensor], k: int,
     l_acc = a_acc = w_acc = None
     for i in range(k):
         mb = {key: v[i] for key, v in mbs.items()}
-        loss, metrics = lm.loss(mb, actions)
-        grads = torch.autograd.grad(loss, [params[n] for n in names],
-                                    allow_unused=True)
+        with tracer.span("forward", TRACK_STEP):
+            loss, metrics = lm.loss(mb, actions)
+        with tracer.span("backward", TRACK_STEP):
+            grads = torch.autograd.grad(loss, [params[n] for n in names],
+                                        allow_unused=True)
         w_raw = mb["weights"].float().sum()
         # an all-pad microbatch (w_raw == 0, tokens clamped to 1) must
         # contribute nothing

@@ -499,8 +499,6 @@ class SnapshotManager:
                     KeyError, ValueError) as e:
                 errors.append(f"{path}: {e}")
                 continue
-            self.telemetry.metrics.counter(
-                "snapshots_restored", "snapshot restores").inc()
             if self.telemetry.events_on:
                 self.telemetry.events.emit(
                     "snapshot_restore", step=int(meta["step"]), path=path,

@@ -42,10 +42,17 @@ is due after a step; ``restore`` copies a snapshot into the live
 parameters in place and puts parked moments back on the host.
 
 Telemetry (``repro_torch.obs``): ``cache_stats`` is a ``StatsView``
-over the run's registry; each step traces ``plan``, ``build_step`` and
-``execute`` spans on the step track (one per attempt, with an ``oom``
-instant and event after a failed one) and emits a ``train_step`` event
-numbered by ``global_step``;
+over the run's registry; each step traces spans on the step track where
+their work happens: ``prepare`` (pad, copy to the device), ``plan``,
+``build_step`` (a Chrome event only), ``execute`` (one per attempt)
+holding ``forward``, ``backward`` (each layer's re-run a ``recompute``
+span of the model, ``models/lm.py``), ``update`` and ``sync`` (the wait
+for the device), and ``oom_recover`` (an OOM booked, its memory freed,
+the re-plan) with an ``oom`` instant and event; the model's
+``telemetry`` is the trainer's.  While ``torch.profiler`` records, each
+span is also a profiler range ``repro_torch.<name>``
+(``obs/tracing.py``).  Each step emits a ``train_step`` event numbered
+by ``global_step``;
 the lane's exposed time and the simulator's price of the same bytes
 land in ``train_exposed_transfer_s`` / ``train_sim_transfer_s``.
 
@@ -146,6 +153,7 @@ class Trainer:
         self.telemetry = (telemetry if telemetry is not None
                           else Telemetry.disabled())
         planner.bind_telemetry(self.telemetry)
+        lm.telemetry = self.telemetry     # the model's recompute spans
         self.optimizer = optimizer or AdamW()
         self.params = dict(lm.named_parameters())
         # parameter names of each plan unit (its layers' trees, the
@@ -176,8 +184,6 @@ class Trainer:
         self._g_bucket_k = reg.gauge(
             "train_bucket_microbatch",
             "largest gradient-accumulation split seen per bucket")
-        self._h_step_s = reg.histogram(
-            "train_step_time_s", "wall time per executed train step")
         self.cache_stats = StatsView(
             reg,
             scalars={"compiles": "train_jit_compiles",
@@ -243,13 +249,19 @@ class Trainer:
         opt_units = tuple(u for u, a in enumerate(actions)
                           if int(a) == int(Action.OFFLOAD_OPT))
 
+        # the tracer is read at each call: a run may switch it on a built
+        # step function (``chip_smoke.py``'s ``alternate_sinks``)
         if microbatch > 1:
             def grad_fn(batch):
-                return accumulated_grads(lm, batch, microbatch, actions)
+                return accumulated_grads(lm, batch, microbatch, actions,
+                                         tracer=self.telemetry.tracer)
         else:
             def grad_fn(batch):
-                loss, metrics = lm.loss(batch, actions)
-                loss.backward()
+                tracer = self.telemetry.tracer
+                with tracer.span("forward", TRACK_STEP):
+                    loss, metrics = lm.loss(batch, actions)
+                with tracer.span("backward", TRACK_STEP):
+                    loss.backward()
                 grads = {n: p.grad for n, p in params.items()}
                 for p in params.values():
                     p.grad = None
@@ -334,7 +346,7 @@ class Trainer:
         written, with the same gradients, clip scale, step and learning
         rate: bit for bit the update that did not fail.  Returns
         ``(opt_state, attempt)``."""
-        wd = self.watchdog
+        wd, tracer = self.watchdog, self.telemetry.tracer
         parked = {n for u in self._parked for n in self._unit_names[u]}
         away = {"m": set(parked), "v": set(parked)}     # still on the host
         state = AdamWState(opt_state.step, dict(opt_state.m),
@@ -362,10 +374,14 @@ class Trainer:
                 if wd is None or not wd.is_oom(e):
                     raise
                 attempt += 1
-                if not self._book_oom(e, batch, bucket, step_key, attempt):
+                with tracer.span("oom_recover", TRACK_STEP):
+                    retry = self._book_oom(e, batch, bucket, step_key,
+                                           attempt)
+                if not retry:
                     raise
             # out of the except block, as in ``step``
-            self._recover_from_oom()
+            with tracer.span("oom_recover", TRACK_STEP):
+                self._recover_from_oom()
         self._parked = set()
         if fn.opt_units:
             opt_state = self._park_moments(opt_state, fn.opt_units)
@@ -479,7 +495,8 @@ class Trainer:
         """One training step; returns ``(opt_state, loss)``."""
         tel = self.telemetry
         tracer = tel.tracer
-        batch = self._prepare(batch)
+        with tracer.span("prepare", TRACK_STEP):
+            batch = self._prepare(batch)
         t0 = time.perf_counter()
         with tracer.span("plan", TRACK_STEP):
             actions, info = self.planner.plan(batch)
@@ -520,28 +537,34 @@ class Trainer:
                     # the update writes in place: it retries itself,
                     # resuming where it stopped
                     in_update = True
-                    opt_state, attempt = self._update(
-                        fn, grads, opt_state, batch, bucket, step_key,
-                        attempt)
+                    with tracer.span("update", TRACK_STEP):
+                        opt_state, attempt = self._update(
+                            fn, grads, opt_state, batch, bucket, step_key,
+                            attempt)
                     del grads
-                    loss = float(loss.detach())    # waits for the device
-                    if cuda:
-                        torch.cuda.synchronize(self.lm.device)
+                    with tracer.span("sync", TRACK_STEP):
+                        loss = float(loss.detach())  # waits for the device
+                        if cuda:
+                            torch.cuda.synchronize(self.lm.device)
             except RuntimeError as e:      # every OOM is one
                 if in_update or wd is None or not wd.is_oom(e):
                     raise
                 attempt += 1
-                if not self._book_oom(e, batch, bucket, step_key, attempt):
+                with tracer.span("oom_recover", TRACK_STEP):
+                    retry = self._book_oom(e, batch, bucket, step_key,
+                                           attempt)
+                if not retry:
                     raise
             else:
                 break
             # out of the except block: the failed attempt's frames (and
             # the activations they hold) are released
-            self._recover_from_oom()
-            t0 = time.perf_counter()
-            with tracer.span("plan", TRACK_STEP):
-                actions, info = self.planner.plan(batch)
-            t_plan += time.perf_counter() - t0
+            with tracer.span("oom_recover", TRACK_STEP):
+                self._recover_from_oom()
+                t0 = time.perf_counter()
+                with tracer.span("plan", TRACK_STEP):
+                    actions, info = self.planner.plan(batch)
+                t_plan += time.perf_counter() - t0
         if wd is not None and attempt:
             wd.on_retry_success()
         t_step = time.perf_counter() - t1
@@ -556,7 +579,6 @@ class Trainer:
         self._m_padded_tokens.inc(padded_tokens, bucket=bucket)
         self._m_eff_tokens.inc(eff_tokens, bucket=bucket)
         self._g_bucket_k.set_max(k, bucket=bucket)
-        self._h_step_s.observe(t_step)
         # what the lane measured against the simulator's price of the
         # same bytes
         exposed_s = sim_s = 0.0

@@ -14,25 +14,32 @@ promise, ``launch/train.py:131-132``).
 """
 import json
 import threading
+from collections import Counter
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import repro.obs as ref_obs
 import repro_torch.obs as port_obs
-from repro_torch.core.planner import MimosePlanner
+import repro_torch.obs.tracing as port_tracing
+from repro_torch.actions import Action
+from repro_torch.core.planner import MimosePlanner, PlanInfo, PlannerBase
+from repro_torch.core.scheduler import Plan
 from repro_torch.data.pipeline import make_batches, top_buckets
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.report import drift_table, engine_report
 from repro_torch.models.lm import LM
 from repro_torch.models.registry import get_config
-from repro_torch.obs import (NULL_SPAN, SCHEMA_VERSION, EventLog,
-                             MetricsRegistry, NullEventLog, NullTracer,
-                             SpanTracer, StatsView, Telemetry, TRACK_PLANNER,
-                             TRACK_SOLVER, TRACK_STEP, TRACK_TRANSFER,
-                             build_telemetry, flush_telemetry, read_events)
+from repro_torch.obs import (NULL_SPAN, PROFILER_PREFIX, SCHEMA_VERSION,
+                             EventLog, MetricsRegistry, NullEventLog,
+                             NullTracer, SpanTracer, StatsView, Telemetry,
+                             TRACK_PLANNER, TRACK_SOLVER, TRACK_STEP,
+                             TRACK_TRANSFER, build_telemetry,
+                             flush_telemetry, read_events)
 from repro_torch.optim.adamw import AdamW
+from repro_torch.train.resilience import FaultInjector, OOMWatchdog
 from repro_torch.train.trainer import Trainer
 
 SMALL = dict(num_layers=4, d_model=64, d_ff=128, vocab_size=256,
@@ -393,3 +400,140 @@ def test_top_buckets_is_the_references():
     for ds in ("swag", "squad", "qqp"):
         assert top_buckets(ds, batch_size=8, quantum=32, k=4) == ref_top(
             ds, batch_size=8, quantum=32, k=4)
+
+
+# ---------------------------------------------------------------------------
+# spans on the profiler's clock
+# ---------------------------------------------------------------------------
+
+class _FixedPlanner(PlannerBase):
+    """Serves one action plan (and split ``k``) for every batch."""
+
+    def __init__(self, lm, actions, k=1):
+        self.lm, self.actions, self.k, self.quantum = lm, actions, k, 32
+
+    def plan(self, batch):
+        p = Plan([], 0.0, 0.0, 0.0, actions=self.actions, microbatch=self.k)
+        return p.as_actions(), PlanInfo(0, self.bucket_key(batch), True,
+                                        False, p)
+
+
+# a layer kept, two checkpointed and one sent to the host: three re-run
+# in the backward (SMALL's four layers are four units, unrolled)
+REMAT_PLAN = (Action.KEEP, Action.REMAT, Action.OFFLOAD, Action.REMAT)
+SWAG = list(make_batches("swag", batch_size=2, vocab_size=256,
+                         num_batches=3, quantum=32, seed=0))
+
+
+def _fixed_trainer(telemetry=None, k=1):
+    lm = LM(get_config("bert_base_paper").reduced(**SMALL), device="cpu")
+    tr = Trainer(lm, _FixedPlanner(lm, REMAT_PLAN, k), AdamW(lr=1e-3),
+                 telemetry=telemetry)
+    return tr, tr.optimizer.init(tr.params)
+
+
+def _profiled(fn):
+    """``fn()`` under a CPU profile; returns the program's ranges as
+    ``(span name, start ns, end ns)`` sorted by start."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sorted((e.name()[len(PROFILER_PREFIX):], e.start_ns(),
+                   e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.name().startswith(PROFILER_PREFIX))
+
+
+def _inside(inner, outer) -> bool:
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_step_spans_reach_the_profiler_where_the_work_happens(k):
+    tr, st = _fixed_trainer(k=k)
+    st, _ = tr.step(st, SWAG[0])            # the step function built
+    ranges = _profiled(lambda: tr.step(st, SWAG[1]))
+    by = {}
+    for r in ranges:
+        by.setdefault(r[0], []).append(r)
+    assert set(by) == {"prepare", "plan", "execute", "forward", "backward",
+                       "recompute", "update", "sync"}
+    (prep,), (plan,), (ex,), (upd,), (sync,) = (
+        by[n] for n in ("prepare", "plan", "execute", "update", "sync"))
+    assert prep[2] <= plan[1] and plan[2] <= ex[1]
+    fwd, bwd = by["forward"], by["backward"]
+    assert len(fwd) == len(bwd) == k
+    # forward, backward (microbatch by microbatch), update, sync: in
+    # order, each inside execute
+    order = [r for pair in zip(fwd, bwd) for r in pair] + [upd, sync]
+    assert all(_inside(r, ex) for r in order)
+    assert all(a[2] <= b[1] for a, b in zip(order, order[1:]))
+    # one range per re-run layer, each inside a backward, none in a
+    # forward
+    rec = by["recompute"]
+    assert len(rec) == k * tr.history[-1].recompute_layers == k * 3
+    assert all(any(_inside(r, b) for b in bwd) for r in rec)
+    assert not any(f[1] <= r[1] <= f[2] for r in rec for f in fwd)
+
+
+def test_a_retried_step_traces_its_oom_recovery():
+    lm = LM(get_config("bert_base_paper").reduced(**SMALL), device="cpu")
+    planner = MimosePlanner(lm, 1e12, quantum=32, warmup_samples=1)
+    tr = Trainer(lm, planner, AdamW(lr=1e-3), watchdog=OOMWatchdog(
+        max_retries=2, injector=FaultInjector("1")))
+    st = tr.optimizer.init(tr.params)
+    ranges = _profiled(lambda: tr.step(st, SWAG[0]))
+    names = [r[0] for r in ranges]
+    assert names.count("execute") == 2 and names.count("plan") == 2
+    # booked inside the except block, then freed and re-planned out of
+    # it, both between the failed execution and the retry
+    book, recover = [r for r in ranges if r[0] == "oom_recover"]
+    first, second = [r for r in ranges if r[0] == "execute"]
+    replan = [r for r in ranges if r[0] == "plan"][1]
+    assert first[2] <= book[1] and book[2] <= recover[1]
+    assert recover[2] <= second[1] and _inside(replan, recover)
+    assert tr.watchdog.stats["retry_successes"] == 1
+
+
+def test_no_range_opens_without_a_profiler(monkeypatch):
+    """Off, ``span()`` is the shared ``NULL_SPAN`` and nothing reaches
+    the profiler's entry point, for a whole step with either tracer."""
+    off = NullTracer()
+    assert off.span("plan") is NULL_SPAN
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert off.span("plan") is not NULL_SPAN
+    assert off.span("plan") is NULL_SPAN
+
+    def refuse(name):
+        raise AssertionError(f"a profiler range {name!r} opened")
+    monkeypatch.setattr(port_tracing, "_RecordFunctionFast", refuse)
+    for tel in (Telemetry.disabled(), Telemetry(tracer=SpanTracer())):
+        tr, st = _fixed_trainer(tel)
+        tr.step(st, SWAG[0])
+
+
+def test_losses_bitwise_equal_with_the_profiler_on_and_off():
+    def losses(profiled):
+        tr, st = _fixed_trainer()
+        run = lambda: tr.run(SWAG, st)
+        _profiled(run) if profiled else run()
+        return [s.loss for s in tr.history], tr.params["embed"].detach()
+    (a, pa), (b, pb) = losses(True), losses(False)
+    assert a == b and torch.equal(pa, pb)
+
+
+def test_span_tracer_writes_the_profilers_span_names_on_the_step_track():
+    """Also when the tracer is switched on after the step was built."""
+    tel = Telemetry.disabled()
+    tr, st = _fixed_trainer(tel)
+    st, _ = tr.step(st, SWAG[0])
+    tel.tracer, tel.trace_on = SpanTracer(), True
+
+    def run():
+        s = st
+        for b in SWAG[1:]:
+            s, _ = tr.step(s, b)
+    ranges = Counter(r[0] for r in _profiled(run))
+    chrome = Counter(e["name"] for e in tel.tracer.events()
+                     if e["ph"] == "X" and e["tid"] == TRACK_STEP
+                     and e["name"] != "build_step")     # a complete()
+    assert chrome == ranges and ranges["recompute"] == 6
