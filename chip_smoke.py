@@ -70,7 +70,9 @@ Phases (each raises on failure; the script then exits non-zero):
    step on a built (1, 1) ``nccl`` mesh (the main path's weights, plans
    and batches; the flash kernels on the heads through ``local_map``):
    every loss and the step-8 parameters bitwise the main path's (the
-   sharding path's (a) snapshot), K1 = sum (12 + REMAT units), K2 = K3
+   sharding path's (a) snapshot; AdamW's kernels on the DTensors'
+   shards, the clip scale from the sum of squares added over the mesh),
+   K1 = sum (12 + REMAT units), K2 = K3
    = 12 a step; D3, the same step at (4, 2) with ZeRO-1 under a fake
    group of 8 ranks, rank 0's shards on this card (2 of 8 rows, 6 of
    12 heads, half of d_ff), one step per bucket under the sharding
@@ -235,13 +237,31 @@ Phases (each raises on failure; the script then exits non-zero):
    against the plain path (rtol 1e-4); tokens/s, warm step time by
    bucket, remat units per bucket, collections and cache hits, and one
    warm step profiled as the bert path's; E2, ``torch_quickstart.py``, 30
-   swag batches (plain attention: no launch); E3,
+   swag batches (plain attention: no attention launch; AdamW's kernels
+   once a parameter and step); E3,
    ``torch_serve_decode.py`` in engine mode (12 requests served, none
    rejected, the three peaks within its budget) and ``--sequential``
    (no launch); E4, paper Tables 3-4 at full bert width: the port's
    collector at 14 lengths with B 8, each of ``ESTIMATORS`` fitted on
    the first 10, MAPE on the last 4, fit ms and predict us on the host;
    one ``examples: {...}`` line;
+16. phase K6, AdamW's kernels (``kernels/adamw.py``): the update and
+   its clip norm over stablelm_3b's and mamba2_1p3b's full parameter
+   sets (shapes and dtypes from the model on ``meta``, values drawn on
+   the card), first against the plain version on the same inputs at
+   every parameter (``AdamW.clip_scale_plain`` within ``K6_SCALE_RTOL``,
+   then ``AdamW.update_plain`` with the kernel's clip scale at step 5
+   from drawn moments: m and v within ``K6_MOMENT_ULPS`` fp32 ulp, the
+   parameter within ``K6_PARAM_ULPS`` ulp of its dtype, the worst gaps
+   in the row), then device time a step on CUDA events (the launches queued
+   behind a sleep kernel, so the host's issue is not timed), in turns
+   with the plain version (``AdamW.update_plain``) and
+   ``torch.optim.AdamW(fused=True)`` after
+   ``clip_grad_norm_(foreach=True)`` (the yardstick, never called by the
+   port; on bf16 parameters it keeps bf16 moments, a lower-precision
+   function than the kernel's fp32 ones), beside the bound (bytes: each gradient read twice, parameter,
+   m and v read and written once, over 3.35 TB/s); the main paths check
+   ``adamw`` = parameters x updates and ``adamw_norm`` = updates;
 
 then prints the card line, one ``{"kernels": [...]}`` JSON line (no new
 kernel on the sharding, distributed, offload and resilience paths: they
@@ -255,7 +275,8 @@ instances' launches, ms, plain, bound and library ms as
 the tensor-core kernel, with the hymba path's part as
 ``hymba_launches`` and its instance's times as ``hymba_<key>``, the FMA
 kernel's in turns as ``hymba_fma_ms``; every row's ``serve_launches``,
-0), and, as the last line,
+0; K6's row, ``adamw``, with stablelm_3b's times and mamba2's as
+``mamba2_<key>``), and, as the last line,
 ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a CUDA device, and when the repository's ``src/`` is not beside it.
 """
@@ -318,6 +339,7 @@ GEMMA3_ARGS = dict(arch="gemma3_12b", dataset="squad", batch_size=8,
                    steps=8, quantum=32, over=dict(num_layers=12))
 # profile groups after each family's own kernels: first match wins
 OTHER_GROUPS = [("gemm", ("gemm", "cutlass", "xmma", "sm90_", "nvjet")),
+                ("adamw kernels", ("adamw",)),
                 ("elementwise", ("elementwise",)), ("reductions", ("reduce",))]
 # one full-width bf16 loss through the kernels against the plain path at
 # 2 layers (check_model_at_depth), and each layer's mixer likewise
@@ -819,6 +841,9 @@ def check_main_path(trainer, launches):
         checks["no ssd or dma launches"] = all(
             launches[k] == 0 for k in ("ssd_scan", "ssd_scan_fma",
                                        "dma_copy"))
+    checks["AdamW: adamw = parameters x updates, adamw_norm = updates"] = (
+        launches["adamw"] == len(trainer.params) * len(h)
+        and launches["adamw_norm"] == len(h))
     if lm.kind == "moe":
         checks["aux finite and > 0 every step"] = all(
             math.isfinite(s.aux) and s.aux > 0 for s in h)
@@ -1550,8 +1575,8 @@ def run_sharded_main_path(args, main_run, params_half):
                                                actions=acts)
             losses.append(float(loss.full_tensor()))
         torch.cuda.synchronize()
-        launches = _check_flash("D2 (1, 1) nccl mesh", dict(ops.LAUNCHES),
-                                actions)
+        counts = dict(ops.LAUNCHES)
+        launches = _check_flash("D2 (1, 1) nccl mesh", counts, actions)
         got = {n: p.to_local().detach().cpu() for n, p in params.items()}
     finally:
         if own:
@@ -1564,6 +1589,9 @@ def run_sharded_main_path(args, main_run, params_half):
             and all(torch.equal(got[n], params_half[n]) for n in got)),
         "every parameter a DTensor on (data 1, model 1)":
             tuple(mesh.mesh_dim_names) == ("data", "model"),
+        "AdamW's kernels on the shards: adamw = parameters x steps, "
+        "adamw_norm = steps": counts["adamw"] == len(got) * half
+            and counts["adamw_norm"] == half,
     }
     log(f"D2 bert's sharded step on a (1, 1) nccl mesh, {half} steps: "
         f"losses {losses} vs {main_run['losses'][:half]}; checks "
@@ -1625,8 +1653,11 @@ def run_sharded_per_device(args, buckets):
                         "predicted_peak_mib": plan["predicted_peak_mib"],
                         "n_remat": plan["n_remat"]}
         torch.cuda.synchronize()
+        counts = dict(ops.LAUNCHES)
         launches = _check_flash(f"D3 {D3_MESH} zero1 (fake group of 8)",
-                                dict(ops.LAUNCHES), acts_run)
+                                counts, acts_run)
+        adamw_ok = (counts["adamw"] == len(params) * len(acts_run)
+                    and counts["adamw_norm"] == len(acts_run))
         del setup, params, opt_state
     _free()
     log(f"D3 bert at {D3_MESH} ZeRO-1, rank 0's shards on this card "
@@ -1639,6 +1670,8 @@ def run_sharded_per_device(args, buckets):
             local["blocks.0.attn.wq"] == (768, 384),
         "half of d_ff (wi 768 x 1536)": local["blocks.0.mlp.wi"] == (768,
                                                                      1536),
+        "AdamW's kernels on the shards: adamw = parameters x steps, "
+        "adamw_norm = steps": adamw_ok,
     }
     if not all(checks.values()):
         raise AssertionError(f"D3 checks failed: {checks}")
@@ -4284,15 +4317,22 @@ def run_e2e_example(fa, ops):
 
 def run_quickstart_example(ops):
     """E2: ``torch_quickstart.main`` on the card (plain attention, the
-    reference's default: no kernel launch)."""
+    reference's default: no attention kernel launch; AdamW's kernels
+    update every parameter each step)."""
     before = dict(ops.LAUNCHES)
     trainer = _example("torch_quickstart").main(E2_ARGV + ["--device",
                                                            "cuda"])
     losses = [s.loss for s in trainer.history]
     ran = _launched(ops, before)
+    steps = len(trainer.history)
+    adamw = {"adamw": ops.LAUNCHES["adamw"] - before["adamw"],
+             "adamw_norm": ops.LAUNCHES["adamw_norm"] - before["adamw_norm"]}
     if (len(losses) != 30 or not all(math.isfinite(x) for x in losses)
-            or ran):
-        raise AssertionError(f"E2: losses {losses}, launched {ran}")
+            or set(ran) - set(adamw)
+            or adamw != {"adamw": len(trainer.params) * steps,
+                         "adamw_norm": steps}):
+        raise AssertionError(f"E2: losses {losses}, launched {ran}, "
+                             f"AdamW {adamw}")
     tps = trainer.summary()["tokens_per_s"]
     log(f"E2: 30 swag batches, final loss {losses[-1]:.4f}, tokens/s "
         f"{tps:.1f}")
@@ -4392,12 +4432,191 @@ def run_examples_phase(fa, ops):
     return e_launches, e_errs
 
 
+# --------------------------------------------------------------------------
+# phase K6: AdamW's update and clip norm over a model's parameter set
+# --------------------------------------------------------------------------
+
+K6_ARCHS = ("stablelm_3b", "mamba2_1p3b")
+# the kernels against the plain version: the card tests' tolerances
+# (tests/test_torch_adamw.py)
+K6_SCALE_RTOL, K6_MOMENT_ULPS, K6_PARAM_ULPS = 1e-6, 2, 1
+
+
+def _ulps(got, want, mant_bits):
+    """The largest gap between ``got`` and ``want`` in units of the last
+    place of ``want`` in a format of ``mant_bits`` significand bits."""
+    got, want = got.double(), want.double()
+    _, e = torch.frexp(want)
+    ulp = torch.ldexp(torch.ones_like(want), (e - mant_bits).to(torch.int32))
+    ulp = torch.where(want == 0, torch.full_like(want, 2.0 ** -149), ulp)
+    return float(((got - want).abs() / ulp).max())
+
+
+def check_adamw(ka, opt, params, grads, state, gen, step=5):
+    """K6's comparison at every parameter: the kernels' clip scale
+    against the plain version's, then one update by the kernel and one
+    by the plain version from the same parameter, gradient and drawn
+    moments, both with the kernel's scale; the worst gaps.  Leaves the
+    plain version's update in ``params`` and ``state``."""
+    from repro_torch.optim.adamw import UpdateCursor
+    gs = list(grads.values())
+    before = dict(ka.LAUNCHES)
+    scale = ka.clip_scale(gs, opt.clip_norm)
+    scale_rel = abs(float(scale) / float(opt.clip_scale_plain(gs)) - 1)
+    cur = UpdateCursor(step, scale, opt._lr(step), 1 - opt.b1 ** step,
+                       1 - opt.b2 ** step)
+    worst = {"m": 0.0, "v": 0.0, "p": 0.0}
+    max_abs_err, differ = 0.0, 0
+    for n, p in params.items():
+        m, v = state.m[n], state.v[n]
+        m.normal_(0.0, 1e-4, generator=gen)
+        v.normal_(0.0, 1e-7, generator=gen).abs_()
+        kp, km, kv = p.clone(), m.clone(), v.clone()
+        ka.update(kp, grads[n], km, kv, scale, lr=cur.lr, b1=opt.b1,
+                  b2=opt.b2, eps=opt.eps, weight_decay=opt.weight_decay,
+                  bc1=cur.bc1, bc2=cur.bc2)
+        opt.update_plain(cur, p, grads[n], m, v)
+        worst["m"] = max(worst["m"], _ulps(km, m, 24))
+        worst["v"] = max(worst["v"], _ulps(kv, v, 24))
+        worst["p"] = max(worst["p"], _ulps(
+            kp, p, 8 if p.dtype == torch.bfloat16 else 24))
+        max_abs_err = max(max_abs_err,
+                          float((kp.float() - p.float()).abs().max()))
+        differ += int((kp != p).sum())
+        del kp, km, kv
+    gaps = {"scale_rel_err": scale_rel, "m_ulps": worst["m"],
+            "v_ulps": worst["v"], "p_ulps": worst["p"],
+            "max_abs_err": max_abs_err, "p_elements_differ": differ,
+            "compared_launches": ka.LAUNCHES["adamw"] - before["adamw"]}
+    checks = {f"clip scale within {K6_SCALE_RTOL}":
+                  scale_rel <= K6_SCALE_RTOL,
+              f"m and v within {K6_MOMENT_ULPS} fp32 ulp":
+                  max(worst["m"], worst["v"]) <= K6_MOMENT_ULPS,
+              f"parameters within {K6_PARAM_ULPS} ulp of their dtype":
+                  worst["p"] <= K6_PARAM_ULPS,
+              "every parameter compared":
+                  gaps["compared_launches"] == len(params)}
+    log("K6 kernels against the plain version: " + json.dumps(gaps)
+        + "; checks " + json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"K6 comparison failed: {checks} {gaps}")
+    return gaps
+
+
+def _queued_ms(fn, reps, sleep_cycles=200_000_000):
+    """Device time of one ``fn()``: ``reps`` calls queued behind a sleep
+    kernel (about 0.1 s), so the events time the kernels and not the
+    host's issue."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_adamw(ka, arch, reps=5, rounds=3):
+    """K6 at ``arch``'s parameter set: the kernels against the plain
+    version (``check_adamw``), then kernel, plain and library ms a step
+    (median of ``rounds`` turns), bound ms and bytes."""
+    from repro_torch.models.lm import LM
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.adamw import AdamW, UpdateCursor
+    shapes = {n: (tuple(p.shape), p.dtype) for n, p in
+              LM(get_config(arch), device="meta").named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def draw(shape, dtype, std):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * std).to(dtype)
+    params = {n: draw(s, dt, 0.02) for n, (s, dt) in shapes.items()}
+    grads = {n: draw(s, dt, 1e-3) for n, (s, dt) in shapes.items()}
+    opt = AdamW(lr=3e-4)
+    state = opt.init(params)
+    n_elems = sum(p.numel() for p in params.values())
+    nbytes = sum(p.numel() * (2 * p.element_size() + 2 * grads[n].element_size()
+                              + 16) for n, p in params.items())
+
+    gaps = check_adamw(ka, opt, params, grads, state, gen)
+
+    def kernel():
+        opt.update(grads, state, params)
+
+    def plain():
+        gs = list(grads.values())
+        cur = UpdateCursor(1, opt.clip_scale_plain(gs), 3e-4, 0.1, 0.001)
+        for n, p in params.items():
+            opt.update_plain(cur, p, grads[n], state.m[n], state.v[n])
+
+    plist = list(params.values())
+    for n, p in params.items():
+        p.grad = grads[n]
+    lib_opt = torch.optim.AdamW(plist, lr=3e-4, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=0.01, fused=True)
+
+    def library():
+        torch.nn.utils.clip_grad_norm_(plist, 1.0, foreach=True)
+        lib_opt.step()
+
+    before = dict(ka.LAUNCHES)
+    times = {"ms": [], "plain_ms": [], "library_ms": []}
+    for _ in range(rounds):
+        for key, fn in (("ms", kernel), ("plain_ms", plain),
+                        ("library_ms", library)):
+            times[key].append(_queued_ms(fn, reps))
+    launches = {k: ka.LAUNCHES[k] - before[k] for k in ("adamw",
+                                                         "adamw_norm")}
+    calls = rounds * (reps + 1)
+    checks = {"adamw = parameters x calls": launches["adamw"]
+              == len(params) * calls,
+              "adamw_norm = calls": launches["adamw_norm"] == calls}
+    row = {k: float(np.median(v)) for k, v in times.items()}
+    row.update(gaps)
+    row.update({"library": "torch.optim.AdamW(fused=True) after "
+                           "clip_grad_norm_: bf16 moments on bf16 "
+                           "parameters, a lower-precision function "
+                           "(yardstick only)",
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "bytes": nbytes, "elements": n_elems,
+                "parameters": len(params), "launches": launches["adamw"],
+                "norm_launches": launches["adamw_norm"],
+                "rounds": {k: [round(x, 4) for x in v]
+                           for k, v in times.items()}})
+    log(f"K6 adamw at {arch}'s {len(params)} parameters ({n_elems:,} "
+        f"elements, {nbytes / 1e9:.2f} GB to move): " + json.dumps(row)
+        + "; checks " + json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"K6 checks failed: {checks}")
+    for p in plist:
+        p.grad = None
+    del params, grads, state, lib_opt, plist
+    _free()
+    return row
+
+
+def run_adamw_path(ka):
+    """Phase K6: the AdamW row of the kernel table, stablelm_3b's
+    parameter set first, mamba2_1p3b's as ``mamba2_<key>``."""
+    rows = {arch: time_adamw(ka, arch) for arch in K6_ARCHS}
+    row = {"name": "adamw", "route": "cuda", "source": CSRC + "adamw.cu",
+           "replaces": "none (src/repro/optim/adamw.py: XLA fuses it)"}
+    row.update(rows["stablelm_3b"])
+    row.update({f"mamba2_{k}": v for k, v in rows["mamba2_1p3b"].items()
+                if k not in ("rounds", "library")})
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.actions import Action
+    from repro_torch.kernels import adamw as ka
     from repro_torch.kernels import build as kb
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import offload_dma as dma
@@ -4413,8 +4632,8 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    paths = kb.build(fa._SRC, ssd._SRC, dma._SRC)      # nvcc x 3 at once
-    fa.library(), ssd.library(), dma.library()
+    paths = kb.build(fa._SRC, ssd._SRC, dma._SRC, ka._SRC)  # nvcc x 4
+    fa.library(), ssd.library(), dma.library(), ka.library()
     log(f"build: {[str(p.relative_to(ROOT)) for p in paths]} in "
         f"{time.perf_counter() - t0:.1f} s")
     log_flash_resources(kb, fa, paths[0])
@@ -4614,6 +4833,11 @@ def main() -> int:
     e_launches, family_errs["e1"] = run_examples_phase(fa, ops)
     log(f"examples phase: {time.perf_counter() - t0:.1f} s")
 
+    # -- phase K6: AdamW's update and clip norm --------------------------
+    t0 = time.perf_counter()
+    adamw_row = run_adamw_path(ka)
+    log(f"adamw phase: {time.perf_counter() - t0:.1f} s")
+
     launches["ssd_scan"] += h_launches["ssd_scan"]
     for name in FLASH_KERNELS:
         launches[name] += (h_launches[name] + g_launches[name]
@@ -4658,6 +4882,7 @@ def main() -> int:
                 "max_abs_err")})
             row["hymba_launches"] = h_launches["ssd_scan"]
         kernels.append(row)
+    kernels.append(adamw_row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_fma": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dq_fma": 0,
                             "flash_bwd_dkv": 0, "flash_bwd_dkv_fma": 0,
-                            "ssd_scan": 0, "ssd_scan_fma": 0, "dma_copy": 0}
+                            "ssd_scan": 0, "ssd_scan_fma": 0, "dma_copy": 0,
+                            "adamw": 0, "adamw_norm": 0}
 
 
 def nvcc() -> str:
@@ -105,6 +106,30 @@ def route(t: torch.Tensor, what: str) -> str:
         return "plain" if t.device.type == "cpu" else "meta"
     raise ValueError(f"{what} runs on cuda (kernel) or cpu (plain "
                      f"version), not {t.device}")
+
+
+def route_all(tensors, what: str) -> str:
+    """How an operation over several tensors runs: 'plain' where none is
+    on CUDA (a DTensor is where its local shard is); 'kernel' where all
+    are plain tensors on one CUDA device; 'shards' where all are
+    DTensors whose shards are on one CUDA device (the kernels run on the
+    shards).  A mix of CUDA and other devices, or of DTensors and plain
+    tensors on CUDA, raises."""
+    tensors = list(tensors)
+    devices = {t.device for t in tensors}
+    if not any(d.type == "cuda" for d in devices):
+        return "plain"
+    if len(devices) > 1:
+        raise ValueError(f"{what} runs on one CUDA device, not on "
+                         f"{sorted(map(str, devices))}")
+    n_dt = 0
+    if torch.distributed.is_available():
+        from torch.distributed.tensor import DTensor
+        n_dt = sum(isinstance(t, DTensor) for t in tensors)
+    if 0 < n_dt < len(tensors):
+        raise ValueError(f"{what} takes DTensors or plain tensors, not "
+                         f"a mix")
+    return "shards" if n_dt else "kernel"
 
 
 def check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
