@@ -183,6 +183,111 @@ def test_ssm_flops_against_a_hand_count():
     assert flops.layer_fwd_flops(SSM, S) == proj + conv + S * 144
 
 
+# d 4 for the mixers side by side: attention of 2 heads (1 KV) of 2, the
+# SSM dict's SSD shape, a SwiGLU MLP of 8
+SMALL = dict(SSM, num_heads=2, num_kv_heads=1, head_dim=2, d_ff=8)
+LOCAL = dict(DENSE, sliding_window=2, global_interval=2)
+MOE = dict(DENSE, family="moe", num_experts=4, experts_per_token=2,
+           moe_d_ff=6)
+# at S 3: attention q, k and v, o 96 each and scores 4*2*2*(9/2) 72;
+# the SSD mixer 768 + 288 + 432 (test_ssm_flops_against_a_hand_count);
+# the MLP 2*3*4*8*3 576; the head 2*3*4*10 240
+ATTN3, SSD3, MLP3, HEAD3 = 360, 1488, 576, 240
+
+
+@pytest.mark.parametrize("m, S, layer, want", [
+    # a local layer under a window of 2: 9/2 - (3 - 2)^2/2 = 4 pairs,
+    # scores 4*2*4*4; projections 1152, MLP 2304
+    (LOCAL, 3, 0, 1152 + 128 + 2304),
+    # every second layer is global: 9/2 pairs
+    (LOCAL, 3, 1, 1152 + 144 + 2304),
+    # no longer than the window: a local layer is the causal count
+    (LOCAL, 2, 0, flops.layer_fwd_flops(DENSE, 2)),
+    # S 10 over W 4: 100/2 - 36/2 = 32 pairs
+    (dict(LOCAL, sliding_window=4, global_interval=0), 10, 1,
+     flops.layer_fwd_flops(DENSE, 10) - 4 * 2 * 4 * (50 - 32)),
+    # hymba: attention and the SSD mixer in parallel, then the MLP
+    (dict(SMALL, family="hybrid"), 3, 0, ATTN3 + SSD3 + MLP3),
+    # MoE: attention 1296, router 2*3*8*4, two experts 2*(2*3*8*6*3);
+    # d_ff 16 is not run
+    (MOE, 3, 0, 1296 + 192 + 2 * 864),
+    # and a shared expert of 5: 2*3*8*5*3
+    (dict(MOE, shared_expert_d_ff=5), 3, 0, 1296 + 192 + 2 * 864 + 720),
+    (dict(SMALL, num_layers=3, layer_types=["mamba", "attention", "mamba"]),
+     3, 1, ATTN3 + MLP3),
+    (dict(SMALL, num_layers=3, layer_types=["mamba", "attention", "mamba"]),
+     3, 2, SSD3 + MLP3),
+])
+def test_layer_flops_against_hand_counts(m, S, layer, want):
+    assert flops.layer_fwd_flops(m, S, layer) == want
+
+
+def test_a_stack_of_mixed_layers_sums_its_layers():
+    m = dict(SMALL, num_layers=3, layer_types=["mamba", "attention", "mamba"])
+    assert flops.layer_kinds(m) == ["mamba", "attention", "mamba"]
+    assert flops.sequence_train_flops(m, 3) == \
+        3 * (2 * (SSD3 + MLP3) + ATTN3 + MLP3 + HEAD3)
+    assert flops.sequence_train_flops(LOCAL, 3) == \
+        3 * (3584 + 3600 + 2 * 3 * 8 * 10)
+    assert flops.layer_kinds(dict(SMALL, family="hybrid")) == ["hybrid"]
+    assert flops.layer_kinds(dict(MOE, num_layers=2)) == ["attention"] * 2
+
+
+@pytest.mark.parametrize("m, error, says", [
+    (dict(DENSE, family="enc"), NotImplementedError, "'enc'"),
+    (dict(SMALL, num_layers=2, layer_types=["mamba", "linear_attention"]),
+     NotImplementedError, "'linear_attention'"),
+    (dict(SMALL, num_layers=2, layer_types=["mamba"]), ValueError, "1 "),
+])
+def test_an_unknown_layer_kind_raises(m, error, says):
+    with pytest.raises(error, match=says):
+        flops.sequence_train_flops(m, 3)
+
+
+def _config_model(name):
+    return json.loads((PERFBENCH / "configs" / f"{name}.json")
+                      .read_text())["model"]
+
+
+# granite-4.0-h-micro's shape (its public config.json): 36 Mamba-2 and 4
+# attention layers, a SwiGLU MLP of 8192 after each, no window
+GRANITE_TYPES = ["attention" if i in (5, 15, 25, 35) else "mamba"
+                 for i in range(40)]
+GRANITE = {"num_layers": 40, "d_model": 2048, "num_heads": 32,
+           "num_kv_heads": 8, "head_dim": 64, "d_ff": 8192,
+           "mlp_act": "swiglu", "vocab_size": 100352, "ssm_state": 128,
+           "ssm_head_dim": 64, "ssm_expand": 2, "ssm_chunk": 64,
+           "conv_kernel": 4, "layer_types": GRANITE_TYPES}
+
+
+@pytest.mark.parametrize("config, S, want", [
+    ("stablelm_3b", 153, 2459198914560.0),
+    ("stablelm_3b", 330, 5332864204800.0),
+    ("stablelm_3b", 512, 8319821414400.0),
+    ("mamba2_1p3b", 153, 1291197874176.0),
+    ("mamba2_1p3b", 330, 2784936591360.0),
+    ("mamba2_1p3b", 512, 4320871317504.0),
+    ("granite", 330, 6417384652800.0),
+])
+def test_frozen_sequence_totals(config, S, want):
+    m = GRANITE if config == "granite" else _config_model(config)
+    assert flops.sequence_train_flops(m, S) == want
+
+
+@pytest.mark.parametrize("config", ["stablelm_3b", "mamba2_1p3b", "granite"])
+def test_the_order_of_the_layers_sum_changes_no_bit(config):
+    m = GRANITE if config == "granite" else _config_model(config)
+    for S in (153, 330, 512):
+        per = [flops.layer_fwd_flops(m, S, i) for i in range(m["num_layers"])]
+        assert all(x == int(x) and x < 2**53 for x in per)
+        head = 2.0 * S * m["d_model"] * m["vocab_size"]
+        for order in (per, per[::-1]):
+            total = 0.0
+            for x in order:
+                total += x
+            assert 3.0 * (total + head) == flops.sequence_train_flops(m, S)
+
+
 def test_flash_and_ssd_call_work():
     # H 2, Hkv 1, hd 4, bf16, true lengths 3 and 1: 6 + 1 causal pairs
     f, b = flops.flash_call_work(2, 1, 4, 2, [3, 1], False)
@@ -269,6 +374,21 @@ def test_traced_readers():
     assert read("ssd_roofline") is None
     assert read("step_mfu") == pytest.approx(
         100 * flops.step_train_flops(run.cell.model, [3]) / (2.0 * 989e12))
+
+
+def test_mfu_readers_sum_a_mixed_stack_layer_by_layer():
+    m = dict(SMALL, num_layers=3, layer_types=["mamba", "attention", "mamba"])
+    run = _record([_step([3, 3], 4, 0.1)], window_s=2.0)
+    run.cell.model = m
+    run.stretch = [_step([3, 3], 4, 0.1)]
+    run.trace = trace.TraceData(window_s=2.0, busy_s=1.0, tagged_s={},
+                                calls=[], device_ops=[], idle_gaps=[],
+                                n_device_events=1)
+    # two sequences of 3: 2 * 3 * (2 * mamba + attention + head)
+    flops_ = 2 * 3 * (2 * (SSD3 + MLP3) + ATTN3 + MLP3 + HEAD3)
+    read = lambda n: runner.load_reader(n).read(run)
+    assert read("mfu") == flops_ / (2.0 * 989e12)
+    assert read("step_mfu") == 100.0 * flops_ / (2.0 * 989e12)
 
 
 def test_trace_union_and_innermost():
